@@ -6,13 +6,16 @@
 Phases, one line each, in order (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel of the main path from this checkout,
-     one nvcc process per source, all at once;
+     one nvcc process per source, all at once; ptxas must report no stack
+     and no spills for any kernel;
   3. kernel: each kernel against its plain PyTorch version on the card at
      the main path's shapes (scores within atol 1e-5, integers equal),
      then timed with CUDA events (median of 60 launches after warm-up)
      beside the plain version and the bound: pass1_step (the pass-1 beam
      update) and scan_win (the pass-2 windowed word scan, at the device
-     A*'s shape and two of the host re-scan's window buckets);
+     A*'s shape, two of the host re-scan's window buckets, and its edges:
+     one frame, a chunk less and more one frame, the whole utterance, and
+     chains of 45 nodes);
   4. slice: the full-width flagship engine (5000-word 2-gram, 2004
      senones, 5 x 2048 sigmoid DNN) with the reference's search
      configuration decodes 16 generative utterances through
@@ -33,10 +36,11 @@ not available.
 
 import dataclasses
 import json
-import statistics
+import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -59,26 +63,6 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()
     return out[torch.cuda.current_device()] if out else ""
-
-
-def time_ms(fn, n=60, warm=5):
-    """Median device time of one fn() call.  A sleep kernel is queued
-    first so the host enqueues every call before the card reaches them:
-    the events then bracket device work only, not host gaps."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)
-    evs = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        evs.append((a, b))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
 def step_inputs(dev, etot, B, R, seed, ties):
@@ -187,6 +171,39 @@ def scan_inputs(tabs, K, W, T, R, B, seed, ties):
                 bidx=rint(0, B, K).int(), t0=t0.int())
 
 
+def synthetic_chains(V, N, kl, R, seed):
+    """Chain tables of V words of N nodes with arc span kl and random
+    log-probabilities (word id V the dead chain), for chain widths the
+    flagship's words (at most 21 nodes) do not reach."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=g, device=DEVICE)
+
+    loc = -3.0 * rnd(V + 1, kl + 1, N)
+    loc[rnd(V + 1, kl + 1, N) < 0.2] = LOG_ZERO
+    ent = -3.0 * rnd(V + 1, N)
+    ent[rnd(V + 1, N) < 0.7] = LOG_ZERO
+    ext = -3.0 * rnd(V + 1, N)
+    for a in (loc, ent, ext):
+        a[V] = LOG_ZERO
+    sidx = torch.randint(0, R, (V + 1, N), generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    return types.SimpleNamespace(n_words=V, nmax=N, kl=kl, loc=loc,
+                                 ent=ent, ext=ext, sidx=sidx)
+
+
+def check_no_spills(report: str, source: str) -> None:
+    """Raise unless every kernel in an nvcc ptxas report keeps its stack
+    frame and spills at 0 bytes."""
+    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                        r"stores, (\d+) bytes spill loads", report)
+    if not frames:
+        raise RuntimeError(f"no ptxas report for {source}")
+    if any(int(x) for f in frames for x in f):
+        raise RuntimeError(f"{source} uses stack or spills: {frames}")
+
+
 def compare_scan(sk, args):
     """scan_win kernel vs plain on the same arguments -> max |err|."""
     got = sk.scan_core_win(**args)
@@ -230,6 +247,7 @@ def main() -> int:
     from julius_tpu_torch.ops.dnn import build_dnn_scorer, dnn_scores
     from julius_tpu_torch.tools.synth import (flagship_engine,
                                               make_flagship_utts)
+    from julius_tpu_torch.utils.cuda_timing import time_ms
 
     name = torch.cuda.get_device_name(0)
     card = card_line()
@@ -241,10 +259,12 @@ def main() -> int:
     pk.build()
     sk.build()
     build_s = time.perf_counter() - t0
+    ptxas = {m.SOURCE.name: cuda_build.ptxas_report(m.SOURCE)
+             for m in (pk, sk)}
     phase("build", seconds=round(build_s, 3),
-          kernels=["pass1_step", "scan_win"],
-          ptxas={m.SOURCE.name: cuda_build.ptxas_report(m.SOURCE)
-                 for m in (pk, sk)})
+          kernels=["pass1_step", "scan_win"], ptxas=ptxas)
+    for source, report in ptxas.items():
+        check_no_spills(report, source)
 
     t0 = time.perf_counter()
     eng, protos = flagship_engine(trained=True, device=DEVICE)
@@ -293,36 +313,44 @@ def main() -> int:
               share_of_hbm=nbytes / (ms * 1e-3) / HBM_BYTES_PER_S,
               library_ms=None, card=card)
 
-    # ---- scan_win vs plain: the device A*'s shape, then two window
-    # buckets of the host re-scan
+    # ---- scan_win vs plain: the device A*'s shape, two window buckets of
+    # the host re-scan, then the kernel's edges: one frame, a chunk less
+    # and more one frame, the whole utterance, and chains of more than 32
+    # nodes (the block template) on synthetic tables
     tabs = eng.device_chains
+    wide = synthetic_chains(500, 45, 2, R, seed=5)
     T_A, B_A = 509, N_UTTS
     K_A, W_A = B_A * p2d.POPS, p2d.SCAN_WIN
-    scan_shapes = [(K_A, W_A), (256, 64), (1024, 256)]
+    C = sk.CHUNK
+    scan_shapes = [(tabs, K_A, W_A), (tabs, 256, 64), (tabs, 1024, 256),
+                   (tabs, K_A, 1), (tabs, K_A, C - 1), (tabs, K_A, C + 1),
+                   (tabs, K_A, T_A), (wide, 64, 100)]
     scan_err = 0.0
-    for K, W in scan_shapes:
+    for tb, K, W in scan_shapes:
         for ties in (True, False):
-            args = scan_inputs(tabs, K, W, T_A, R, B_A, K + W + ties, ties)
+            args = scan_inputs(tb, K, W, T_A, R, B_A, K + W + ties, ties)
             scan_err = max(scan_err, compare_scan(sk, args))
-    N_c, K1_c = tabs.nmax, tabs.kl + 1
     phase("kernel_check", kernel="scan_win", max_abs_err=scan_err,
-          shapes=[[K, W, N_c, K1_c - 1] for K, W in scan_shapes],
+          shapes=[[K, W, tb.nmax, tb.kl] for tb, K, W in scan_shapes],
           frames=T_A, senones=R)
     scan_t = {}
-    for K, W in scan_shapes:
-        args = scan_inputs(tabs, K, W, T_A, R, B_A, 3, False)
+    for n_shape, (tb, K, W) in enumerate(scan_shapes):
+        N_c, K1_c = tb.nmax, tb.kl + 1
+        args = scan_inputs(tb, K, W, T_A, R, B_A, 3, False)
         ms = time_ms(lambda: sk.scan_core_win(**args))
-        plain_ms = time_ms(lambda: sk.scan_core_win_plain(**args), n=50,
-                           warm=2)
+        # the plain version at the edges: a few calls are enough
+        plain_ms = time_ms(lambda: sk.scan_core_win_plain(**args),
+                           n=50 if n_shape < 3 else 10, warm=2)
         nbytes = scan_bytes(K, W, N_c, K1_c)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = scan_ops(K, W, N_c, K1_c) / F32_OPS_PER_S * 1e3
-        scan_t[K, W] = dict(
+        scan_t[N_c, K, W] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         phase("kernel_time", kernel="scan_win", chains=K, window=W,
-              nodes=N_c, **scan_t[K, W], bytes=nbytes,
-              us_per_frame=ms * 1e3 / W, library_ms=None, card=card)
+              nodes=N_c, arc_span_k=K1_c - 1, **scan_t[N_c, K, W],
+              bytes=nbytes, us_per_frame=ms * 1e3 / W, library_ms=None,
+              card=card)
 
     # ---- the full-width slice through the engine's entry point
     truths, wins, lens = make_flagship_utts(
@@ -500,7 +528,7 @@ def main() -> int:
           from_pass2=sum(r.from_pass == 2 for r in res_frozen), card=card)
 
     t = timings[N_UTTS]
-    s = scan_t[K_A, W_A]
+    s = scan_t[tabs.nmax, K_A, W_A]
     print(json.dumps({"kernels": [{
         "name": "pass1_step", "route": "cuda",
         "source": "julius_tpu_torch/csrc/pass1_step.cu",

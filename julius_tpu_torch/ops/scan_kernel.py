@@ -13,7 +13,12 @@ plain version takes the same arguments so the two stay comparable.
 
 `scan_core_win` runs the plain version only for CPU tensors.  For CUDA
 tensors it launches the kernel or raises; `LAUNCHES` counts launches.
-The kernel is built with nvcc at first use (ops/cuda_build.py).
+The kernel is built with nvcc at first use (ops/cuda_build.py).  For
+chains with N + KL <= 32 and KL <= 3 (every flagship word) it is
+warp-specialised: a recurrence warp carries each node's score and entry
+index through CHUNK-frame chunks, gather warps copy the chunks' outprob
+values ahead of it, and an argmax warp takes each frame's first best
+word end a chunk behind.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from julius_tpu_torch.utils.logadd import LOG_ZERO
 
 NEG_HALF = LOG_ZERO / 2
 MAX_K1 = 9              # in-word arc span + 1 the kernel holds
-MAX_NODES = 1024        # one thread per chain node
+MAX_NODES = 1024        # one thread a node past the warp template
+CHUNK = 32              # frames a stage of the warp-specialised kernel
 
 SOURCE = cuda_build.CSRC / "scan_win.cu"
 
@@ -37,8 +43,11 @@ _lib = None
 
 
 def _shift(x: torch.Tensor, j: int, fill) -> torch.Tensor:
-    """x[:, n-j] along the node axis, `fill` where n-j < 0."""
-    return torch.cat([x.new_full((x.shape[0], j), fill), x[:, :-j]], dim=1)
+    """x[:, n-j] along the node axis, `fill` where n-j < 0 (everywhere
+    when j reaches past the chain, as in the kernel)."""
+    K, N = x.shape
+    return torch.cat([x.new_full((K, min(j, N)), fill),
+                      x[:, :max(N - j, 0)]], dim=1)
 
 
 def scan_core_win_plain(loc, ent, ext, sidx, seed, out_ext, bidx, t0):
@@ -88,19 +97,22 @@ def scan_core_win_plain(loc, ent, ext, sidx, seed, out_ext, bidx, t0):
     return torch.cat(g, 1), torch.cat(beg, 1), torch.cat(svo, 1)
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = cuda_build.load(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare `scan_win_launch`'s C signature on a loaded library."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.scan_win_launch.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
         vp, vp, vp, vp]
     lib.scan_win_launch.restype = i32
-    _lib = lib
     return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        _lib = bind(cuda_build.load(SOURCE))
+    return _lib
 
 
 def scan_core_win(loc, ent, ext, sidx, seed, out_ext, bidx, t0):

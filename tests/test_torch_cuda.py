@@ -91,9 +91,14 @@ def make_scan_inputs(seed, K, W, N, K1, B=3, T=120, R=60):
     return (loc, ent, ext, sidx, seed_w, out, bidx, t0)
 
 
-@pytest.mark.parametrize("K,W,N,K1", [(16, 64, 21, 2), (5, 120, 32, 1),
-                                      (7, 40, 33, 3), (3, 17, 300, 9),
-                                      (2, 9, 1, 1)])
+@pytest.mark.parametrize("K,W,N,K1", [
+    (16, 64, 21, 2), (5, 120, 32, 1), (7, 40, 33, 3), (3, 17, 300, 9),
+    (2, 9, 1, 1),
+    # the edges of the chunked kernel: one frame, a chunk less and more
+    # one frame, the whole utterance (W = T), more than 32 nodes, the
+    # longest arc span it takes and the first one it leaves to the block
+    (16, 1, 21, 2), (16, tsk.CHUNK - 1, 21, 2), (16, tsk.CHUNK + 1, 21, 2),
+    (16, 120, 21, 2), (64, 100, 45, 3), (8, 40, 21, 4), (8, 40, 21, 5)])
 def test_scan_kernel_matches_plain(cuda, K, W, N, K1):
     arrays = make_scan_inputs(K + W + N, K, W, N, K1)
     args = [torch.from_numpy(a).to(cuda) for a in arrays]
