@@ -27,7 +27,26 @@ Phases, one line each, in order (any failure exits non-zero):
   5. rescan: the host-driven re-scan (pass2_device=False) on 4 of the
      utterances, held to the device A*'s word ids;
   6. frozen: the frozen-score pass 2 (pass2_rescan=False) on 4 of them;
-  7. the kernels' JSON line, the card line, and the result line last.
+  7. lvcsr: the 20k-word tied-triphone configuration at full width
+     (lvcsr_engine: 299,718 nodes, 2040 senones plus the pseudo
+     set-states' columns, 5 x 2048 DNN, strict inter-word CD in pass 2).
+     Both kernels are held against their plain versions and timed at
+     its shapes (pass1_step at B = 32 over the widened outprob row,
+     scan_win at the A*'s shape with the word-head columns substituted
+     by left-context class), the pseudo aggregation on the card against
+     the CPU; then 32 generative utterances decode three times through
+     Engine.decode_features (the first two calibrate the device A*'s
+     spot-check), the launch counts are read around the third, and a
+     staged decode splits its wall into DNN, pseudo aggregation, pass 1,
+     device A*, retry net and assembly;
+  8. waveform: the flagship engine's waveform path (front end, splice,
+     DNN, pass 1: Engine._decode_device) on 64 x 10 s of seeded noise at
+     16 kHz, timed as bench.py times it, with the launch counts read
+     around one call; its front end held against the CPU front end on
+     the same waveforms; Engine.recognize_batch end to end on two short
+     waveforms;
+  9. the kernels' JSON line (one entry per kernel and path), the card
+     line, and the result line last.
 
 Weights and utterances are made from fixed seeds; nothing is read from
 outside the repository.  Exits non-zero without a result where CUDA is
@@ -49,6 +68,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
 N_UTTS = 16
 N_SIDE = 4                    # utterances for the rescan / frozen phases
+N_LVCSR = 32                  # bench.py's lvcsr_20k batch
+N_WAVE, WAVE_S = 64, 10.0     # bench.py's waveform batch and length
 DEVICE = "cuda"
 LOG_ZERO = -1e10
 
@@ -130,12 +151,14 @@ def step_ops(B, N, K1):
     return B * N * (2 * K1 + 3)
 
 
-def scan_inputs(tabs, K, W, T, R, B, seed, ties):
+def scan_inputs(tabs, K, W, T, R, B, seed, ties, heads=None):
     """One windowed scan's arguments on the card.  Chains are vocabulary
     words (every fifth the dead chain, word id V) with the engine's own
     tables, or, with ties=True, integer-valued tables so shifted arcs,
     entries and word ends tie exactly; seeds hold LOG_ZERO runs and every
-    fourth window ends at the last frame."""
+    fourth window ends at the last frame.  With `heads` (strict
+    inter-word CD tables) each chain's word-head columns are those of a
+    random left-context class, as the device A* substitutes them."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     V = tabs.n_words
 
@@ -149,6 +172,11 @@ def scan_inputs(tabs, K, W, T, R, B, seed, ties):
     wids[::5] = V
     loc, ent, ext = tabs.loc[wids], tabs.ent[wids], tabs.ext[wids]
     sidx = tabs.sidx[wids]
+    if heads is not None:
+        from julius_tpu_torch.search.scan import head_substituted_sidx
+        lcc = rint(0, heads.head_sidx.shape[1], K)
+        sidx = head_substituted_sidx(sidx, wids, lcc, heads.head_sidx,
+                                     heads.head_ns)
     if ties:
         loc = rint(-2, 1, *loc.shape).float()
         loc[rnd(*loc.shape) < 0.2] = LOG_ZERO
@@ -233,6 +261,296 @@ def scan_ops(K, W, N, K1):
     return K * W * N * (2 * K1 + 7)
 
 
+def exact_count(res, truths) -> int:
+    """Results whose output words equal the generating words."""
+    return sum(1 for r, truth in zip(res, truths)
+               if [t for t in r.texts if t]
+               == [w for w in truth if w not in ("<s>", "</s>")])
+
+
+def check_results(res, where: str) -> None:
+    for r in res:
+        if not (r.valid and np.isfinite(r.score) and r.words
+                and r.words[0] == "<s>" and r.words[-1] == "</s>"):
+            raise RuntimeError(f"bad {where} result {r}")
+
+
+def time_step(pk, args, B, N, K1, R):
+    """pass1_step's device time, its plain version's and its bound."""
+    from julius_tpu_torch.utils.cuda_timing import time_ms
+    ms = time_ms(lambda: pk.fused_step(**args))
+    plain_ms = time_ms(lambda: pk.fused_step_plain(**args))
+    bytes_ms = step_bytes(B, N, K1, R) / HBM_BYTES_PER_S * 1e3
+    ops_ms = step_ops(B, N, K1) / F32_OPS_PER_S * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def time_scan(sk, args, K, W, N, K1, n_plain=50):
+    """scan_win's device time, its plain version's and its bound."""
+    from julius_tpu_torch.utils.cuda_timing import time_ms
+    ms = time_ms(lambda: sk.scan_core_win(**args))
+    plain_ms = time_ms(lambda: sk.scan_core_win_plain(**args), n=n_plain,
+                       warm=2)
+    bytes_ms = scan_bytes(K, W, N, K1) / HBM_BYTES_PER_S * 1e3
+    ops_ms = scan_ops(K, W, N, K1) / F32_OPS_PER_S * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def pad_windows(wins, lens):
+    """Spliced windows -> ([B, T, D] features on the card, [B] lengths)."""
+    feats = np.zeros((len(wins), max(lens), wins[0].shape[1]), np.float32)
+    for u, w in enumerate(wins):
+        feats[u, :w.shape[0]] = w
+    return torch.from_numpy(feats).to(DEVICE), np.asarray(lens, np.int32)
+
+
+def lvcsr_phase(card):
+    """The 20k-word tied-triphone configuration: kernels at its shapes,
+    then three decodes of bench.py's 32 utterances and a staged one.
+    Returns the kernels' entries for the JSON line."""
+    from julius_tpu_torch.ops import gmm
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops.dnn import dnn_scores
+    from julius_tpu_torch.search import pass1 as p1
+    from julius_tpu_torch.search import pass2_device as p2d
+    from julius_tpu_torch.search import pass2_rescan as p2r
+    from julius_tpu_torch.tools.synth import lvcsr_engine, make_lvcsr_utts
+    from julius_tpu_torch.utils.cuda_timing import time_ms
+
+    t0 = time.perf_counter()
+    eng, protos = lvcsr_engine(n_words=20000, hidden=2048, n_layers=5,
+                               device=DEVICE)
+    heads = eng.iwcd2_tables
+    build_s = time.perf_counter() - t0
+    dev = eng.dev_net
+    N, K1 = dev.loc_lp.shape[1], dev.loc_lp.shape[0]
+    S = eng.hmm.n_states
+    mem, seg, nq = eng._pseudo
+    R = S + nq
+    tabs = eng.device_chains
+    if not (eng.search_cfg.strict_iwcd2 and heads.n_resolved > 0
+            and eng._device_astar_ok()):
+        raise RuntimeError("lvcsr_engine does not take the strict device A*")
+    truths, wins, lens = make_lvcsr_utts(eng, protos, N_LVCSR, 120, 11,
+                                         min_words=5, max_words=10, seed=3)
+    feats, lens_np = pad_windows(wins, lens)
+    T = feats.shape[1]
+    phase("lvcsr_engine", seconds=build_s, nodes=N, arc_span_k=K1 - 1,
+          senones=S, pseudo_set_states=nq, pseudo_members=int(mem.shape[0]),
+          outprob_columns=R, words=eng.voca.n_words,
+          exits=int(dev.exit_nodes.shape[0]), trellis_m=eng.p1_cfg.n_atoms,
+          chain_nodes=tabs.nmax, chain_arc_span=tabs.kl,
+          iwcd2_classes=int(heads.head_sidx.shape[1]), iwcd2_head=heads.H,
+          iwcd2_resolved=heads.n_resolved, utterances=N_LVCSR, frames=T)
+
+    # ---- both kernels against their plain versions at these shapes
+    etot = p1.entry_total(dev)
+    step_err = 0.0
+    for ties in (True, False):
+        args = step_inputs(dev, etot, N_LVCSR, R, seed=21 + ties, ties=ties)
+        step_err = max(step_err, compare_step(pk, args)[0])
+    K_A, W_A = N_LVCSR * p2d.POPS, min(p2d.SCAN_WIN, T)
+    scan_err = 0.0
+    for ties in (True, False):
+        args = scan_inputs(tabs, K_A, W_A, T, R, N_LVCSR, 23 + ties, ties,
+                           heads=heads)
+        scan_err = max(scan_err, compare_scan(sk, args))
+    phase("kernel_check", path="lvcsr", kernels=["pass1_step", "scan_win"],
+          pass1_step_max_abs_err=step_err, scan_win_max_abs_err=scan_err,
+          pass1_step_shape=[N_LVCSR, N, K1 - 1, R],
+          scan_win_shape=[K_A, W_A, tabs.nmax, tabs.kl, R])
+    args = step_inputs(dev, etot, N_LVCSR, R, seed=25, ties=False)
+    step_t = time_step(pk, args, N_LVCSR, N, K1, R)
+    phase("kernel_time", path="lvcsr", kernel="pass1_step", batch=N_LVCSR,
+          nodes=N, columns=R, **step_t, library_ms=None, card=card)
+    args = scan_inputs(tabs, K_A, W_A, T, R, N_LVCSR, 27, False, heads=heads)
+    scan_t = time_scan(sk, args, K_A, W_A, tabs.nmax, tabs.kl + 1)
+    phase("kernel_time", path="lvcsr", kernel="scan_win", chains=K_A,
+          window=W_A, nodes=tabs.nmax, arc_span_k=tabs.kl, **scan_t,
+          library_ms=None, card=card)
+    del args
+
+    # ---- the pseudo aggregation on the card against the CPU, then timed
+    with torch.no_grad():
+        rows = dnn_scores(eng.dnn_scorer, feats[:2, :60]).index_select(
+            -1, eng._state_sid)
+        cpu_agg = gmm.aggregate_pseudo(
+            mem.cpu(), seg.cpu(), nq, rows.cpu(), eng.am_cfg.iwcd_scheme,
+            eng.am_cfg.iwcd_nbest)
+        card_agg = eng._extend(rows)[..., S:].cpu()
+    if not torch.equal(card_agg, cpu_agg):
+        raise RuntimeError("pseudo aggregation on the card differs from "
+                           "the CPU by "
+                           f"{float((card_agg - cpu_agg).abs().max())}")
+
+    # ---- three decodes; the counts are read around the third
+    spot, retried = [], []
+    for _ in range(2):
+        eng.decode_features(feats, lens_np)
+        spot.append(eng._p2d_spot_ok)
+        retried.append(eng.last_pass2["retried"])
+    torch.cuda.synchronize()
+    pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+    t0 = time.perf_counter()
+    res = eng.decode_features(feats, lens_np)
+    e2e_s = time.perf_counter() - t0
+    launches, scan_launches, chunks = pk.LAUNCHES, sk.LAUNCHES, p2r.CHUNKS
+    stats = dict(p2d.LAST_STATS)
+    spot.append(eng._p2d_spot_ok)
+    retried.append(eng.last_pass2["retried"])
+    if launches != T:
+        raise RuntimeError(f"{launches} pass1_step launches for {T} frames")
+    if scan_launches != stats["rounds"] + chunks or scan_launches == 0:
+        raise RuntimeError(f"{scan_launches} scan_win launches for "
+                           f"{stats['rounds']} A* rounds + {chunks} chunks")
+    check_results(res, "lvcsr")
+
+    # ---- the same decode staged, for where the time goes
+    torch.cuda.synchronize()
+    walls = {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        rows = dnn_scores(eng.dnn_scorer, feats).index_select(
+            -1, eng._state_sid)
+        torch.cuda.synchronize()
+        walls["dnn_wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out_ext = eng._extend(rows)
+        torch.cuda.synchronize()
+        walls["pseudo_wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        trellis = eng._pass1(out_ext, lens_np)
+        torch.cuda.synchronize()
+        walls["pass1_wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        staged = eng._results(trellis, lens_np, out_ext=out_ext)
+        p2_s = time.perf_counter() - t0
+    net = dict(eng.last_pass2)
+    walls.update(astar_wall_s=net["astar_s"], retry_net_wall_s=net["retry_s"],
+                 assembly_wall_s=p2_s - net["astar_s"] - net["retry_s"])
+    if [r.word_ids for r in staged] != [r.word_ids for r in res]:
+        raise RuntimeError("staged lvcsr decode differs from decode_features")
+    BT = N_LVCSR * T
+    agg_ms = time_ms(lambda: eng._extend(rows), n=10, warm=2)
+    agg_bytes = BT * S * 4 + int(mem.shape[0]) * 8 + BT * nq * 4
+    exact = exact_count(res, truths)
+    audio_s = float(lens_np.sum()) / 100.0
+    phase("lvcsr", utterances=N_LVCSR, frames=T, audio_s=audio_s,
+          e2e_wall_s=e2e_s, xrt=audio_s / e2e_s, **walls,
+          pseudo_device_ms=agg_ms,
+          pseudo_bound_ms=agg_bytes / HBM_BYTES_PER_S * 1e3,
+          exact_transcripts=f"{exact}/{N_LVCSR}",
+          from_pass2=sum(r.from_pass == 2 for r in res),
+          spot_checks_passed_after_each_decode=spot,
+          retried_in_each_decode=retried, astar_rounds=stats["rounds"],
+          astar_n_pops=stats["n_pops"], astar_loop_wall_s=stats["wall_loop"],
+          kernel_launches=launches, scan_win_launches=scan_launches,
+          rescan_chunks=chunks, card=card)
+    if exact < N_LVCSR - 2:
+        raise RuntimeError(f"only {exact}/{N_LVCSR} exact lvcsr transcripts")
+    return [{"name": "pass1_step", "path": "lvcsr", "route": "cuda",
+             "source": "julius_tpu_torch/csrc/pass1_step.cu",
+             "replaces": "julius_tpu/ops/pass1_kernel.py:49",
+             "launches": launches, "max_abs_err": step_err, **step_t,
+             "library_ms": None},
+            {"name": "scan_win", "path": "lvcsr", "route": "cuda",
+             "source": "julius_tpu_torch/csrc/scan_win.cu",
+             "replaces": "julius_tpu/search/scan.py:317",
+             "launches": scan_launches, "max_abs_err": scan_err, **scan_t,
+             "library_ms": None}]
+
+
+def waveform_phase(eng, card, step_t):
+    """The flagship's waveform path at bench.py's shape, its front end
+    against the CPU front end, and recognize_batch on two short
+    waveforms.  Returns the kernel's entry for the JSON line."""
+    from julius_tpu_torch.frontend import mfcc as fe
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+
+    L = int(WAVE_S * 16000)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    wave = 2000.0 * torch.randn((N_WAVE, L), generator=g, device=DEVICE)
+    lengths = torch.full((N_WAVE,), L, dtype=torch.int32, device=DEVICE)
+    T = fe.num_frames(L, eng.fe_cfg)
+    with torch.no_grad():
+        eng._decode_device(wave, lengths)                  # warm-up
+        torch.cuda.synchronize()
+        pk.LAUNCHES = sk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        trellis, nfr, out_ext = eng._decode_device(wave, lengths)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+        if launches != T or scan_launches:
+            raise RuntimeError(f"{launches} pass1_step and {scan_launches} "
+                               f"scan_win launches for {T} frames")
+        if not (nfr == T).all():
+            raise RuntimeError(f"frame counts {nfr.tolist()}, expected {T}")
+        if not (torch.isfinite(out_ext).all()
+                and (trellis.word[:, -1] >= 0).any(dim=1).all()):
+            raise RuntimeError("waveform path: non-finite outprobs or an "
+                               "utterance with no word end at its last frame")
+        n_iter = 3
+        t0 = time.perf_counter()
+        for _ in range(n_iter):
+            eng._decode_device(wave, lengths)
+        torch.cuda.synchronize()
+        p1_wall = (time.perf_counter() - t0) / n_iter
+        # staged: front end + splice, DNN, pass 1
+        t0 = time.perf_counter()
+        feats, mask = eng._features(wave, lengths)
+        torch.cuda.synchronize()
+        fe_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out_ext = eng._outprob(feats)
+        torch.cuda.synchronize()
+        dnn_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng._pass1(out_ext, mask.sum(dim=1).int())
+        torch.cuda.synchronize()
+        p1_s = time.perf_counter() - t0
+        del out_ext, trellis
+        # the front end on the card against the CPU front end
+        cpu_feats, cpu_mask = fe.extract_features(
+            wave.cpu(), lengths.cpu(), eng.fe_tables)
+        card_feats, card_mask = fe.extract_features(wave, lengths,
+                                                    eng.fe_tables)
+        card_feats = card_feats.cpu()
+    fe_err = float((card_feats - cpu_feats).abs().max())
+    if not (torch.equal(card_mask.cpu(), cpu_mask)
+            and torch.allclose(card_feats, cpu_feats, atol=1e-4, rtol=1e-4)):
+        raise RuntimeError(f"front end on the card vs CPU: max err {fe_err}")
+    # recognize_batch end to end on two short waveforms
+    short = np.zeros((2, 16000), np.float32)
+    rng = np.random.default_rng(5)
+    short[0] = 2000.0 * rng.standard_normal(16000)
+    short[1, :9600] = 2000.0 * rng.standard_normal(9600)
+    rb = eng.recognize_batch(short, [16000, 9600])
+    for r in rb:
+        if not (r.valid and np.isfinite(r.score) and r.words):
+            raise RuntimeError(f"bad recognize_batch result {r}")
+    phase("waveform", utterances=N_WAVE, seconds_each=WAVE_S, frames=T,
+          decode_device_wall_s=p1_wall, first_timed_call_s=one_s,
+          pass1_only_xrt=N_WAVE * WAVE_S / p1_wall,
+          frontend_splice_wall_s=fe_s, dnn_wall_s=dnn_s, pass1_wall_s=p1_s,
+          pass1_kernel_s=launches * step_t["ms"] * 1e-3,
+          kernel_launches=launches, frontend_card_vs_cpu_max_err=fe_err,
+          recognize_batch=[dict(words=r.words, score=r.score,
+                                from_pass=r.from_pass) for r in rb],
+          card=card)
+    return [{"name": "pass1_step", "path": "waveform", "route": "cuda",
+             "source": "julius_tpu_torch/csrc/pass1_step.cu",
+             "replaces": "julius_tpu/ops/pass1_kernel.py:49",
+             "launches": launches, "max_abs_err": step_t["max_abs_err"],
+             "ms": step_t["ms"], "plain_ms": step_t["plain_ms"],
+             "bound_ms": step_t["bound_ms"], "bound_by": step_t["bound_by"],
+             "library_ms": None}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -247,7 +565,6 @@ def main() -> int:
     from julius_tpu_torch.ops.dnn import build_dnn_scorer, dnn_scores
     from julius_tpu_torch.tools.synth import (flagship_engine,
                                               make_flagship_utts)
-    from julius_tpu_torch.utils.cuda_timing import time_ms
 
     name = torch.cuda.get_device_name(0)
     card = card_line()
@@ -298,19 +615,11 @@ def main() -> int:
     timings = {}
     for B in (64, N_UTTS, 1):
         args = step_inputs(dev, etot, B, R, seed=11, ties=False)
-        ms = time_ms(lambda: pk.fused_step(**args))
-        plain_ms = time_ms(lambda: pk.fused_step_plain(**args))
+        timings[B] = t = time_step(pk, args, B, N, K1, R)
         nbytes = step_bytes(B, N, K1, R)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = step_ops(B, N, K1) / F32_OPS_PER_S * 1e3
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        timings[B] = dict(ms=ms, plain_ms=plain_ms,
-                          bound_ms=max(bytes_ms, ops_ms), bound_by=bound_by)
-        phase("kernel_time", kernel="pass1_step", batch=B, nodes=N,
-              ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-              bound_by=bound_by,
-              bytes=nbytes, gb_per_s=nbytes / ms / 1e6,
-              share_of_hbm=nbytes / (ms * 1e-3) / HBM_BYTES_PER_S,
+        phase("kernel_time", kernel="pass1_step", batch=B, nodes=N, **t,
+              bytes=nbytes, gb_per_s=nbytes / t["ms"] / 1e6,
+              share_of_hbm=nbytes / (t["ms"] * 1e-3) / HBM_BYTES_PER_S,
               library_ms=None, card=card)
 
     # ---- scan_win vs plain: the device A*'s shape, two window buckets of
@@ -337,31 +646,20 @@ def main() -> int:
     for n_shape, (tb, K, W) in enumerate(scan_shapes):
         N_c, K1_c = tb.nmax, tb.kl + 1
         args = scan_inputs(tb, K, W, T_A, R, B_A, 3, False)
-        ms = time_ms(lambda: sk.scan_core_win(**args))
         # the plain version at the edges: a few calls are enough
-        plain_ms = time_ms(lambda: sk.scan_core_win_plain(**args),
-                           n=50 if n_shape < 3 else 10, warm=2)
-        nbytes = scan_bytes(K, W, N_c, K1_c)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = scan_ops(K, W, N_c, K1_c) / F32_OPS_PER_S * 1e3
-        scan_t[N_c, K, W] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        scan_t[N_c, K, W] = t = time_scan(sk, args, K, W, N_c, K1_c,
+                                          n_plain=50 if n_shape < 3 else 10)
         phase("kernel_time", kernel="scan_win", chains=K, window=W,
-              nodes=N_c, arc_span_k=K1_c - 1, **scan_t[N_c, K, W],
-              bytes=nbytes, us_per_frame=ms * 1e3 / W, library_ms=None,
-              card=card)
+              nodes=N_c, arc_span_k=K1_c - 1, **t,
+              bytes=scan_bytes(K, W, N_c, K1_c),
+              us_per_frame=t["ms"] * 1e3 / W, library_ms=None, card=card)
 
     # ---- the full-width slice through the engine's entry point
     truths, wins, lens = make_flagship_utts(
         eng.hmm, eng.voca, eng.lm, protos, N_UTTS, 120, 11,
         min_words=6, max_words=12, seed=1)
-    T = max(lens)
-    feats_np = np.zeros((N_UTTS, T, 120 * 11), np.float32)
-    for u, w in enumerate(wins):
-        feats_np[u, :w.shape[0]] = w
-    feats = torch.from_numpy(feats_np).to(DEVICE)
-    lens_np = np.asarray(lens, np.int32)
+    feats, lens_np = pad_windows(wins, lens)
+    T = feats.shape[1]
 
     # DNN scores on the card against the CPU path on a small input
     x = feats[:2, :200]
@@ -460,13 +758,8 @@ def main() -> int:
                 abs(x.score - y.score) > 1e-4 for x, y in zip(a, b)):
             raise RuntimeError("device A* kernel vs plain scan differ")
 
-    for r in res:
-        if not (r.valid and np.isfinite(r.score) and r.words
-                and r.words[0] == "<s>" and r.words[-1] == "</s>"):
-            raise RuntimeError(f"bad result {r}")
-    exact = sum(1 for r, truth in zip(res, truths)
-                if [t for t in r.texts if t]
-                == [w for w in truth if w not in ("<s>", "</s>")])
+    check_results(res, "flagship")
+    exact = exact_count(res, truths)
     audio_s = float(lens_np.sum()) / 100.0
     phase("slice", utterances=N_UTTS, frames=T, audio_s=audio_s,
           dnn_wall_s=dnn_s, pass1_wall_s=p1_s,
@@ -520,30 +813,32 @@ def main() -> int:
     for r in res_frozen:
         if not (r.valid and np.isfinite(r.score) and r.words):
             raise RuntimeError(f"bad frozen-search result {r}")
-    frozen_exact = sum(1 for r, truth in zip(res_frozen, truths[side])
-                       if [t for t in r.texts if t]
-                       == [w for w in truth if w not in ("<s>", "</s>")])
+    frozen_exact = exact_count(res_frozen, truths[side])
     phase("frozen", utterances=N_SIDE, wall_s=frozen_s,
           exact_transcripts=f"{frozen_exact}/{N_SIDE}",
           from_pass2=sum(r.from_pass == 2 for r in res_frozen), card=card)
 
+    kernels = waveform_phase(eng, card, dict(timings[64],
+                                             max_abs_err=max_err))
+    kernels += lvcsr_phase(card)
+
     t = timings[N_UTTS]
     s = scan_t[tabs.nmax, K_A, W_A]
     print(json.dumps({"kernels": [{
-        "name": "pass1_step", "route": "cuda",
+        "name": "pass1_step", "path": "flagship", "route": "cuda",
         "source": "julius_tpu_torch/csrc/pass1_step.cu",
         "replaces": "julius_tpu/ops/pass1_kernel.py:49",
         "launches": launches, "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None}, {
-        "name": "scan_win", "route": "cuda",
+        "name": "scan_win", "path": "flagship", "route": "cuda",
         "source": "julius_tpu_torch/csrc/scan_win.cu",
         "replaces": "julius_tpu/search/scan.py:317",
         "launches": scan_launches, "max_abs_err": scan_err,
         "ms": s["ms"], "plain_ms": s["plain_ms"],
         "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}] + kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

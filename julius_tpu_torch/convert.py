@@ -4,9 +4,11 @@ The reference (`julius_tpu`) keeps its DNN scorer, decode-network tables
 and hashed N-gram as dataclasses of arrays, and its pass-2 chain tables
 as an object with array attributes.  `numpy_fields` reads any such
 dataclass into a dict of numpy arrays (np.asarray of each field, lists
-kept as lists of arrays), `chain_fields` reads the chain tables, and
-`load_tables` installs those arrays in a port Engine, so both packages
-compute from the same numbers.  This module reads the objects it is
+kept as lists of arrays), `chain_fields` reads the chain tables,
+`pseudo_fields` a triphone engine's pseudo set-state arrays,
+`iwcd2_fields` its strict inter-word CD head tables, and `load_tables`
+installs those arrays in a port Engine, so both packages compute from
+the same numbers.  This module reads the objects it is
 handed by field or attribute name and imports nothing of the reference
 package.
 
@@ -21,8 +23,10 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from julius_tpu_torch.ops.dnn import DNNScorer
+from julius_tpu_torch.search.iwcd2 import StrictIWCDTables
 from julius_tpu_torch.search.ngram_device import (DeviceNgram,
                                                   device_ngram_from_numpy)
 from julius_tpu_torch.search.pass1 import (DeviceNetwork,
@@ -87,13 +91,43 @@ def device_chains(a: dict, device) -> DeviceChainTables:
                                         device)
 
 
+def pseudo_fields(engine) -> Optional[dict]:
+    """{members, segids, n_pseudo} of an engine's pseudo set-states (its
+    `_pseudo` triple), or None for a network without them."""
+    if engine._pseudo is None:
+        return None
+    members, segids, n_pseudo = engine._pseudo
+    return dict(members=np.asarray(members), segids=np.asarray(segids),
+                n_pseudo=int(n_pseudo))
+
+
+def iwcd2_fields(tabs) -> dict:
+    """{head_sidx, head_ns, lc_of_word, n_resolved} of strict inter-word
+    CD head tables (`iwcd2_tables`)."""
+    return dict(head_sidx=np.asarray(tabs.head_sidx),
+                head_ns=np.asarray(tabs.head_ns),
+                lc_of_word=np.asarray(tabs.lc_of_word),
+                n_resolved=int(tabs.n_resolved))
+
+
 def load_tables(engine, dnn: dict, network: dict, ngram: dict,
-                chains: Optional[dict] = None) -> None:
+                chains: Optional[dict] = None, pseudo: Optional[dict] = None,
+                iwcd2: Optional[dict] = None) -> None:
     """Replace a port Engine's DNN scorer, network and N-gram tables
-    (and, given a `chain_fields` dict, its pass-2 chain tables) with
-    the given host arrays (each a `numpy_fields` dict)."""
+    with the given host arrays (each a `numpy_fields` dict), and, where
+    given, its pass-2 chain tables (`chain_fields`), pseudo set-state
+    arrays (`pseudo_fields`) and strict head tables (`iwcd2_fields`)."""
     engine.dnn_scorer = dnn_scorer(dnn, engine.device)
     engine.dev_net = device_network(network, engine.device)
     engine.ngram_dev = device_ngram(ngram, engine.device)
     if chains is not None:
         engine._device_chains = device_chains(chains, engine.device)
+    if pseudo is not None:
+        engine._pseudo = tuple(
+            torch.as_tensor(pseudo[k], dtype=torch.int64,
+                            device=engine.device)
+            for k in ("members", "segids")) + (pseudo["n_pseudo"],)
+    if iwcd2 is not None:
+        engine._iwcd2_tables = StrictIWCDTables.from_numpy(
+            iwcd2["head_sidx"], iwcd2["head_ns"], iwcd2["lc_of_word"],
+            iwcd2["n_resolved"], engine.device)

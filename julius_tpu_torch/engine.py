@@ -1,14 +1,19 @@
 """Recognition engine: model fusion + batched decoding (torch).
 
-Port of `julius_tpu/engine.py` for the flagship DNN-HMM N-gram decode:
-DNN senone scores -> pass 1 (ops/pass1_kernel.py beam-update kernel) ->
-pass 2 -> N-best.  Pass 2 is the reference's default, the acoustic
-re-scan A* on the device (search/pass2_device.py, whose word scans run
+Port of `julius_tpu/engine.py` for the DNN-HMM N-gram decode: waveform
+-> front end (frontend/mfcc.py) -> DNN senone scores, plus the
+pseudo-phone-set columns of triphone networks (ops/gmm.py) -> pass 1
+(ops/pass1_kernel.py beam-update kernel) -> pass 2 -> N-best; decoding
+may also start from features or from outprobs.  Pass 2 is the
+reference's default, the acoustic re-scan A* on the device
+(search/pass2_device.py, whose word scans run
 the ops/scan_kernel.py kernel) with its retry/spot-check net through the
 host-driven re-scan (search/pass2_rescan.py); `pass2_device=False`
 takes the host-driven re-scan alone, and `pass2_rescan=False` the
-frozen-score stack search (search/pass2.py).  One Engine = one AM + one
-LM (for both passes) + one search config; it owns the device tables.
+frozen-score stack search (search/pass2.py); `strict_iwcd2` resolves
+word-head triphones against the previous word in both re-scans
+(search/iwcd2.py).  One Engine = one AM + one LM (for both passes) + one
+search config; it owns the device tables.
 
 Configurations outside this slice raise NotImplementedError naming the
 ROADMAP.md item that brings them; nothing falls back silently.
@@ -24,15 +29,18 @@ import numpy as np
 import torch
 
 from julius_tpu_torch.config import AMConfig, FrontendConfig, SearchConfig
+from julius_tpu_torch.frontend import mfcc as fe
 from julius_tpu_torch.io.arpa import NGramLM
 from julius_tpu_torch.io.dnn import DNNParams
 from julius_tpu_torch.io.htk_dict import Vocabulary
 from julius_tpu_torch.models.hmm import HMMSet
 from julius_tpu_torch.ops.dnn import DNNScorer, build_dnn_scorer, dnn_scores
+from julius_tpu_torch.ops.gmm import aggregate_pseudo
 from julius_tpu_torch.search import pass1 as p1
 from julius_tpu_torch.search import pass2 as p2
 from julius_tpu_torch.search import pass2_device as p2d
 from julius_tpu_torch.search import pass2_rescan as p2r
+from julius_tpu_torch.search.iwcd2 import StrictIWCDTables
 from julius_tpu_torch.search.network import DecodeNetwork, build_network
 from julius_tpu_torch.search.scan import DeviceChainTables
 from julius_tpu_torch.search.ngram_device import (DeviceNgram,
@@ -109,6 +117,8 @@ class Engine:
         self.lmtype = lmtype
         self.search_cfg = search or SearchConfig()
         self.fe_cfg = frontend or FrontendConfig()
+        self.fe_tables = fe.build_tables(self.fe_cfg)
+        self.noise_spectrum: Optional[torch.Tensor] = None   # -ssload
         sc = self.search_cfg
         if sc.factoring >= 2:
             raise _unsupported("factoring=2", "unfused pass1_step paths")
@@ -122,8 +132,6 @@ class Engine:
         self.net: DecodeNetwork = build_network(
             hmm, voca, use_triphone=use_tri, iwsp=iwsp, sp_name=sp_name,
             iwsp_penalty=iwsp_penalty)
-        if self.net.pseudo is not None and self.net.pseudo.n_set_states > 0:
-            raise _unsupported("pseudo-phone (iwcd1) sets", "GMM/GMS")
         self.ngram_dev: Optional[DeviceNgram] = (
             build_device_ngram(lm, self.device) if lm is not None else None)
         transparent = np.asarray(voca.transparent, dtype=bool) \
@@ -162,7 +170,9 @@ class Engine:
         # senone s reads DNN output column state_sid[s]
         self._state_sid = torch.as_tensor(
             np.asarray(hmm.state_sid), dtype=torch.int64, device=self.device)
+        self._setup_pseudo_arrays()
         self._device_chains = None  # lazy search.scan.DeviceChainTables
+        self._iwcd2_tables = None   # lazy search.iwcd2.StrictIWCDTables
         self._rescan_warned = False
         self._p2d_best_in = None    # cached pass2_device._best_lm_in
         self._p2d_spot_ok = 0       # device-A* spot-checks passed
@@ -193,6 +203,42 @@ class Engine:
                  "entry; they get zero LM probability")
         return out
 
+    def _setup_pseudo_arrays(self) -> None:
+        """(members, segids, Q') of the network's pseudo set-states on
+        the device, or None: their scores are the outprob cache's
+        columns after the senones'."""
+        ps = self.net.pseudo
+        if ps is not None and ps.n_set_states > 0:
+            segids = np.repeat(np.arange(ps.n_set_states, dtype=np.int64),
+                               np.diff(ps.member_ofs))
+            self._pseudo = (
+                torch.as_tensor(np.asarray(ps.members), dtype=torch.int64,
+                                device=self.device),
+                torch.as_tensor(segids, device=self.device),
+                int(ps.n_set_states))
+        else:
+            self._pseudo = None
+
+    # input-rejection hooks the port does not have yet: setting one
+    # raises instead of being ignored
+    @property
+    def gmm_frontend(self):
+        return None
+
+    @gmm_frontend.setter
+    def gmm_frontend(self, value) -> None:
+        if value is not None:
+            raise _unsupported("GMM input verification (-gmm)", "streaming")
+
+    @property
+    def power_thres(self) -> float:
+        return 0.0
+
+    @power_thres.setter
+    def power_thres(self, value: float) -> None:
+        if value:
+            raise _unsupported("power rejection (-powerthres)", "streaming")
+
     def _cprob_arr(self) -> Optional[np.ndarray]:
         return (np.asarray(self.voca.cprob, dtype=np.float32)
                 if self.voca.cprob and any(self.voca.cprob) else None)
@@ -205,9 +251,6 @@ class Engine:
             raise _unsupported("word graph / confnet / MBR / search-time CM "
                                "output", "lattice/confnet/MBR "
                                "(`search/graphout.py`)")
-        if sc.enable_pass2 and sc.pass2_rescan and sc.strict_iwcd2:
-            raise _unsupported("strict_iwcd2 (strict inter-word CD heads in "
-                               "the re-scan)", "iwcd2")
 
     def _want_p2_graph(self) -> bool:
         """Configurations that collect the pass-2 word graph during the
@@ -251,6 +294,19 @@ class Engine:
                 raise
         return self._device_chains
 
+    @property
+    def iwcd2_tables(self) -> Optional[StrictIWCDTables]:
+        """Strict inter-word CD head tables for the re-scans
+        (search/iwcd2.py), built on first use when
+        SearchConfig.strict_iwcd2 is set; None until then."""
+        if self._iwcd2_tables is None and self.search_cfg.strict_iwcd2:
+            use_tri = (self.hmm.names_are_triphone
+                       and not self.am_cfg.force_mono)
+            self._iwcd2_tables = StrictIWCDTables(
+                self.net, self.hmm, self.voca, use_triphone=use_tri,
+                device=self.device)
+        return self._iwcd2_tables
+
     def _device_astar_ok(self) -> bool:
         """True when the second pass can run fully on the device
         (search/pass2_device.py): a forward N-gram of order <= 2, no
@@ -275,14 +331,43 @@ class Engine:
 
     def _dispatcher(self, out_ext: torch.Tensor) -> p2r.ScanDispatcher:
         return p2r.ScanDispatcher(self.device_chains, out_ext,
-                                  self.search_cfg.scan_beam)
+                                  self.search_cfg.scan_beam,
+                                  iwcd2=self.iwcd2_tables)
 
     # -- device compute path ----------------------------------------------
 
     def _outprob(self, feats: torch.Tensor) -> torch.Tensor:
         """[B, T, D] features -> [B, T, R] extended outprob rows."""
         out = dnn_scores(self.dnn_scorer, feats)         # [B, T, n_out]
-        return out.index_select(-1, self._state_sid)
+        return self._extend(out.index_select(-1, self._state_sid))
+
+    def _extend(self, rows: torch.Tensor) -> torch.Tensor:
+        """[B, T, S] senone rows -> [B, T, S + Q'] with the pseudo
+        set-states' scores appended (iwcd1 scheme of the AM config)."""
+        if self._pseudo is None:
+            return rows
+        mem, seg, nq = self._pseudo
+        return torch.cat([rows, aggregate_pseudo(
+            mem, seg, nq, rows, self.am_cfg.iwcd_scheme,
+            self.am_cfg.iwcd_nbest)], dim=-1)
+
+    def _features(self, wave: torch.Tensor, lengths: torch.Tensor):
+        """[B, L] waveforms -> (DNN input [B, T, D * context], [B, T]
+        frame mask)."""
+        feats, mask = fe.extract_features(
+            wave, lengths, self.fe_tables,
+            noise_spectrum=self.noise_spectrum)
+        return fe.splice_frames(feats, mask,
+                                self.dnn_params.context_len), mask
+
+    def _decode_device(self, wave: torch.Tensor, lengths: torch.Tensor):
+        """Front end -> splice -> outprobs -> pass 1 on the device:
+        (trellis, [B] frame counts, [B, T, R] outprob cache, which
+        doubles as pass 2's)."""
+        feats, mask = self._features(wave, lengths)
+        nfr = mask.to(torch.int32).sum(dim=-1)
+        out_ext = self._outprob(feats)
+        return self._pass1(out_ext, nfr), nfr, out_ext
 
     def _reject(self, n: int) -> Optional[str]:
         """Input rejection by length (reference recogmain.c)."""
@@ -316,16 +401,29 @@ class Engine:
         """Decode directly from state output probabilities [B, T, S]
         (reference SP_OUTPROBFILE input / vecnet outprob_p mode)."""
         self._check_outputs()
-        out_ext = torch.as_tensor(rows, dtype=torch.float32,
-                                  device=self.device)
+        rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
         with torch.no_grad():
+            out_ext = self._extend(rows)
             trellis = self._pass1(out_ext, n_frames)
             return self._results(trellis, np.asarray(torch.as_tensor(
                 n_frames).cpu()), out_ext=out_ext)
 
+    def set_noise_spectrum(self, spec) -> None:
+        """Install a -ssload noise spectrum for spectral subtraction in
+        the front end (None removes it)."""
+        self.noise_spectrum = None if spec is None else torch.as_tensor(
+            spec, dtype=torch.float32, device=self.device)
+
     def recognize_batch(self, wave, lengths) -> List[Result]:
-        """Waveform input needs the front end, which is not ported."""
-        raise _unsupported("the waveform front end", "front end")
+        """Batched file-input recognition: [B, L] int16/float waveforms
+        with [B] sample counts."""
+        self._check_outputs()
+        wave = torch.as_tensor(wave, device=self.device).to(torch.float32)
+        lengths = torch.as_tensor(lengths, device=self.device)
+        with torch.no_grad():
+            trellis, nfr, out_ext = self._decode_device(wave, lengths)
+            return self._results(trellis, nfr.cpu().numpy(),
+                                 out_ext=out_ext)
 
     def _results(self, trellis: p1.Trellis, nfr: np.ndarray,
                  out_ext: Optional[torch.Tensor] = None) -> List[Result]:
@@ -389,7 +487,7 @@ class Engine:
         nbest_lists = p2d.run_batch(
             lattices, self.device_chains, self.ngram_dev, self._wid2lm,
             self._cprob_arr(), out_ext, self._rescan_strategy(), sc,
-            best_in=self._p2d_best_in)
+            best_in=self._p2d_best_in, iwcd2=self.iwcd2_tables)
         t1 = time.perf_counter()
         B = len(lattices)
         retry = [None] * B
@@ -476,7 +574,7 @@ class Engine:
             nbest = p2d.run_batch(
                 [lattice], self.device_chains, self.ngram_dev,
                 self._wid2lm, self._cprob_arr(), out_ext,
-                self._rescan_strategy(), sc)[0]
+                self._rescan_strategy(), sc, iwcd2=self.iwcd2_tables)[0]
             comparable = (sc.lm_weight == sc.lm_weight2
                           and sc.lm_penalty == sc.lm_penalty2
                           and self.net.pseudo is None)

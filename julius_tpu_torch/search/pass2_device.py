@@ -47,6 +47,9 @@ Differences from the host path, chosen for device-shaped execution:
   other exact entries, never by estimate-priority ones;
 * the word envelope (-b2 wb_ok) admits `word_envelope` distinct word
   SEQUENCES per hypothesis length (rolling sequence hash);
+* strict inter-word CD heads (v2) substitute the popped word's head
+  columns by its previous word's left-context class
+  (iwcd2.StrictIWCDTables), as the host re-scan does;
 * the host-only semantics (order > 2 LMs, transparent words,
   `nbest > NB_SLOTS`) take the host path (`engine._device_astar_ok`).
 
@@ -76,7 +79,8 @@ from julius_tpu_torch.search.ngram_device import (U32, DeviceNgram,
                                                   _mul_u32, bigram_score)
 from julius_tpu_torch.search.pass1 import topk_stable
 from julius_tpu_torch.search.pass2 import NBestResult, TrellisLattice
-from julius_tpu_torch.search.scan import DeviceChainTables
+from julius_tpu_torch.search.scan import (DeviceChainTables,
+                                          head_substituted_sidx)
 from julius_tpu_torch.utils.logadd import LOG_ZERO
 
 NEG_HALF = LOG_ZERO / 2
@@ -470,10 +474,12 @@ def _astar_loop(tabs: DeviceChainTables, ng: DeviceNgram, wid2lm, cprobv,
                 out_ext, ab, atoms_packed, rest, cfm, last, stack0,
                 *, P: int, S: int, CA: int, CK: int, CAPP: int,
                 max_rounds: int, T: int, lr: int, tail: int, nbest: int,
-                lw2: float, pen2: float, wb: int):
+                lw2: float, pen2: float, wb: int, iwcd2=None):
     """The whole batched A*: rounds run while any utterance is active
     and fewer than `max_rounds` have run (`round_i * P` indexes the
     arena).  The one host sync of a round is reading that flag.
+    `iwcd2` (search.iwcd2.StrictIWCDTables) turns on strict inter-word
+    CD heads.
     Returns (res_score, res_arena, arena_w, arena_t, arena_parent,
     arena_lm_sum, beg_store, n_pops, rounds); see `run_batch` for the
     host-side decoding of the outputs."""
@@ -549,8 +555,19 @@ def _astar_loop(tabs: DeviceChainTables, ng: DeviceNgram, wid2lm, cprobv,
         ext_seed = torch.where(idx_t >= 1, pgw, LOG_ZERO) + lm_k
         init_seed = torch.where(idx_t == 0, lm_k, LOG_ZERO)
         seed_w = torch.where(has_parent[:, None], ext_seed, init_seed)
+        sidx_k = tabs.sidx[wids]
+        if iwcd2 is not None:
+            # strict inter-word CD (PASS2_STRICT_IWCD,
+            # search_bestfirst_v2.c:911): the word-head states read the
+            # EXACT left-context triphone of the popped entry's previous
+            # word; class 0 (no previous word / no exact model) keeps the
+            # v1 pseudo columns (outprob_style.c lcdset fallback)
+            lc = torch.where(pprev >= 0,
+                             iwcd2.lc_of_word_dev[pprev.clamp(min=0)], 0)
+            sidx_k = head_substituted_sidx(sidx_k, wids, lc.reshape(K),
+                                           iwcd2.head_sidx, iwcd2.head_ns)
         g_w, beg_w, _ = scan_core_win(
-            tabs.loc[wids], tabs.ent[wids], tabs.ext[wids], tabs.sidx[wids],
+            tabs.loc[wids], tabs.ent[wids], tabs.ext[wids], sidx_k,
             seed_w, out_ext, bvec.repeat_interleave(P).to(torch.int32),
             w0.to(torch.int32))
         g = torch.full((K, T), LOG_ZERO, dtype=f32, device=dev)
@@ -735,11 +752,14 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
               wid2lm: np.ndarray, cprob: Optional[np.ndarray],
               out_ext: torch.Tensor, strategy, cfg: SearchConfig,
               best_in: Optional[np.ndarray] = None,
+              iwcd2=None,
               ) -> List[List[NBestResult]]:
     """Device A* over a whole utterance batch; returns per-utterance
     N-best lists (empty list = pass-1 fallback, like the host path).
     out_ext [B, T, R] is the unshifted outprob cache on the tables'
-    device.
+    device.  With `iwcd2` tables that resolve at least one head
+    triphone, each scan's word-head columns follow the popped entry's
+    previous word (strict inter-word CD).
 
     `best_in` is LM-dependent, not batch-dependent: pass the cached
     array (engine._p2d_best_in) to avoid re-walking the whole N-gram
@@ -800,7 +820,9 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
         T=T, lr=lr, tail=int(strategy.tail_word),
         nbest=int(min(cfg.nbest, NB_SLOTS)),
         lw2=float(cfg.lm_weight2), pen2=float(cfg.lm_penalty2),
-        wb=(int(cfg.word_envelope) if cfg.enveloped else 1 << 30))
+        wb=(int(cfg.word_envelope) if cfg.enveloped else 1 << 30),
+        iwcd2=iwcd2 if iwcd2 is not None and iwcd2.n_resolved > 0
+        else None)
     res_score = res_score.cpu().numpy()
     t_loop = time.perf_counter() - t_start
     # search statistics of the LAST run_batch call (profiling)

@@ -338,8 +338,9 @@ class ScanDispatcher:
     writes (scan.scan_words_store_win)."""
 
     def __init__(self, tabs: DeviceChainTables, out_ext: torch.Tensor,
-                 scan_beam: float = 0.0, cap: int = 8192):
+                 scan_beam: float = 0.0, cap: int = 8192, iwcd2=None):
         self.tabs = tabs
+        self.iwcd2 = iwcd2            # search.iwcd2.StrictIWCDTables
         B, T, R = out_ext.shape
         self.out_ext = out_ext.to(torch.float32).contiguous()
         self.T = int(T)
@@ -393,6 +394,10 @@ class ScanDispatcher:
         sanch = np.full((n, A_CAND), LOG_ZERO, np.float32)
         pending = []                    # (indices, K, ganch/banch/sanch)
         dead_w = self.tabs.n_words      # pad chain scores LOG_ZERO
+        kw = {}
+        if self.iwcd2 is not None:
+            kw = dict(head_sidx=self.iwcd2.head_sidx,
+                      head_ns=self.iwcd2.head_ns)
         for W in sorted(set(wb.tolist())):
             idxs = np.nonzero(wb == W)[0]
             for ofs in range(0, len(idxs), K_BUCKETS[-1]):
@@ -430,7 +435,7 @@ class ScanDispatcher:
                     self.g_store, self.beg_store, self.tabs,
                     torch.from_numpy(ints).to(dev),
                     torch.from_numpy(lm).to(dev), self.out_ext, W,
-                    self.scan_beam)
+                    self.scan_beam, **kw)
                 pending.append((chunk, K, ga, ba, sa))
                 self.n_scans += K
                 CHUNKS += 1
@@ -656,6 +661,8 @@ def rescan_nbest_batch(
     utterance — the pass-2 word graph accumulated during search
     (reference wordgraph_assign/merge, graphout.c:1901,2020)."""
     lr = max(0, int(cfg.lookup_range))
+    lcmap = (dispatcher.iwcd2.lc_of_word
+             if dispatcher.iwcd2 is not None else None)
     seqc = itertools.count()
     utts: List[Optional[_UttState]] = []
     pool = _ReqPool()
@@ -806,7 +813,8 @@ def rescan_nbest_batch(
                 if cs is None:
                     continue
                 row = hyp.rows[-1].row
-                lcc = 0         # left-context class: strict IWCD (v2) only
+                lcc = int(lcmap[hyp.words[-1]]) if lcmap is not None \
+                    else 0
                 for ci, w in enumerate(cs.words):
                     mkey = (b, row, w)
                     meta = meta_of.get(mkey)

@@ -24,6 +24,8 @@ explicitly to give JAX's result (see `scan_words_store_win`).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -118,10 +120,27 @@ class DeviceChainTables:
         return self
 
 
+def head_substituted_sidx(sidx: torch.Tensor, wids: torch.Tensor,
+                          lcc: torch.Tensor, head_sidx: torch.Tensor,
+                          head_ns: torch.Tensor) -> torch.Tensor:
+    """Strict inter-word CD (v2, search/iwcd2.py): each chain's senone
+    map [K, N] with its head phone's columns replaced by those of word
+    wids[k] after left-context class lcc[k] (class 0 keeps the v1
+    pseudo columns).  Left unchanged: nodes past the word's head phone."""
+    H = head_sidx.shape[-1]
+    lcc = lcc.clamp(0, head_sidx.shape[1] - 1)
+    over = head_sidx[wids, lcc]                                   # [K, H]
+    jj = torch.arange(H, device=sidx.device)[None, :]
+    over = torch.where(jj < head_ns[wids][:, None], over, sidx[:, :H])
+    return torch.cat([over, sidx[:, H:]], dim=1).contiguous()
+
+
 def scan_words_store_win(g_store: torch.Tensor, beg_store: torch.Tensor,
                          tabs: DeviceChainTables, ints: torch.Tensor,
                          lm_adds: torch.Tensor, out_ext: torch.Tensor,
-                         W: int, scan_beam: float = 0.0):
+                         W: int, scan_beam: float = 0.0,
+                         head_sidx: Optional[torch.Tensor] = None,
+                         head_ns: Optional[torch.Tensor] = None):
     """Windowed device-resident A* round: seeds come from stored parent g
     rows, results go back into the store, and only the anchor-frame
     scores come back.
@@ -138,10 +157,17 @@ def scan_words_store_win(g_store: torch.Tensor, beg_store: torch.Tensor,
     is not a row below it (the pad chains, out_row = CAP) writes there,
     which nothing reads, where JAX drops the write (`mode="drop"`).
     Returns (ganch, banch, sanch) [K, A]: g values, refined word-begin
-    frames, and the seed carried from the winning entry."""
+    frames, and the seed carried from the winning entry.
+
+    With head_sidx [V+1, C, H] / head_ns [V+1] (strict inter-word CD),
+    each chain's head columns follow its left-context class lcc."""
     ints = ints.long()
     wids, parents, bidx = ints[:, 0], ints[:, 1], ints[:, 2]
     out_rows, t0, anchors = ints[:, 3], ints[:, 4], ints[:, 6:]
+    sidx = tabs.sidx[wids]
+    if head_sidx is not None:
+        sidx = head_substituted_sidx(sidx, wids, ints[:, 5], head_sidx,
+                                     head_ns)
     cap1, T = g_store.shape
     idx_t = t0[:, None] + torch.arange(W, device=ints.device)   # [K, W]
     # the parent's g one frame before each window frame (JAX clamps the
@@ -158,7 +184,7 @@ def scan_words_store_win(g_store: torch.Tensor, beg_store: torch.Tensor,
     init_seed = torch.where(idx_t == 0, lm_adds[:, None], LOG_ZERO)
     seed = torch.where(parents[:, None] >= 0, ext_seed, init_seed)
     g, beg, sv = scan_core_win(
-        tabs.loc[wids], tabs.ent[wids], tabs.ext[wids], tabs.sidx[wids],
+        tabs.loc[wids], tabs.ent[wids], tabs.ext[wids], sidx,
         seed.contiguous(), out_ext, bidx.to(torch.int32),
         t0.to(torch.int32))
     sink = cap1 - 1

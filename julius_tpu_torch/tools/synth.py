@@ -1,20 +1,22 @@
-"""Synthetic model builders at realistic scale (flagship builders only).
+"""Synthetic model builders at realistic scale.
 
-Copies of `julius_tpu/tools/synth.py`'s flagship builders, so the port
-builds the same tables from the same seeds: the flagship DNN-HMM LVCSR
-configuration (ENVR-v5.4-like: 40ch FBANK_D_A front-end, 11-frame
-splice, 5x2048 sigmoid hidden layers, ~2k senones — reference README.md
-Quick Run model + Sample.dnnconf) without shipping model files.  The
-lvcsr (tied-triphone) builders wait for the port's pseudo-set scorer.
+Copies of `julius_tpu/tools/synth.py`'s builders, so the port builds the
+same tables from the same seeds, without shipping model files: the
+flagship DNN-HMM LVCSR configuration (ENVR-v5.4-like: 40ch FBANK_D_A
+front-end, 11-frame splice, 5x2048 sigmoid hidden layers, ~2k senones —
+reference README.md Quick Run model + Sample.dnnconf) and the 20k-word
+tied-triphone configuration (`lvcsr_engine`: HMMList-tied triphones,
+cross-word pseudo sets, strict inter-word CD in pass 2).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 
-from julius_tpu_torch.config import SearchConfig, parse_feature_type
+from julius_tpu_torch.config import AMConfig, SearchConfig, parse_feature_type
 from julius_tpu_torch.io.arpa import NGramLM
 from julius_tpu_torch.io.dnn import DNNParams
 from julius_tpu_torch.io.htk_dict import Vocabulary
@@ -119,6 +121,198 @@ def make_dnn(dim_in: int = 1320, hidden: int = 2048, n_layers: int = 5,
         context_len=11,
         feature_len=dim_in // 11,
     )
+
+
+def make_triphone_hmmset(n_base: int = 40, variants: int = 50,
+                         n_states: int = 3, dim: int = 120,
+                         tied_pool: int = 2048,
+                         seed: int = 0) -> HMMSet:
+    """Tied-STATE triphone HMM set at realistic scale: `n_base`
+    monophones plus `n_base * variants` physical triphone models whose
+    states are tied into a shared senone pool of ~`tied_pool` states —
+    the HTK tied-state architecture the reference consumes (shared
+    ~o <SID> macros, rdhmmdef.c state macros; ENVR-v5.4 has 2004
+    senones for 8k+ logical triphones).  Each (base phone, state
+    position) owns a cluster of `tied_pool // (n_base*n_states)`
+    senones; variant v of that phone draws its state from the cluster
+    by hash, the monophone takes member 0.  Distinct base phones never
+    share senones, so the generative decode stays well-posed, while
+    same-center variants share states exactly like decision-tree-tied
+    real AMs.  The HMMList (logical_map) is filled lazily by
+    `bind_triphones` with the composed names a vocabulary actually
+    uses, hash-tied to a physical variant of the same center phone
+    (the reference's rdhmmlist.c logical->physical tying)."""
+    rng = np.random.default_rng(seed)
+    n_phys = n_base * (variants + 1)
+    n_pos = n_base * n_states
+    C = max(1, tied_pool // n_pos)
+    S = n_pos * C
+    # senones CLUSTER like real decision-tree-tied AMs: members of one
+    # (base phone, state position) share a prototype with small
+    # offsets, distinct positions are well separated.  Fully random
+    # members (round 4) made every cross-word pseudo CD set a max over
+    # ~C unrelated Gaussians — per-frame mix-and-match inflation no
+    # physical path can achieve, which pass 2 then used to prefer junk
+    # many-seam segmentations over the generative truth (measured: 6
+    # of 16 20k-word utterances decoded ABOVE the truth's own score)
+    protos_cl = rng.standard_normal((n_pos, dim)).astype(np.float32)
+    means = (np.repeat(protos_cl, C, axis=0)
+             + 0.35 * rng.standard_normal((S, dim))).astype(np.float32)
+    ivars = (1.0 / (0.5 + rng.random((S, dim)))).astype(np.float32)
+    gconst = (dim * math.log(2 * math.pi)
+              - np.sum(np.log(ivars), axis=1)).astype(np.float32)
+    state_mix = np.arange(S, dtype=np.int32).reshape(S, 1)
+    state_lw = np.zeros((S, 1), dtype=np.float32)
+    # model layout: [0, n_base) monophones, then variant v of base b at
+    # n_base + b*variants + v.  State of (b, pos) for variant v ties to
+    # cluster member crc(b,v,pos) % C; monophone to member 0.
+    phone_states = np.zeros((n_phys, n_states), dtype=np.int32)
+    for b in range(n_base):
+        for s in range(n_states):
+            phone_states[b, s] = (b * n_states + s) * C
+    import zlib as _zlib
+    for b in range(n_base):
+        for v in range(variants):
+            i = n_base + b * variants + v
+            for s in range(n_states):
+                m = _zlib.crc32(f"{b}/{v}/{s}".encode()) % C
+                phone_states[i, s] = (b * n_states + s) * C + m
+    phone_ns = np.full(n_phys, n_states, dtype=np.int32)
+    N = n_states + 2
+    trans = np.full((N, N), LOG_ZERO, dtype=np.float32)
+    trans[0, 1] = 0.0
+    for s in range(1, N - 1):
+        trans[s, s] = math.log(0.6)
+        trans[s, s + 1] = math.log(0.4)
+    phone_trans = np.tile(trans[None], (n_phys, 1, 1))
+    base_names = [f"q{i:02d}" for i in range(n_base - 1)] + ["sil"]
+    names = list(base_names)
+    for b in range(n_base):
+        for v in range(variants):
+            names.append(f"{base_names[b]}#t{v:02d}")
+    return HMMSet(
+        means=means, ivars=ivars, gconst=gconst,
+        state_mix=state_mix, state_lw=state_lw,
+        state_sid=np.arange(S, dtype=np.int32),
+        phone_states=phone_states, phone_ns=phone_ns,
+        phone_trans=phone_trans,
+        phone_names=names,
+        phone_index={n: i for i, n in enumerate(names)},
+        logical_map={},
+        veclen=dim,
+        names_are_triphone=True,
+    )
+
+
+def bind_triphones(hmm: HMMSet, voca: Vocabulary, n_base: int = 40,
+                   variants: int = 50) -> int:
+    """Fill hmm.logical_map with every triphone the vocabulary can
+    compose (the HMMList role, reference rdhmmlist.c): each logical
+    'l-c+r' ties to a physical variant of center c by name hash.
+
+    Both IN-WORD triphones and CROSS-WORD compositions (every word-head
+    'c+r' and word-tail 'l-c' crossed with every possible adjacent base
+    phone) are listed, like the full-triphone HMMLists real tied-state
+    AMs ship — so strict inter-word CD (pass-1 head_rc_dynamic,
+    pass-2 strict_iwcd2) resolves exact models at word boundaries
+    instead of falling back to pseudo sets.  Returns the number of
+    logical entries added."""
+    import zlib
+
+    from julius_tpu_torch.models.hmm import center_name
+    from julius_tpu_torch.search.network import word_phone_names
+
+    base_index = {n: i for i, n in enumerate(hmm.phone_names[:n_base])}
+    bases = hmm.phone_names[:n_base]
+
+    def tie(name: str) -> None:
+        nonlocal added
+        if name in hmm.logical_map or name in hmm.phone_index:
+            return
+        bi = base_index.get(center_name(name))
+        if bi is None:
+            return
+        v = zlib.crc32(name.encode()) % variants
+        hmm.logical_map[name] = hmm.phone_index[f"{bases[bi]}#t{v:02d}"]
+        added += 1
+
+    added = 0
+    heads, tails, singles = set(), set(), set()
+    for phones in voca.phones:
+        names = word_phone_names(phones, True)
+        for name in names:
+            if "-" in name and "+" in name:
+                tie(name)
+            elif "+" in name:               # word head 'c+r'
+                heads.add(name)
+            elif "-" in name:               # word tail 'l-c'
+                tails.add(name)
+            else:                           # single-phone word
+                singles.add(name)
+    for h in heads:
+        for lc in bases:
+            tie(f"{lc}-{h}")
+    for t in tails:
+        for rc in bases:
+            tie(f"{t}+{rc}")
+    for s in singles:
+        for lc in bases:
+            for rc in bases:
+                tie(f"{lc}-{s}+{rc}")
+    return added
+
+
+def lvcsr_engine(n_words: int = 20000, n_base: int = 40,
+                 variants: int = 50, hidden: int = 2048,
+                 n_layers: int = 5, seed: int = 0,
+                 search: Optional[SearchConfig] = None,
+                 device: str = "cuda"):
+    """20k-word tied-triphone DNN-HMM configuration (VERDICT r4 #4:
+    the reference's 20k-word dictation capability, README.md:24, over
+    HMMList-tied triphones with cross-word pseudo sets active).
+
+    Returns (engine, protos): decodable like flagship_engine(trained=
+    True) — frames built from senone prototypes decode back."""
+    from julius_tpu_torch.engine import Engine
+
+    fe_cfg = parse_feature_type("FBANK_D_A")
+    fe_cfg.fbank_num = 40
+    feat_dim = 120
+    hmm = make_triphone_hmmset(n_base=n_base, variants=variants,
+                               dim=feat_dim, seed=seed)
+    voca = make_vocabulary(hmm, n_words=n_words, seed=seed + 1)
+    # vocabulary phones are base names; rebuild with base phones only
+    bind_triphones(hmm, voca, n_base=n_base, variants=variants)
+    lm = make_ngram(voca, seed=seed + 2)
+    if search is None:
+        # strict pass-2 inter-word CD (the reference's
+        # --enable-setup=standard): with ~50 random same-center
+        # variants, the v1 pseudo-set max lets junk segmentations
+        # mix-and-match member senones frame-by-frame at every word
+        # seam — 3-phone words are 2/3 word-edge — and pass 2 happily
+        # confirms them; strict heads re-score each seam with the one
+        # exact triphone its left context implies
+        search = SearchConfig(lm_weight=8.0, lm_penalty=-2.0,
+                              strict_iwcd2=True)
+    n_out = hmm.n_states
+    # cluster size of the tied senone pool (make_triphone_hmmset)
+    tied_c = max(1, 2048 // (n_base * 3))
+    weights, biases, out_w, out_b, protos = trained_dnn_weights(
+        n_out, feat_dim * 11, feat_dim, 11, hidden, n_layers, seed + 3,
+        cluster=tied_c)
+    dnn = DNNParams(
+        weights=weights, biases=biases, output_w=out_w, output_b=out_b,
+        log_prior=np.full(n_out, math.log10(1.0 / n_out), np.float32),
+        context_len=11, feature_len=feat_dim)
+    # iwcd1 'max' (reference outprob_cd max mode) for the pass-1
+    # pseudo sets: with the sharp clustered matched-filter model the
+    # max picks the exact member on truth frames, so pass-1 scores
+    # stay consistent with the strict pass-2 estimates WITHOUT
+    # head_rc_dynamic, which stays off: the fused pass-1 beam update
+    # does not carry the context payload into emissions
+    eng = Engine(hmm, voca, lm, dnn=dnn, frontend=fe_cfg, search=search,
+                 am_cfg=AMConfig(iwcd_scheme="max"), device=device)
+    return eng, protos
 
 
 def trained_dnn_weights(n_out, din, dim, context, hidden, n_layers,
@@ -296,6 +490,91 @@ def make_flagship_utts(hmm, voca, lm, protos, n_utts, dim, context,
         windows.append(win)
         lens.append(T)
     return truths, windows, lens
+
+
+def make_lvcsr_utts(eng, protos, n_utts, dim, context,
+                    min_words=4, max_words=9, seed=0, follow_p=1.0):
+    """Generative utterances for a triphone engine: the senone path is
+    composed from the sampled word sequence's EXACT triphones —
+    in-word logicals plus cross-word heads/tails resolved with the
+    true adjacent contexts (see the in-loop comment).  Truth known by
+    construction.
+
+    follow_p defaults to 1.0 (every transition is a real bigram): a
+    uniform off-LM draw pays ~-35 weighted log points of back-off at
+    lvcsr vocabulary sizes, so the model-optimal decode provably
+    differs from the truth on most such utterances (measured round 5:
+    9 of 14 20k-word 'errors' were the decoder finding a HIGHER-
+    scoring sequence than the truth) and exact-match stops measuring
+    the decoder.  Real dictation follows its LM; so do these."""
+    from julius_tpu_torch.models.hmm import center_name
+    from julius_tpu_torch.search.network import word_phone_names
+
+    rng = np.random.default_rng(seed + 9)
+    hmm, voca = eng.hmm, eng.voca
+    name2id = {n: i for i, n in enumerate(voca.names)}
+    draw = _lm_sampler(eng.lm, voca, rng, follow_p=follow_p)
+
+    def resolve(name):
+        pid = hmm.logical_map.get(name)
+        return hmm.phone_index.get(name) if pid is None else pid
+
+    truths, windows, lens = [], [], []
+    for _ in range(n_utts):
+        k = int(rng.integers(min_words, max_words + 1))
+        seq = [name2id["<s>"]]
+        for _i in range(k):
+            seq.append(draw(seq[-1]))
+        seq.append(name2id["</s>"])
+        # senone path from the EXACT cross-word triphones of the
+        # sampled sequence (contexts known at generation time): the
+        # truth's word-edge frames then score top under strict IWCD
+        # (head_rc_dynamic / strict_iwcd2) AND under the pseudo-set
+        # approximations (the exact physical is a member, and max /
+        # bestN aggregates include it).  Generating from an arbitrary
+        # first member (round 4) made the truth suboptimal the moment
+        # any strict scoring was applied.
+        senones = []
+        for i, w in enumerate(seq):
+            names = word_phone_names(voca.phones[w], True)
+            lc = (center_name(voca.phones[seq[i - 1]][-1])
+                  if i > 0 and voca.phones[seq[i - 1]] else None)
+            rc = (center_name(voca.phones[seq[i + 1]][0])
+                  if i + 1 < len(seq) and voca.phones[seq[i + 1]]
+                  else None)
+            for name in names:
+                full = name
+                if "-" not in name and "+" in name and lc:
+                    full = f"{lc}-{name}"          # word head 'c+r'
+                elif "+" not in name and "-" in name and rc:
+                    full = f"{name}+{rc}"          # word tail 'l-c'
+                elif "-" not in name and "+" not in name and lc and rc:
+                    full = f"{lc}-{name}+{rc}"     # single-phone word
+                pid = resolve(full)
+                if pid is None:
+                    pid = resolve(name)
+                if pid is None:
+                    pid = hmm.phone_index[center_name(name)]
+                for s_ in range(int(hmm.phone_ns[pid])):
+                    sidx = int(hmm.phone_states[pid, s_])
+                    # ~1.5 frames per state on average (p_stay 0.6-like)
+                    senones.append(sidx)
+                    while rng.random() < 0.4:
+                        senones.append(sidx)
+        base = protos[senones] \
+            + 0.25 * rng.standard_normal((len(senones), dim)) \
+            .astype(np.float32)
+        half = context // 2
+        T = base.shape[0]
+        idx = np.clip(np.arange(T)[:, None]
+                      + np.arange(-half, context - half)[None, :],
+                      0, T - 1)
+        win = base[idx].reshape(T, dim * context).astype(np.float32)
+        truths.append([voca.names[w] for w in seq])
+        windows.append(win)
+        lens.append(T)
+    return truths, windows, lens
+
 
 
 def flagship_engine(n_words: int = 5000, n_phones: int = 668,

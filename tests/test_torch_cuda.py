@@ -1,6 +1,8 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version, and the decode on CUDA against the decode on the CPU, for the
-default pass 2 (device A*), the host re-scan and the frozen search.
+default pass 2 (device A*), the host re-scan and the frozen search; the
+tied-triphone configuration (pseudo-set outprobs, the strict-head scan,
+its decode) and the waveform front end likewise.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference package, so it also runs where
@@ -211,3 +213,136 @@ def test_host_paths_on_card_match_cpu(engines, search):
     assert [r.from_pass for r in got] == [r.from_pass for r in want]
     for g, w in zip(got, want):
         assert g.score == pytest.approx(w.score, abs=1e-2)
+
+
+# ---- the tied-triphone configuration and the waveform front end
+
+LVCSR = dict(n_words=400, hidden=256, n_layers=2)
+
+
+@pytest.fixture(scope="module")
+def lvcsr():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    eng, protos = synth.lvcsr_engine(device="cuda", **LVCSR)
+    cpu, _ = synth.lvcsr_engine(device="cpu", **LVCSR)
+    truths, wins, lens = synth.make_lvcsr_utts(cpu, protos, 4, 120, 11,
+                                               min_words=3, max_words=6,
+                                               seed=11)
+    feats = np.zeros((4, max(lens), 1320), np.float32)
+    for u, w in enumerate(wins):
+        feats[u, :w.shape[0]] = w
+    return eng, cpu, feats, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("scheme,nbest", [("max", 1), ("avg", 3),
+                                          ("best", 3)])
+def test_aggregate_pseudo_on_card_matches_cpu(lvcsr, scheme, nbest):
+    from julius_tpu_torch.ops.gmm import aggregate_pseudo
+    _, cpu, _, _ = lvcsr
+    mem, seg, nq = cpu._pseudo
+    rng = np.random.default_rng(nbest)
+    rows = rng.integers(-6, 0, (3, 50, cpu.hmm.n_states)).astype(np.float32)
+    rows[rng.random(rows.shape) < 0.3] = -1e10
+    want = aggregate_pseudo(mem, seg, nq, torch.from_numpy(rows), scheme,
+                            nbest)
+    got = aggregate_pseudo(mem.cuda(), seg.cuda(), nq,
+                           torch.from_numpy(rows).cuda(), scheme, nbest)
+    if scheme == "avg":
+        assert float((got.cpu() - want).abs().max()) <= 1e-5
+    else:
+        assert torch.equal(got.cpu(), want)
+
+
+def test_strict_scan_kernel_matches_plain(lvcsr, monkeypatch):
+    """One windowed round with head substitution on the card: the kernel
+    against the plain scan, and against the CPU."""
+    from julius_tpu_torch.search import scan as tscan
+    eng, cpu, feats, lens = lvcsr
+    tt = eng.iwcd2_tables
+    with torch.no_grad():
+        out = eng._outprob(torch.from_numpy(feats).cuda())
+    B, T, R = out.shape
+    CAP, K, W, A = 48, 40, 64, 6
+    rng = np.random.default_rng(3)
+    g0 = rng.integers(-300, -100, (CAP, T)).astype(np.float32)
+    b0 = rng.integers(0, T, (CAP, T)).astype(np.int32)
+    ints = np.zeros((K, 6 + A), np.int32)
+    ints[:, 0] = rng.integers(0, eng.voca.n_words, K)
+    ints[:, 1] = rng.integers(-1, CAP, K)
+    ints[:, 2] = rng.integers(0, B, K)
+    ints[:, 3] = rng.permutation(CAP)[:K]              # distinct rows
+    ints[:, 4] = rng.integers(0, T - W + 1, K)
+    ints[:, 5] = rng.integers(0, tt.head_sidx.shape[1], K)
+    ints[:, 6:] = ints[:, 4:5] + rng.integers(0, W, (K, A))
+    lm = rng.integers(-20, 0, K).astype(np.float32)
+
+    def run(dev, tabs, heads):
+        """Anchor values and the updated stores (with the sink row)."""
+        g = torch.from_numpy(np.concatenate([g0, np.zeros((1, T),
+                                                          np.float32)]))
+        b = torch.from_numpy(np.concatenate([b0, np.zeros((1, T),
+                                                          np.int32)]))
+        g, b = g.to(dev), b.to(dev)
+        res = tscan.scan_words_store_win(
+            g, b, tabs, torch.from_numpy(ints).to(dev),
+            torch.from_numpy(lm).to(dev), out.to(dev), W,
+            head_sidx=heads.head_sidx, head_ns=heads.head_ns)
+        return [a.cpu() for a in (*res, g, b)]
+
+    before = tsk.LAUNCHES
+    got = run("cuda", eng.device_chains, tt)
+    assert tsk.LAUNCHES == before + 1
+    cpu_res = run("cpu", cpu.device_chains, cpu.iwcd2_tables)
+    monkeypatch.setattr(tscan, "scan_core_win", tsk.scan_core_win_plain)
+    plain = run("cuda", eng.device_chains, tt)
+    for want in (plain, cpu_res):
+        for a, b in zip(got, want):
+            if a.dtype.is_floating_point:
+                assert float((a - b).abs().max()) <= 1e-5
+            else:
+                assert torch.equal(a, b)
+
+
+def test_lvcsr_decode_on_card_matches_cpu(lvcsr):
+    eng, cpu, feats, lens = lvcsr
+    before = tsk.LAUNCHES
+    got = eng.decode_features(feats, lens)
+    assert tsk.LAUNCHES > before
+    want = cpu.decode_features(feats, lens)
+    assert [r.word_ids for r in got] == [r.word_ids for r in want]
+    assert [r.from_pass for r in got] == [r.from_pass for r in want] \
+        == [2, 2, 2, 2]
+    for g, w in zip(got, want):
+        assert g.score == pytest.approx(w.score, abs=1e-2)
+
+
+def test_front_end_on_card_matches_cpu(engines):
+    from julius_tpu_torch.config import FrontendConfig
+    from julius_tpu_torch.frontend import mfcc as tfe
+    eng, cpu, _, _ = engines
+    rng = np.random.default_rng(9)
+    lens = np.asarray([16000, 9000, 300], np.int32)
+    wave = np.zeros((3, 16000), np.float32)
+    for b, n in enumerate(lens):
+        wave[b, :n] = 2000.0 * rng.standard_normal(n)
+    spec = (150.0 * np.abs(rng.standard_normal(257))).astype(np.float32)
+    for noise in (None, spec):
+        eng.set_noise_spectrum(noise)
+        cpu.set_noise_spectrum(noise)
+        got, gmask = eng._features(torch.from_numpy(wave).cuda(),
+                                   torch.from_numpy(lens).cuda())
+        want, wmask = cpu._features(torch.from_numpy(wave),
+                                    torch.from_numpy(lens))
+        assert torch.equal(gmask.cpu(), wmask)
+        assert torch.allclose(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    eng.set_noise_spectrum(None)
+    cpu.set_noise_spectrum(None)
+    feats, mask = tfe.extract_features(
+        torch.from_numpy(wave).cuda(), torch.from_numpy(lens).cuda(),
+        tfe.build_tables(FrontendConfig()))
+    assert mask.sum(dim=1).tolist() == [98, 54, 0]
+    got = eng.recognize_batch(wave, lens)
+    want = cpu.recognize_batch(wave, lens)
+    assert [r.word_ids for r in got] == [r.word_ids for r in want]
+    assert [r.valid for r in got] == [True, True, False]

@@ -25,7 +25,7 @@ from julius_tpu.search import pass2 as jp2
 from julius_tpu.search import pass2_device as jp2d
 from julius_tpu.tools.synth import flagship_engine, make_flagship_utts
 from julius_tpu_torch import convert
-from julius_tpu_torch.config import SearchConfig
+from julius_tpu_torch.config import AMConfig, FrontendConfig, SearchConfig
 from julius_tpu_torch.engine import Engine
 from julius_tpu_torch.search import pass2 as tp2
 from julius_tpu_torch.search import pass2_device as tp2d
@@ -35,16 +35,26 @@ SIZE = dict(n_words=120, n_phones=48, hidden=128, n_layers=2)
 
 def converted_engine(eng, **search):
     """A port Engine (CPU) computing from the reference engine's own
-    tables (DNN, network, N-gram, pass-2 chains), its search config
-    with `search` replaced."""
+    tables (DNN, network, N-gram, pass-2 chains, and for a triphone
+    network its pseudo set-states and strict head tables), with its
+    front-end configuration and its search config with `search`
+    replaced."""
     cfg = dataclasses.replace(eng.search_cfg, **search)
+    am = eng.am_cfg
     teng = Engine(eng.hmm, eng.voca, eng.lm, dnn=eng.dnn_params,
+                  frontend=FrontendConfig(**dataclasses.asdict(eng.fe_cfg)),
                   search=SearchConfig(**dataclasses.asdict(cfg)),
+                  am_cfg=AMConfig(iwcd_scheme=am.iwcd_scheme,
+                                  iwcd_nbest=am.iwcd_nbest),
                   device="cpu")
-    convert.load_tables(teng, convert.numpy_fields(eng.dnn_scorer),
-                        convert.numpy_fields(eng.dev_net),
-                        convert.numpy_fields(eng.ngram_dev),
-                        convert.chain_fields(eng.device_chains))
+    strict = eng.iwcd2_tables if cfg.strict_iwcd2 else None
+    convert.load_tables(
+        teng, convert.numpy_fields(eng.dnn_scorer),
+        convert.numpy_fields(eng.dev_net),
+        convert.numpy_fields(eng.ngram_dev),
+        convert.chain_fields(eng.device_chains),
+        pseudo=convert.pseudo_fields(eng),
+        iwcd2=convert.iwcd2_fields(strict) if strict is not None else None)
     return teng
 
 
@@ -55,6 +65,13 @@ def reference_batch(eng, protos, n, min_words, max_words, seed):
     truths, wins, lens = make_flagship_utts(
         eng.hmm, eng.voca, eng.lm, protos, n, 120, 11,
         min_words=min_words, max_words=max_words, seed=seed)
+    return (truths,) + reference_outputs(eng, wins, lens)
+
+
+def reference_outputs(eng, wins, lens):
+    """Spliced windows through the reference's DNN and pass 1: (feats,
+    lens, out_ext numpy [B, T, R], per-utterance numpy trellises)."""
+    n = len(wins)
     feats = np.zeros((n, max(lens), 120 * 11), np.float32)
     for u, w in enumerate(wins):
         feats[u, :w.shape[0]] = w
@@ -64,7 +81,7 @@ def reference_batch(eng, protos, n, min_words, max_words, seed):
         np.asarray, eng._pass1_jit(out_ext, jnp.asarray(lens)))
     trellises = [jax.tree_util.tree_map(lambda a: a[b], host)
                  for b in range(n)]
-    return truths, feats, lens, np.array(out_ext), trellises
+    return feats, lens, np.array(out_ext), trellises
 
 
 def assert_same_nbest(got, want, atol=1e-4):
