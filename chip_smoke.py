@@ -45,7 +45,20 @@ Phases, one line each, in order (any failure exits non-zero):
      around one call; its front end held against the CPU front end on
      the same waveforms; Engine.recognize_batch end to end on two short
      waveforms;
-  9. the kernels' JSON line (one entry per kernel and path), the card
+  9. cli: the julius command line from model files.  A GMM-HMM task of
+     the flagship's width (668 monophones x 3 states x 16 diagonal
+     Gaussians at MFCC_E_D_A's 39 dims, the 5000-word 2-gram) is written
+     with the port's writers (binhmm, HTK dictionary, bingram, 16
+     generative utterances as HTK parameter files); the engine
+     fusion.create_engines loads from them holds both kernels against
+     their plain versions and times them at its shapes, its GMM scorer on
+     the card against the CPU, and times the scorer's two stages
+     (gauss_scores, the mixture log-sum-exp) against their bounds; a
+     staged decode splits the wall; then recognize.main runs on all 16
+     files (-input mfcfile -batchsize 16), on 4 with -lattice -confnet
+     -mbr -n 3 (the host re-scan) and on 2 with -gshmm, the launch counts
+     read around each run;
+ 10. the kernels' JSON line (one entry per kernel and path), the card
      line, and the result line last.
 
 Weights and utterances are made from fixed seeds; nothing is read from
@@ -551,6 +564,257 @@ def waveform_phase(eng, card, step_t):
              "library_ms": None}]
 
 
+def gauss_cost(BT, D, G):
+    """(f32 operations, least bytes) of gauss_scores on [BT, D] frames:
+    two products of 2 * BT * D * G operations, x * x, the subtraction and
+    the constant's add; x, the two [D, G] tables and c read once, the
+    [BT, G] scores written once."""
+    return (4 * BT * D * G + BT * D + 2 * BT * G,
+            4 * (BT * D + 2 * D * G + G + BT * G))
+
+
+def mixture_cost(BT, S, M):
+    """(f32 operations, least bytes) of mixture_scores over [BT, S, M]
+    components: per component the weight's add, the max's compare, the
+    shift, the exp and the sum's add; per state a log, an add and the
+    floor; the Gaussian scores read once (every component reads a
+    distinct Gaussian), the int64 ids and f32 weights read once, the
+    [BT, S] scores written once."""
+    return (5 * BT * S * M + 3 * BT * S,
+            4 * BT * S * M + 12 * S * M + 4 * BT * S)
+
+
+def run_cli(recognize, argv, results):
+    """recognize.main(argv) on the card, its standard output captured and
+    each engine's results appended to `results` (a result callback) ->
+    (output lines, wall seconds)."""
+    import contextlib
+    import io
+
+    real = recognize.create_engines
+
+    def engines_with_callback(*args, **kw):
+        engines = real(*args, **kw)
+        for eng in engines:
+            eng.callbacks.add("result", results.append)
+        return engines
+
+    buf = io.StringIO()
+    recognize.create_engines = engines_with_callback
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = recognize.main(argv, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        recognize.create_engines = real
+    if rc != 0:
+        raise RuntimeError(f"recognize.main returned {rc}")
+    return buf.getvalue().splitlines(), wall
+
+
+def cli_exact(lines, truths) -> int:
+    """Inputs whose printed first sentence is the generating words."""
+    got = [ln.split(": ", 1)[1] if ": " in ln else ""
+           for ln in lines if ln.startswith("sentence1:")]
+    if len(got) != len(truths):
+        raise RuntimeError(f"{len(got)} sentences for {len(truths)} inputs")
+    return sum(g == " ".join(w for w in t if w not in ("<s>", "</s>"))
+               for g, t in zip(got, truths))
+
+
+def cli_phase(card):
+    """The julius command line from model files: a GMM-HMM task of the
+    flagship's width written to a temporary directory, both kernels and
+    the GMM scorer on the engine loaded from those files, then three runs
+    of recognize.main.  Returns the kernels' entries for the JSON line."""
+    import tempfile
+
+    from julius_tpu_torch import fusion
+    from julius_tpu_torch.io.htk_param import read_htk_param
+    from julius_tpu_torch.jconf import parse_jconf
+    from julius_tpu_torch.ops import gmm
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass1 as p1
+    from julius_tpu_torch.search import pass2_device as p2d
+    from julius_tpu_torch.search import pass2_rescan as p2r
+    from julius_tpu_torch.tools import recognize
+    from julius_tpu_torch.tools.synth import write_gmm_task
+    from julius_tpu_torch.utils.cuda_timing import time_ms
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        truths, files = write_gmm_task(tmp, n_utts=N_UTTS)
+        write_s = time.perf_counter() - t0
+        models = ["-h", files["am"], "-v", files["dict"], "-d", files["lm"],
+                  "-input", "mfcfile"]
+        t0 = time.perf_counter()
+        eng = fusion.create_engines(parse_jconf(models), device=DEVICE)[0]
+        build_s = time.perf_counter() - t0
+        if eng.dnn_scorer is not None or not eng._device_astar_ok():
+            raise RuntimeError("the GMM engine does not take the device A*")
+        frames = [read_htk_param(p).data for p in files["utts"]]
+        lens_np = np.asarray([f.shape[0] for f in frames], np.int32)
+        feats = np.zeros((N_UTTS, lens_np.max(), frames[0].shape[1]),
+                         np.float32)
+        for u, f in enumerate(frames):
+            feats[u, :f.shape[0]] = f
+        feats = torch.from_numpy(feats).to(DEVICE)
+        B, T, D = feats.shape
+        dev, tabs, gt = eng.dev_net, eng.device_chains, eng.gmm_tables
+        N, K1 = dev.loc_lp.shape[1], dev.loc_lp.shape[0]
+        S, M = gt.state_mix.shape
+        G = gt.a.shape[1]
+        R = S
+        phase("cli_models", write_s=write_s, engine_build_s=build_s,
+              gaussians=G, senones=S, mixtures=M, dim=D, nodes=N,
+              arc_span_k=K1 - 1, words=eng.voca.n_words,
+              trellis_m=eng.p1_cfg.n_atoms, utterances=B, frames=T,
+              files=sorted(k for k in files if k != "utts"))
+
+        # ---- both kernels on this engine's tables, at this path's shapes
+        etot = p1.entry_total(dev)
+        step_err = 0.0
+        for ties in (True, False):
+            args = step_inputs(dev, etot, B, R, seed=31 + ties, ties=ties)
+            step_err = max(step_err, compare_step(pk, args)[0])
+        K_A, W_A = B * p2d.POPS, min(p2d.SCAN_WIN, T)
+        scan_err = 0.0
+        for ties in (True, False):
+            args = scan_inputs(tabs, K_A, W_A, T, R, B, 33 + ties, ties)
+            scan_err = max(scan_err, compare_scan(sk, args))
+        phase("kernel_check", path="cli", kernels=["pass1_step", "scan_win"],
+              pass1_step_max_abs_err=step_err, scan_win_max_abs_err=scan_err,
+              pass1_step_shape=[B, N, K1 - 1, R],
+              scan_win_shape=[K_A, W_A, tabs.nmax, tabs.kl, R])
+        args = step_inputs(dev, etot, B, R, seed=35, ties=False)
+        step_t = time_step(pk, args, B, N, K1, R)
+        phase("kernel_time", path="cli", kernel="pass1_step", batch=B,
+              nodes=N, **step_t, library_ms=None, card=card)
+        args = scan_inputs(tabs, K_A, W_A, T, R, B, 37, False)
+        scan_t = time_scan(sk, args, K_A, W_A, tabs.nmax, tabs.kl + 1)
+        phase("kernel_time", path="cli", kernel="scan_win", chains=K_A,
+              window=W_A, nodes=tabs.nmax, arc_span_k=tabs.kl, **scan_t,
+              library_ms=None, card=card)
+        del args
+
+        # ---- the GMM scorer: the card against the CPU on a few rows,
+        # then its two stages timed over the whole batch
+        with torch.no_grad():
+            x = feats.reshape(-1, D)
+            cpu_t = gmm.build_gmm_tables(eng.hmm, device="cpu")
+            want = gmm.senone_scores(cpu_t, x[:256].cpu())
+            got = gmm.senone_scores(gt, x[:256]).cpu()
+            gmm_err = float((got - want).abs().max())
+            if not (torch.isfinite(got).all() and gmm_err <= 1e-3):
+                raise RuntimeError(f"GMM scores on the card vs CPU: {gmm_err}")
+            g = gmm.gauss_scores(gt, x)
+            gauss_ms = time_ms(lambda: gmm.gauss_scores(gt, x), n=10, warm=2)
+            mix_ms = time_ms(lambda: gmm.mixture_scores(gt, g), n=10, warm=2)
+            del g
+        BT = B * T
+        g_ops, g_bytes = gauss_cost(BT, D, G)
+        m_ops, m_bytes = mixture_cost(BT, S, M)
+        scorer = {}
+        for name, ms, ops, nbytes in (("gauss", gauss_ms, g_ops, g_bytes),
+                                      ("mixture", mix_ms, m_ops, m_bytes)):
+            ops_ms = ops / F32_OPS_PER_S * 1e3
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            scorer[name] = dict(
+                ms=ms, ops=ops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        phase("gmm_scorer", rows=BT, dim=D, gaussians=G, senones=S,
+              mixtures=M, card_vs_cpu_max_abs_err=gmm_err, **{
+                  f"{n}_{k}": v for n, d in scorer.items()
+                  for k, v in d.items()}, card=card)
+
+        # ---- the decode staged, after a warm-up, for where the time goes
+        eng.decode_features(feats[:2], lens_np[:2])
+        torch.cuda.synchronize()
+        walls = {}
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            out_ext = eng._outprob(feats)
+            torch.cuda.synchronize()
+            walls["gmm_wall_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            trellis = eng._pass1(out_ext, lens_np)
+            torch.cuda.synchronize()
+            walls["pass1_wall_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            staged = eng._results(trellis, lens_np, out_ext=out_ext)
+            p2_s = time.perf_counter() - t0
+            del out_ext, trellis
+        net = dict(eng.last_pass2)
+        walls.update(astar_wall_s=net["astar_s"],
+                     retry_net_wall_s=net["retry_s"],
+                     assembly_wall_s=p2_s - net["astar_s"] - net["retry_s"])
+        del eng
+
+        # ---- the command line: all files in one batch, then -lattice
+        # -confnet -mbr -n 3 on 4 of them, then -gshmm on 2; the launch
+        # counts are set to 0 just before each run and read just after
+        runs = {}
+        entries = []
+        for label, extra, n in (
+                ("cli", ["-batchsize", str(N_UTTS)], N_UTTS),
+                ("cli_lattice", ["-lattice", "-confnet", "-mbr", "-n", "3",
+                                 "-batchsize", str(N_SIDE)], N_SIDE),
+                ("cli_gshmm", ["-gshmm", files["gs"], "-batchsize", "2"],
+                 2)):
+            results = []
+            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            p2d.LAST_STATS.clear()
+            lines, wall = run_cli(recognize, models + extra
+                                  + files["utts"][:n], results)
+            launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+            chunks, rounds = p2r.CHUNKS, p2d.LAST_STATS.get("rounds", 0)
+            t_run = int(lens_np[:n].max())
+            if launches != t_run:
+                raise RuntimeError(f"{label}: {launches} pass1_step launches "
+                                   f"for {t_run} frames")
+            if scan_launches != rounds + chunks or scan_launches == 0:
+                raise RuntimeError(f"{label}: {scan_launches} scan_win "
+                                   f"launches for {rounds} A* rounds + "
+                                   f"{chunks} chunks")
+            check_results(results, label)
+            exact = cli_exact(lines, truths[:n])
+            runs[label] = dict(
+                utterances=n, wall_s=wall, exact_transcripts=f"{exact}/{n}",
+                from_pass2=sum(r.from_pass == 2 for r in results),
+                astar_rounds=rounds, rescan_chunks=chunks,
+                kernel_launches=launches, scan_win_launches=scan_launches,
+                wordgraphs=lines.count("--- begin wordgraph data ---"),
+                confnets=lines.count("--- begin confusion network ---"),
+                sentences_per_input=sum(ln.startswith("sentence")
+                                        for ln in lines) / n)
+            entries += [
+                {"name": "pass1_step", "path": label, "route": "cuda",
+                 "source": "julius_tpu_torch/csrc/pass1_step.cu",
+                 "replaces": "julius_tpu/ops/pass1_kernel.py:49",
+                 "launches": launches, "max_abs_err": step_err, **step_t,
+                 "library_ms": None},
+                {"name": "scan_win", "path": label, "route": "cuda",
+                 "source": "julius_tpu_torch/csrc/scan_win.cu",
+                 "replaces": "julius_tpu/search/scan.py:317",
+                 "launches": scan_launches, "max_abs_err": scan_err,
+                 **scan_t, "library_ms": None}]
+    audio_s = float(lens_np.sum()) / 100.0
+    phase("cli", audio_s=audio_s, xrt=audio_s / runs["cli"]["wall_s"],
+          staged=walls, runs=runs, card=card)
+    if runs["cli"]["exact_transcripts"] != f"{N_UTTS}/{N_UTTS}" \
+            or runs["cli"]["from_pass2"] != N_UTTS:
+        raise RuntimeError(f"cli: {runs['cli']}")
+    lat = runs["cli_lattice"]
+    if lat["wordgraphs"] != N_SIDE or lat["confnets"] != N_SIDE:
+        raise RuntimeError(f"cli_lattice: {lat}")
+    if runs["cli_gshmm"]["exact_transcripts"] != "2/2":
+        raise RuntimeError(f"cli_gshmm: {runs['cli_gshmm']}")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -821,6 +1085,7 @@ def main() -> int:
     kernels = waveform_phase(eng, card, dict(timings[64],
                                              max_abs_err=max_err))
     kernels += lvcsr_phase(card)
+    kernels += cli_phase(card)
 
     t = timings[N_UTTS]
     s = scan_t[tabs.nmax, K_A, W_A]

@@ -198,6 +198,41 @@ class AMConfig:
 
 
 @dataclass
+class LMConfig:
+    """Language model block (reference JCONF_LM jconf.h:275)."""
+
+    name: str = "_default"
+    lmtype: str = "ngram"           # ngram | grammar | word
+    dict_path: Optional[str] = None
+    ngram_path: Optional[str] = None     # ARPA or bingram (forward)
+    ngram_backward_path: Optional[str] = None   # -nrl backward ARPA
+    dfa_path: Optional[str] = None
+    gram_prefix: Optional[str] = None    # prefix.dfa + prefix.dict
+    gramlist_path: Optional[str] = None  # -gramlist file of prefixes
+    wordlist_path: Optional[str] = None  # isolated word recognition
+    unk_name: str = "<unk>"              # -mapunk
+    head_silname: str = "<s>"
+    tail_silname: str = "</s>"
+    enable_iwsp: bool = False
+    iwsp_penalty: float = -1.0      # -iwsppenalty (default.c:144)
+    # -adddict/-addentry/-forcedict (reference voca_load_htkdict
+    # do_conv/error handling)
+    adddict_paths: list = field(default_factory=list)
+    addentries: list = field(default_factory=list)
+    forcedict: bool = False
+    # -iwspword/-iwspentry: add a short-pause word to the dictionary
+    # (reference default iwspentry "<UNK> [sp] sp", default.c)
+    enable_iwspword: bool = False
+    iwspentry: str = "<UNK> [sp] sp"
+    # -wsil: head/tail silence + context for wordlist mode
+    wsil_head: str = "silB"
+    wsil_tail: str = "silE"
+    wsil_context: str = ""
+    head_margin_word: str = "sil"   # silence model at head/tail
+    tail_margin_word: str = "sil"
+
+
+@dataclass
 class SearchConfig:
     """Search instance block (reference JCONF_SEARCH jconf.h:413)."""
 
@@ -270,3 +305,89 @@ class SearchConfig:
                                     # like pass2_finalize_on_no_result)
     # grammar/one-pass modes
     one_pass: bool = False
+
+
+@dataclass
+class EngineConfig:
+    """Top-level engine config (reference global Jconf jconf.h:854).
+
+    Holds named AM/LM/search blocks exactly like `-AM`/`-LM`/`-SR`
+    sectioning in jconf files (reference m_jconf.c)."""
+
+    ams: list = field(default_factory=lambda: [AMConfig()])
+    lms: list = field(default_factory=lambda: [LMConfig()])
+    searches: list = field(default_factory=lambda: [SearchConfig()])
+    # input block
+    input_source: str = "file"      # file | adinnet | stdin | vecnet
+    filelist_path: Optional[str] = None
+    # VAD / triggering (reference -lv/-zc/-headmargin/-tailmargin)
+    use_vad: bool = False
+    vad_level: int = 2000
+    vad_zc: int = 60
+    vad_head_ms: int = 300
+    vad_tail_ms: int = 400
+    # sub-band SNR VAD gate (the libfvad role; reference -fvad mode,
+    # -fvad_param <nframes> <thres>)
+    fvad_mode: int = -1
+    fvad_smooth: int = 5
+    fvad_thres: float = 0.0
+    # preprocessing (reference jconf.preprocess block)
+    zmean: bool = False             # -zmean DC offset removal
+    level_coef: float = 1.0         # -lvscale input scaling
+    ds48: bool = False              # -48 (48 kHz input, decimate to 16k)
+    nostrip: bool = False           # -nostrip keep invalid zero frames
+    typecheck: bool = True          # -notypecheck disables param check
+    chunk_size: int = 1000          # -chunksize adin read samples
+    force_realtime: Optional[bool] = None   # -realtime/-norealtime
+    # decoder-VAD short-pause segmentation (reference -spsegment block)
+    spsegment: bool = False
+    sp_frame_duration: int = 10     # -spdur
+    pause_models: list = field(default_factory=list)   # -pausemodels
+    # -check wchmm/triphone: run interactive model checks after load
+    check_modes: list = field(default_factory=list)
+    # rejection
+    reject_short_ms: int = 0
+    reject_long_ms: int = 0
+    # GMM utterance verification / GMM-VAD (reference gmm.c:429-734;
+    # jconf.reject.gmm_* and detect.gmm_* blocks, default.c:82-98)
+    gmm_path: Optional[str] = None      # -gmm hmmdefs of GMM set
+    gmm_num: int = 10                   # -gmmnum Gaussian prune per mix
+    gmm_reject: list = field(default_factory=list)  # -gmmreject names
+    gmm_margin: int = 20                # -gmmmargin VAD window (frames)
+    gmm_up: float = 0.7                 # -gmmup VAD up-trigger
+    gmm_down: float = -0.2              # -gmmdown VAD down-trigger
+    gmm_vad: bool = False               # use the GMM as a VAD gate
+    gmm_noise_names: list = field(default_factory=list)
+    power_thres: float = 0.0            # -powerthres (0 = off)
+    # decoding
+    batch_size: int = 1             # utterances decoded per device step
+    realtime: bool = False
+    # servers / outputs
+    module_port: Optional[int] = None
+    adinnet_port: Optional[int] = None
+    outfile: bool = False
+    outprob_out: Optional[str] = None   # -outprobout prefix
+    # output / logging (reference julius/output_stdout.c, output_file.c,
+    # record.c, charconv.c, main.c -logfile/-separatescore)
+    logfile: Optional[str] = None
+    quiet: bool = False
+    debug: bool = False
+    separatescore: bool = False
+    record_dir: Optional[str] = None    # -record: per-utterance wav dump
+    charconv: Optional[tuple] = None    # (from, to) output charset pair
+    progout: bool = False               # progressive pass-1 partials
+    proginterval_ms: int = 300
+    plugin_dirs: list = field(default_factory=list)   # -plugindir
+    unknown: list = field(default_factory=list)
+
+    def am(self, name: str) -> AMConfig:
+        for a in self.ams:
+            if a.name == name:
+                return a
+        raise KeyError(name)
+
+    def lm(self, name: str) -> LMConfig:
+        for l in self.lms:
+            if l.name == name:
+                return l
+        raise KeyError(name)

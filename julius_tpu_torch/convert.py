@@ -7,8 +7,10 @@ dataclass into a dict of numpy arrays (np.asarray of each field, lists
 kept as lists of arrays), `chain_fields` reads the chain tables,
 `pseudo_fields` a triphone engine's pseudo set-state arrays,
 `iwcd2_fields` its strict inter-word CD head tables, and `load_tables`
-installs those arrays in a port Engine, so both packages compute from
-the same numbers.  This module reads the objects it is
+installs those arrays in a port Engine; `load_gmm_tables` and
+`load_gms_tables` build the GMM scorer's tables from the reference's
+(`numpy_fields` of its GMMScorerTables, `gms_fields` of its GMSTables),
+so both packages compute from the same numbers.  This module reads the objects it is
 handed by field or attribute name and imports nothing of the reference
 package.
 
@@ -26,6 +28,8 @@ import numpy as np
 import torch
 
 from julius_tpu_torch.ops.dnn import DNNScorer
+from julius_tpu_torch.ops.gmm import GMMScorerTables, gmm_tables_from_numpy
+from julius_tpu_torch.ops.gms import GMSTables
 from julius_tpu_torch.search.iwcd2 import StrictIWCDTables
 from julius_tpu_torch.search.ngram_device import (DeviceNgram,
                                                   device_ngram_from_numpy)
@@ -108,6 +112,31 @@ def iwcd2_fields(tabs) -> dict:
                 head_ns=np.asarray(tabs.head_ns),
                 lc_of_word=np.asarray(tabs.lc_of_word),
                 n_resolved=int(tabs.n_resolved))
+
+
+def load_gmm_tables(a: dict, device) -> GMMScorerTables:
+    """GMMScorerTables from the reference GMM scorer's fields (a,
+    half_iv, c, state_mix, state_lw and the pseudo set-states'
+    pseudo_members, pseudo_segids, n_pseudo)."""
+    return gmm_tables_from_numpy(
+        a["a"], a["half_iv"], a["c"], a["state_mix"], a["state_lw"],
+        device, a.get("pseudo_members"), a.get("pseudo_segids"),
+        a.get("n_pseudo", 0))
+
+
+def gms_fields(gms) -> dict:
+    """{gs, state2gs, gsnum} of the reference's GMS tables, the selector
+    model's scorer tables as a `numpy_fields` dict."""
+    return dict(gs=numpy_fields(gms.gs), state2gs=np.asarray(gms.state2gs),
+                gsnum=int(gms.gsnum))
+
+
+def load_gms_tables(a: dict, device) -> GMSTables:
+    """GMSTables from a `gms_fields` dict."""
+    return GMSTables(gs=load_gmm_tables(a["gs"], device),
+                     state2gs=torch.as_tensor(
+                         np.asarray(a["state2gs"], np.int64), device=device),
+                     gsnum=a["gsnum"])
 
 
 def load_tables(engine, dnn: dict, network: dict, ngram: dict,

@@ -1,10 +1,13 @@
 """Recognition engine: model fusion + batched decoding (torch).
 
-Port of `julius_tpu/engine.py` for the DNN-HMM N-gram decode: waveform
--> front end (frontend/mfcc.py) -> DNN senone scores, plus the
-pseudo-phone-set columns of triphone networks (ops/gmm.py) -> pass 1
-(ops/pass1_kernel.py beam-update kernel) -> pass 2 -> N-best; decoding
-may also start from features or from outprobs.  Pass 2 is the
+Port of `julius_tpu/engine.py` for the N-gram decode: waveform -> front
+end (frontend/mfcc.py) -> senone scores, from a DNN (ops/dnn.py) or from
+Gaussian mixtures (ops/gmm.py, with Gaussian mixture selection by
+ops/gms.py), plus the pseudo-phone-set columns of triphone networks
+(ops/gmm.py) -> pass 1 (ops/pass1_kernel.py beam-update kernel) -> pass
+2 -> N-best, with the word graph, confusion network, MBR re-ranking and
+search-time confidence of search/graphout.py; decoding may also start
+from features or from outprobs.  Pass 2 is the
 reference's default, the acoustic re-scan A* on the device
 (search/pass2_device.py, whose word scans run
 the ops/scan_kernel.py kernel) with its retry/spot-check net through the
@@ -35,7 +38,10 @@ from julius_tpu_torch.io.dnn import DNNParams
 from julius_tpu_torch.io.htk_dict import Vocabulary
 from julius_tpu_torch.models.hmm import HMMSet
 from julius_tpu_torch.ops.dnn import DNNScorer, build_dnn_scorer, dnn_scores
-from julius_tpu_torch.ops.gmm import aggregate_pseudo
+from julius_tpu_torch.ops.gmm import (GMMScorerTables, aggregate_pseudo,
+                                      build_gmm_tables, senone_scores)
+from julius_tpu_torch.ops.gms import GMSTables, build_gms, gms_senone_scores
+from julius_tpu_torch.search import graphout as go
 from julius_tpu_torch.search import pass1 as p1
 from julius_tpu_torch.search import pass2 as p2
 from julius_tpu_torch.search import pass2_device as p2d
@@ -64,18 +70,20 @@ class Result:
     segments: List[dict] = field(default_factory=list)
     cm: Optional[List[float]] = None      # per-word confidence
     nbest: List["Result"] = field(default_factory=list)
+    graph: Optional[go.WordGraph] = None      # graph_out
+    confnet: Optional[List[go.CNCluster]] = None   # confnet_out
     from_pass: int = 1
     valid: bool = True
     reject_reason: Optional[str] = None
 
 
-def _unsupported(what: str, item: str) -> NotImplementedError:
+def unsupported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not in the torch port yet: ROADMAP.md queue 1, {item}")
 
 
 class Engine:
-    """One recognition instance (DNN AM + N-gram LM + search)."""
+    """One recognition instance (DNN or GMM AM + N-gram LM + search)."""
 
     def __init__(
         self,
@@ -91,6 +99,7 @@ class Engine:
         iwsp: bool = False,
         sp_name: str = "sp",
         iwsp_penalty: float = -1.0,
+        gshmm: Optional[HMMSet] = None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -101,16 +110,14 @@ class Engine:
         if lmtype is None:
             lmtype = ("ngram" if lm is not None
                       else "grammar" if dfa is not None else "word")
-        if dnn is None:
-            raise _unsupported("the GMM scorer", "GMM/GMS")
         if lmtype != "ngram" or dfa is not None:
-            raise _unsupported(f"lmtype {lmtype!r} (DFA/grammar, isolated "
-                               "words)", "unfused pass1_step paths")
+            raise unsupported(f"lmtype {lmtype!r} (DFA/grammar, isolated "
+                              "words)", "unfused pass1_step paths")
         if lm is not None and getattr(lm, "direction", "LR") == "RL":
-            raise _unsupported("a backward (RL) N-gram", "backward N-gram")
+            raise unsupported("a backward (RL) N-gram", "backward N-gram")
         self.am_cfg = am_cfg or AMConfig()
         if self.am_cfg.head_rc_dynamic:
-            raise _unsupported("head_rc_dynamic", "unfused pass1_step paths")
+            raise unsupported("head_rc_dynamic", "unfused pass1_step paths")
         self.hmm = hmm
         self.voca = voca
         self.lm = lm
@@ -121,9 +128,9 @@ class Engine:
         self.noise_spectrum: Optional[torch.Tensor] = None   # -ssload
         sc = self.search_cfg
         if sc.factoring >= 2:
-            raise _unsupported("factoring=2", "unfused pass1_step paths")
+            raise unsupported("factoring=2", "unfused pass1_step paths")
         if sc.beam_width:
-            raise _unsupported("beam_width > 0", "unfused pass1_step paths")
+            raise unsupported("beam_width > 0", "unfused pass1_step paths")
 
         self._resolve_silwords()
         self._wid2lm = self._map_vocab_to_lm(lm)
@@ -165,11 +172,24 @@ class Engine:
         self.reject_short_frames: int = 0
         self.reject_long_frames: int = 0
 
+        # acoustic scorer: the DNN, else the GMM of the HMM set (with the
+        # -gshmm selector model)
         self.dnn_params = dnn
-        self.dnn_scorer: DNNScorer = build_dnn_scorer(dnn, self.device)
-        # senone s reads DNN output column state_sid[s]
-        self._state_sid = torch.as_tensor(
-            np.asarray(hmm.state_sid), dtype=torch.int64, device=self.device)
+        self.dnn_scorer: Optional[DNNScorer] = None
+        self.gmm_tables: Optional[GMMScorerTables] = None
+        self.gms: Optional[GMSTables] = None
+        if dnn is not None:
+            self.dnn_scorer = build_dnn_scorer(dnn, self.device)
+            # senone s reads DNN output column state_sid[s]
+            self._state_sid = torch.as_tensor(
+                np.asarray(hmm.state_sid), dtype=torch.int64,
+                device=self.device)
+        else:
+            self.gmm_tables = build_gmm_tables(hmm, self.net.pseudo,
+                                               self.device)
+            if gshmm is not None:
+                self.gms = build_gms(hmm, gshmm, self.am_cfg.gsnum,
+                                     self.device)
         self._setup_pseudo_arrays()
         self._device_chains = None  # lazy search.scan.DeviceChainTables
         self._iwcd2_tables = None   # lazy search.iwcd2.StrictIWCDTables
@@ -228,7 +248,7 @@ class Engine:
     @gmm_frontend.setter
     def gmm_frontend(self, value) -> None:
         if value is not None:
-            raise _unsupported("GMM input verification (-gmm)", "streaming")
+            raise unsupported("GMM input verification (-gmm)", "streaming")
 
     @property
     def power_thres(self) -> float:
@@ -237,7 +257,7 @@ class Engine:
     @power_thres.setter
     def power_thres(self, value: float) -> None:
         if value:
-            raise _unsupported("power rejection (-powerthres)", "streaming")
+            raise unsupported("power rejection (-powerthres)", "streaming")
 
     def _cprob_arr(self) -> Optional[np.ndarray]:
         return (np.asarray(self.voca.cprob, dtype=np.float32)
@@ -246,11 +266,7 @@ class Engine:
     def _check_outputs(self) -> None:
         sc = self.search_cfg
         if sc.align_word or sc.align_phoneme or sc.align_state:
-            raise _unsupported("forced alignment", "align")
-        if self._want_p2_graph() or sc.mbr:
-            raise _unsupported("word graph / confnet / MBR / search-time CM "
-                               "output", "lattice/confnet/MBR "
-                               "(`search/graphout.py`)")
+            raise unsupported("forced alignment", "align")
 
     def _want_p2_graph(self) -> bool:
         """Configurations that collect the pass-2 word graph during the
@@ -311,12 +327,15 @@ class Engine:
         """True when the second pass can run fully on the device
         (search/pass2_device.py): a forward N-gram of order <= 2, no
         transparent-word LM context skipping, at most NB_SLOTS
-        sentences.  Everything else keeps the host-driven re-scan
-        (pass2_rescan.py), which implements the full semantics."""
+        sentences, and no during-search graph collection.  Everything
+        else keeps the host-driven re-scan (pass2_rescan.py), which
+        implements the full semantics."""
         sc = self.search_cfg
         if not sc.pass2_device or self.lm is None or self.ngram_dev is None:
             return False
         if getattr(self.lm, "order", 99) > 2:
+            return False
+        if self._want_p2_graph():
             return False
         if self.voca.transparent and any(self.voca.transparent):
             return False
@@ -338,8 +357,18 @@ class Engine:
 
     def _outprob(self, feats: torch.Tensor) -> torch.Tensor:
         """[B, T, D] features -> [B, T, R] extended outprob rows."""
-        out = dnn_scores(self.dnn_scorer, feats)         # [B, T, n_out]
-        return self._extend(out.index_select(-1, self._state_sid))
+        if self.dnn_scorer is not None:
+            out = dnn_scores(self.dnn_scorer, feats)     # [B, T, n_out]
+            return self._extend(out.index_select(-1, self._state_sid))
+        am = self.am_cfg
+        topk = am.gprune_num if am.gprune == "topk" else 0
+        if self.gms is not None:
+            return gms_senone_scores(self.gmm_tables, self.gms, feats,
+                                     topk=topk,
+                                     iwcd=(am.iwcd_scheme, am.iwcd_nbest))
+        return senone_scores(self.gmm_tables, feats, topk=topk,
+                             iwcd_scheme=am.iwcd_scheme,
+                             iwcd_nbest=am.iwcd_nbest)
 
     def _extend(self, rows: torch.Tensor) -> torch.Tensor:
         """[B, T, S] senone rows -> [B, T, S + Q'] with the pseudo
@@ -352,13 +381,15 @@ class Engine:
             self.am_cfg.iwcd_nbest)], dim=-1)
 
     def _features(self, wave: torch.Tensor, lengths: torch.Tensor):
-        """[B, L] waveforms -> (DNN input [B, T, D * context], [B, T]
-        frame mask)."""
+        """[B, L] waveforms -> (scorer input [B, T, D], spliced to D *
+        context for a DNN, and the [B, T] frame mask)."""
         feats, mask = fe.extract_features(
             wave, lengths, self.fe_tables,
             noise_spectrum=self.noise_spectrum)
-        return fe.splice_frames(feats, mask,
-                                self.dnn_params.context_len), mask
+        if self.dnn_scorer is not None:
+            feats = fe.splice_frames(feats, mask,
+                                     self.dnn_params.context_len)
+        return feats, mask
 
     def _decode_device(self, wave: torch.Tensor, lengths: torch.Tensor):
         """Front end -> splice -> outprobs -> pass 1 on the device:
@@ -396,6 +427,15 @@ class Engine:
             trellis = self._pass1(out_ext, n_frames)
             return self._results(trellis, np.asarray(torch.as_tensor(
                 n_frames).cpu()), out_ext=out_ext)
+
+    def compute_outprob(self, feats) -> np.ndarray:
+        """[B, T, D] features -> [B, T, S] senone score rows on the host
+        (the -outprobout dump, reference recogmain.c:1225-1242)."""
+        feats = torch.as_tensor(feats, dtype=torch.float32,
+                                device=self.device)
+        with torch.no_grad():
+            rows = self._outprob(feats)
+        return rows[..., :self.hmm.n_states].cpu().numpy()
 
     def decode_outprob(self, rows, n_frames) -> List[Result]:
         """Decode directly from state output probabilities [B, T, S]
@@ -450,15 +490,19 @@ class Engine:
             elif want_p2:
                 out[b] = self._pass2_result(tb, n)
         if rescan and any(lat is not None for lat in lattices):
+            graphs = None
             if self._device_astar_ok():
                 nbest_lists = self._device_astar(lattices, out_ext)
             else:
+                graphs = [] if self._want_p2_graph() else None
                 nbest_lists = p2r.rescan_nbest_batch(
                     lattices, self._dispatcher(out_ext),
-                    self._rescan_strategy(), self.search_cfg)
+                    self._rescan_strategy(), self.search_cfg, graphs=graphs)
             for b in range(B):
                 if lattices[b] is not None and nbest_lists[b]:
-                    out[b] = self._assemble_pass2(nbest_lists[b])
+                    out[b] = self._assemble_pass2(
+                        nbest_lists[b], lattices[b],
+                        gwords=graphs[b] if graphs else None)
         for b in range(B):
             if out[b] is None:
                 # pass-2 empty -> pass-1 fallback (reference
@@ -569,6 +613,7 @@ class Engine:
         search_bestfirst_main.c with pass-1 acoustic scores)."""
         lattice = p2.TrellisLattice(tb, n_frames)
         sc = self.search_cfg
+        gwords = None
         if out_ext is not None and self._rescan_ok() \
                 and self._device_astar_ok():
             nbest = p2d.run_batch(
@@ -601,9 +646,11 @@ class Engine:
                 if host and (not nbest or host[0].score > nbest[0].score):
                     nbest = host
         elif out_ext is not None and self._rescan_ok():
+            graphs = [] if self._want_p2_graph() else None
             nbest = p2r.rescan_nbest_batch(
                 [lattice], self._dispatcher(out_ext),
-                self._rescan_strategy(), sc)[0]
+                self._rescan_strategy(), sc, graphs=graphs)[0]
+            gwords = graphs[0] if graphs else None
         else:
             transparent = np.asarray(self.voca.transparent, dtype=bool) \
                 if self.voca.transparent else None
@@ -612,13 +659,21 @@ class Engine:
                                     self._cprob_arr())
         if not nbest:
             return None
-        return self._assemble_pass2(nbest)
+        return self._assemble_pass2(nbest, lattice, gwords=gwords)
 
-    def _assemble_pass2(self, nbest: List[p2.NBestResult]) -> Result:
-        """N-best list -> Result (reference result output block,
+    def _assemble_pass2(self, nbest: List[p2.NBestResult],
+                        lattice: p2.TrellisLattice,
+                        gwords: Optional[dict] = None) -> Result:
+        """N-best list -> Result with confidence, MBR order and graph
+        attachments (reference result output block,
         search_bestfirst_main.c:1090)."""
-        if self.search_cfg.compute_confidence:
-            p2.confidence_scores(nbest, self.search_cfg.cm_alpha)
+        sc = self.search_cfg
+        if sc.compute_confidence:
+            p2.confidence_scores(nbest, sc.cm_alpha)
+        if sc.mbr:
+            nbest = go.mbr_rerank(
+                nbest, sc.mbr_score_scale,
+                weights=np.asarray(self.voca.weight, dtype=np.float32))
 
         def mk(r: p2.NBestResult) -> Result:
             return Result(
@@ -636,4 +691,91 @@ class Engine:
 
         best = mk(nbest[0])
         best.nbest = [mk(r) for r in nbest]
+        if sc.graph_out or sc.confnet_out:
+            # posterior-bearing outputs use the dense pass-1 lattice
+            # graph: every recorded word-end atom contributes mass
+            graph = go.prune_graph(go.build_word_graph(lattice),
+                                   sc.graph_min_posterior)
+            if sc.graph_out:
+                best.graph = graph
+            if sc.confnet_out:
+                best.confnet = go.confusion_network(graph)
+        if sc.cm_search and gwords:
+            # search-time confidence: each word's posterior in the graph
+            # of the words the re-scan attached, keyed by its refined
+            # (word, begin, end) span (reference wordgraph_assign,
+            # graphout.c:1901, 2020)
+            graph = go.prune_graph(
+                go.build_word_graph_pass2(gwords, lattice.T, sc.cm_alpha),
+                sc.graph_min_posterior)
+            post = {(w.word, w.begin, w.end): w.posterior
+                    for w in graph.words}
+            for res in [best] + best.nbest:
+                res.cm = [post.get((w, s["begin"], s["end"]), 0.0)
+                          for w, s in zip(res.word_ids, res.segments)]
         return best
+
+    def describe(self) -> str:
+        """Engine/system info dump (reference print_engine_info,
+        libjulius/src/m_info.c; printed by -version/-setting)."""
+        sc, am, fe_cfg = self.search_cfg, self.am_cfg, self.fe_cfg
+        L = ["---------- engine information ----------",
+             "julius_tpu_torch (PyTorch/CUDA port of julius_tpu, julius "
+             "4.6 capability parity)"]
+        dev = str(self.device)
+        if self.device.type == "cuda":
+            dev += f" ({torch.cuda.get_device_name(self.device)})"
+        L.append(f"compute: torch {torch.__version__} device={dev}")
+        L.append("---------- acoustic model ----------")
+        h = self.hmm
+        L.append(f" phones: {h.n_phones} physical, "
+                 f"{len(h.logical_map)} logical (HMMList)")
+        L.append(f" states: {h.n_states} senones; "
+                 f"triphone names: {h.names_are_triphone}")
+        if self.dnn_scorer is not None:
+            ws = self.dnn_scorer.weights
+            L.append(f" scorer: DNN {ws[0].shape[0]}-"
+                     + "x".join(str(w.shape[1]) for w in ws)
+                     + f"-{self.dnn_scorer.n_out} (log10 outprob)")
+        else:
+            L.append(f" scorer: GMM (gprune={am.gprune} "
+                     f"num={am.gprune_num}"
+                     + (", GMS" if self.gms is not None else "") + ")")
+        L.append(f" cross-word CD: iwcd1={am.iwcd_scheme}"
+                 + (f" best{am.iwcd_nbest}" if am.iwcd_scheme == "best"
+                    else "")
+                 + (", pass2 strict IWCD (v2)" if sc.strict_iwcd2
+                    else ", pass2 v1"))
+        L.append("---------- front-end ----------")
+        L.append(f" {fe_cfg.feature_type or 'MFCC'}: "
+                 f"sr={fe_cfg.sample_rate} frame={fe_cfg.frame_ms}ms "
+                 f"shift={fe_cfg.shift_ms}ms fbank={fe_cfg.fbank_num} "
+                 f"veclen={fe_cfg.veclen}")
+        L.append(f" CMN={'on' if fe_cfg.cmn else 'off'} CVN="
+                 f"{'on' if fe_cfg.cvn else 'off'} "
+                 f"map_weight={fe_cfg.cmn_map_weight}")
+        L.append("---------- language model ----------")
+        L.append(f" type={self.lmtype} vocabulary={self.voca.n_words} "
+                 "words")
+        if self.lm is not None:
+            L.append(f" N-gram: order={getattr(self.lm, 'order', '?')} "
+                     f"direction={getattr(self.lm, 'direction', 'LR')}")
+        L.append("---------- search ----------")
+        L.append(f" lexicon: flat, {self.net.n_nodes} nodes "
+                 f"(local_k={self.dev_net.local_k}); trellis M="
+                 f"{self.p1_cfg.n_atoms}")
+        L.append(f" pass1: lm_weight={sc.lm_weight} "
+                 f"penalty={sc.lm_penalty} beam="
+                 f"{sc.beam_width or 'full'} factoring={sc.factoring}")
+        L.append(f" pass2: {'rescan' if sc.pass2_rescan else 'frozen'} "
+                 f"lm_weight2={sc.lm_weight2} penalty2={sc.lm_penalty2} "
+                 f"stack={sc.stack_size} m={sc.max_hypo_pop} "
+                 f"n={sc.nbest} envelope={sc.word_envelope} "
+                 f"lookup={sc.lookup_range}")
+        outs = [k for k, v in [("lattice", sc.graph_out),
+                               ("confnet", sc.confnet_out),
+                               ("cm", sc.compute_confidence),
+                               ("mbr", sc.mbr)] if v]
+        L.append(f" outputs: n-best={sc.output_n}"
+                 + (" + " + "/".join(outs) if outs else ""))
+        return "\n".join(L)

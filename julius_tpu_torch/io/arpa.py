@@ -204,3 +204,21 @@ def parse_arpa(f, direction: str = "LR") -> NGramLM:
         # the reference swaps BOS/EOS for backward models (ngram2.h:169)
         lm.bos_id, lm.eos_id = lm.eos_id, lm.bos_id
     return lm
+
+
+def write_arpa(lm: NGramLM, path: str) -> None:
+    """ARPA dump (binlm2arpa equivalent, reference binlm2arpa/)."""
+    with open(path, "wt", encoding="utf-8") as f:
+        f.write("\\data\\\n")
+        for k in range(lm.order):
+            f.write(f"ngram {k + 1}={len(lm.ngrams[k])}\n")
+        for k in range(lm.order):
+            f.write(f"\n\\{k + 1}-grams:\n")
+            for tup in sorted(lm.ngrams[k]):
+                p, b = lm.ngrams[k][tup]
+                ws = " ".join(lm.words[w] for w in tup)
+                if k < lm.order - 1 and b != 0.0:
+                    f.write(f"{p:.6f}\t{ws}\t{b:.6f}\n")
+                else:
+                    f.write(f"{p:.6f}\t{ws}\n")
+        f.write("\n\\end\\\n")

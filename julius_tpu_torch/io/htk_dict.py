@@ -110,3 +110,39 @@ def load_htkdict(path: str) -> Vocabulary:
             if not parse_dict_line(line, voca):
                 break
     return voca
+
+
+def load_wordlist(path: str) -> Vocabulary:
+    """Isolated-word recognition word list (reference
+    voca_load_wordlist.c:142): ``WORDNAME phone1 phone2 ...``"""
+    voca = Vocabulary()
+    with _open_maybe_gz(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            toks = line.split()
+            if len(toks) < 2:
+                raise ValueError(f"bad wordlist line: {line}")
+            voca.add(toks[0], toks[1:])
+    return voca
+
+
+def word_internal_triphones(phones: List[str]) -> List[str]:
+    """Convert a base phone sequence to word-internal triphone names
+    (reference cycle_triphone in voca_load_htkdict.c): the first phone gets
+    only a right context, the last only a left context."""
+    n = len(phones)
+    if n == 1:
+        return [phones[0]]
+    out = []
+    for i, p in enumerate(phones):
+        left = phones[i - 1] if i > 0 else None
+        right = phones[i + 1] if i < n - 1 else None
+        s = p
+        if left:
+            s = f"{left}-{s}"
+        if right:
+            s = f"{s}+{right}"
+        out.append(s)
+    return out

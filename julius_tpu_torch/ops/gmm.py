@@ -1,25 +1,41 @@
-"""Pseudo-phone-set output probabilities (cross-word context sets).
+"""GMM acoustic scoring and pseudo-phone-set output probabilities.
 
-Port of `julius_tpu/ops/gmm.py` `aggregate_pseudo`, XLA segment
-reductions in the reference, plain PyTorch here.  A word-edge node whose
-context is unknown at network build time scores a "pseudo set-state",
-an aggregate of the senones of every physical triphone that fits its
-partial context (models/hmm.py `PseudoPhoneSets`); the engine appends
-these columns after the senone columns of the outprob cache.
+Port of `julius_tpu/ops/gmm.py`, XLA in the reference, plain PyTorch
+here.  A diagonal Gaussian's log density is
 
-The GMM scorer (`gauss_scores`, `senone_scores`) joins this module with
-ROADMAP.md queue 1, GMM/GMS.
+    log N(x; mu, diag sigma^2) = c_g + x . a_g - (x*x) . half_iv_g
+
+with a_g = mu_g * iv_g, half_iv_g = iv_g / 2 and c_g = -(gconst_g +
+sum(mu_g^2 iv_g)) / 2, so every Gaussian of a batch of frames is two
+full-f32 products [B*T, D] x [D, G] (`gauss_scores`; TF32 stays off).  A
+senone's score is the log-sum-exp over its mixture of the gathered
+Gaussian scores plus log weights, optionally over its top-k components
+only (`gprune`, `senone_scores`); tied-mixture codebooks are shared
+Gaussian ids.  The gather runs over row chunks, as `aggregate_pseudo`
+does: the [rows, S, M] mixture scores of a whole batch would be a
+gigabyte at the flagship width.
+
+A word-edge node whose context is unknown at network build time scores
+a "pseudo set-state", an aggregate of the senones of every physical
+triphone that fits its partial context (models/hmm.py
+`PseudoPhoneSets`); the engine appends these columns after the senone
+columns of the outprob cache (`aggregate_pseudo`, `pseudo_scores`).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
 import torch
 
+from julius_tpu_torch.models.hmm import HMMSet, PseudoPhoneSets
 from julius_tpu_torch.utils.logadd import LOG_ZERO
 
 NEG_HALF = LOG_ZERO / 2
 
-#: bytes of gathered member scores one chunk of rows may hold
+#: bytes of gathered member (or mixture) scores one chunk of rows may hold
 CHUNK_BYTES = 256 << 20
 
 
@@ -91,3 +107,115 @@ def aggregate_pseudo(members: torch.Tensor, segids: torch.Tensor,
         blk = flat[r0:r0 + C].index_select(1, members)       # [c, L]
         out[r0:r0 + C] = _aggregate_rows(blk, seg, n_pseudo, scheme, nbest)
     return out.reshape(*senone.shape[:-1], n_pseudo)
+
+
+@dataclass
+class GMMScorerTables:
+    """Constant tables of dense GMM scoring, on one device."""
+
+    a: torch.Tensor          # [D, G] mu * iv, transposed for x @ a
+    half_iv: torch.Tensor    # [D, G] 0.5 * iv, transposed
+    c: torch.Tensor          # [G]    -0.5*(gconst + sum(mu^2 iv))
+    state_mix: torch.Tensor  # [S, M] int64 gaussian ids (pad: 0)
+    state_lw: torch.Tensor   # [S, M] f32 log weights (pad: LOG_ZERO)
+    # pseudo-set aggregation: extended row j in [S, S+Q') aggregates the
+    # senones pseudo_members[k] with pseudo_segids[k] == j - S
+    pseudo_members: Optional[torch.Tensor] = None   # [L] int64 senone ids
+    pseudo_segids: Optional[torch.Tensor] = None    # [L] int64 set-state
+    n_pseudo: int = 0
+
+    @property
+    def n_states(self) -> int:
+        return self.state_mix.shape[0]
+
+
+def gmm_tables_from_numpy(a, half_iv, c, state_mix, state_lw, device,
+                          pseudo_members=None, pseudo_segids=None,
+                          n_pseudo: int = 0) -> GMMScorerTables:
+    """GMMScorerTables on `device` from host arrays (the layout of the
+    fields above; ids may come as any integer type)."""
+    def f32(v):
+        return torch.tensor(np.asarray(v, np.float32), device=device)
+
+    def i64(v):
+        return None if v is None else torch.tensor(
+            np.asarray(v, np.int64), device=device)
+
+    return GMMScorerTables(
+        a=f32(a), half_iv=f32(half_iv), c=f32(c), state_mix=i64(state_mix),
+        state_lw=f32(state_lw), pseudo_members=i64(pseudo_members),
+        pseudo_segids=i64(pseudo_segids), n_pseudo=int(n_pseudo))
+
+
+def build_gmm_tables(hmm: HMMSet, pseudo: Optional[PseudoPhoneSets] = None,
+                     device="cuda") -> GMMScorerTables:
+    """The scorer's tables of `hmm` (products folded in float64, as the
+    reference does), with the pseudo set-states of a triphone network."""
+    iv = hmm.ivars.astype(np.float64)
+    mu = hmm.means.astype(np.float64)
+    a = (mu * iv).T.astype(np.float32)
+    half_iv = (0.5 * iv).T.astype(np.float32)
+    c = (-0.5 * (hmm.gconst.astype(np.float64)
+                 + np.sum(mu * mu * iv, axis=1))).astype(np.float32)
+    mix = np.where(hmm.state_mix >= 0, hmm.state_mix, 0)
+    members = segids = None
+    n_pseudo = 0
+    if pseudo is not None and pseudo.n_set_states > 0:
+        members = pseudo.members
+        segids = np.repeat(np.arange(pseudo.n_set_states),
+                           np.diff(pseudo.member_ofs))
+        n_pseudo = pseudo.n_set_states
+    return gmm_tables_from_numpy(a, half_iv, c, mix, hmm.state_lw, device,
+                                 members, segids, n_pseudo)
+
+
+def gauss_scores(tables: GMMScorerTables, x: torch.Tensor) -> torch.Tensor:
+    """[..., D] frames -> [..., G] per-Gaussian log-likelihoods (two
+    full-f32 products)."""
+    return (torch.matmul(x, tables.a) - torch.matmul(x * x, tables.half_iv)
+            + tables.c)
+
+
+def mixture_scores(tables: GMMScorerTables, g: torch.Tensor,
+                   topk: int = 0) -> torch.Tensor:
+    """[..., G] Gaussian scores -> [..., S] senone scores: log-sum-exp of
+    each state's gathered components plus log weights, floored at
+    LOG_ZERO.  topk > 0 keeps only the components at or above each
+    state's k-th best (gprune_beam's k-best log-add); the mask needs only
+    the k-th value, which a stable descending sort gives.  Rows are
+    gathered in chunks whose [c, S, M] scores stay within CHUNK_BYTES."""
+    S, M = tables.state_mix.shape
+    flat = g.reshape(-1, g.shape[-1])
+    N = flat.shape[0]
+    idx = tables.state_mix.reshape(-1)
+    out = flat.new_empty((N, S))
+    C = max(1, min(N, CHUNK_BYTES // max(1, 4 * S * M)))
+    for r0 in range(0, N, C):
+        mixed = flat[r0:r0 + C].index_select(1, idx).view(-1, S, M) \
+            + tables.state_lw
+        if topk and topk < M:
+            kth = mixed.sort(dim=-1, descending=True,
+                             stable=True).values[..., topk - 1:topk]
+            mixed = torch.where(mixed >= kth, mixed, LOG_ZERO)
+        out[r0:r0 + C] = torch.logsumexp(mixed, dim=-1).clamp_min(LOG_ZERO)
+    return out.reshape(*g.shape[:-1], S)
+
+
+def senone_scores(tables: GMMScorerTables, x: torch.Tensor, topk: int = 0,
+                  iwcd_scheme: str = "best", iwcd_nbest: int = 3
+                  ) -> torch.Tensor:
+    """[..., D] frames -> [..., S(+Q')] senone log output probabilities,
+    with the pseudo set-states' columns after the senones' when the
+    tables carry them.  topk > 0 emulates gprune_beam (reference
+    gprune_beam.c); 0 sums every mixture component exactly."""
+    out = mixture_scores(tables, gauss_scores(tables, x), topk)
+    if tables.n_pseudo:
+        out = torch.cat([out, pseudo_scores(tables, out, iwcd_scheme,
+                                            iwcd_nbest)], dim=-1)
+    return out
+
+
+def pseudo_scores(tables: GMMScorerTables, senone: torch.Tensor,
+                  scheme: str = "best", nbest: int = 3) -> torch.Tensor:
+    return aggregate_pseudo(tables.pseudo_members, tables.pseudo_segids,
+                            tables.n_pseudo, senone, scheme, nbest)

@@ -6,12 +6,16 @@ flagship DNN-HMM LVCSR configuration (ENVR-v5.4-like: 40ch FBANK_D_A
 front-end, 11-frame splice, 5x2048 sigmoid hidden layers, ~2k senones —
 reference README.md Quick Run model + Sample.dnnconf) and the 20k-word
 tied-triphone configuration (`lvcsr_engine`: HMMList-tied triphones,
-cross-word pseudo sets, strict inter-word CD in pass 2).
+cross-word pseudo sets, strict inter-word CD in pass 2).  Beside them,
+`write_gmm_task` writes a GMM-HMM task of the flagship's shape as the
+model, dictionary, N-gram and feature files the command line reads.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -575,6 +579,68 @@ def make_lvcsr_utts(eng, protos, n_utts, dim, context,
         lens.append(T)
     return truths, windows, lens
 
+
+def first_component_hmmset(hmm: HMMSet) -> HMMSet:
+    """A 1-mixture copy of `hmm`: each state keeps its first mixture
+    component at weight 1 (a Gaussian-selection model of the same
+    monophones, as mkgshmm derives one)."""
+    g = hmm.state_mix[:, 0]
+    S = hmm.n_states
+    return dataclasses.replace(
+        hmm, means=hmm.means[g], ivars=hmm.ivars[g], gconst=hmm.gconst[g],
+        state_mix=np.arange(S, dtype=np.int32)[:, None],
+        state_lw=np.zeros((S, 1), np.float32),
+        phone_index=dict(hmm.phone_index), logical_map={})
+
+
+def write_gmm_task(out_dir: str, n_utts: int = 16, n_words: int = 5000,
+                   n_phones: int = 668, dim: int = 39, n_mix: int = 16,
+                   seed: int = 0, min_words: int = 6, max_words: int = 12):
+    """A GMM-HMM dictation task written as the model files the `julius`
+    command line reads: the flagship's shape (`make_hmmset` with n_mix
+    diagonal Gaussians a state at MFCC_E_D_A width, `make_vocabulary`,
+    `make_ngram`) as `am.binhmm` (with its feature parameters embedded),
+    its first-component monophones as the -gshmm model `gs.binhmm`, an
+    HTK dictionary `words.dict`, a v5 `lm.bingram`, and `n_utts`
+    generative utterances as HTK parameter files `uNNN.mfc` listed in
+    `list.txt`: each state's frames are its first component's mean plus
+    `make_flagship_utts`' noise (context 1, no splicing).
+
+    Returns (truths, {name: path}), the truths as word-name lists."""
+    from julius_tpu_torch.io.bingram import write_bingram
+    from julius_tpu_torch.io.binhmm import write_binhmm
+    from julius_tpu_torch.io.htk_param import HTKParam, write_htk_param
+
+    hmm = make_hmmset(n_phones=n_phones, n_states=3, dim=dim, n_mix=n_mix,
+                      seed=seed)
+    voca = make_vocabulary(hmm, n_words, seed=seed + 1)
+    lm = make_ngram(voca, seed=seed + 2)
+    kind = "MFCC_E_D_A"
+    para = parse_feature_type(kind)
+    if para.veclen != dim:
+        raise ValueError(f"{kind} is {para.veclen} wide, not {dim}")
+    files = {k: os.path.join(out_dir, v) for k, v in (
+        ("am", "am.binhmm"), ("gs", "gs.binhmm"), ("dict", "words.dict"),
+        ("lm", "lm.bingram"), ("list", "list.txt"))}
+    write_binhmm(files["am"], hmm, para=para)
+    write_binhmm(files["gs"], first_component_hmmset(hmm), para=para)
+    with open(files["dict"], "w", encoding="utf-8") as f:
+        for name, out, phones in zip(voca.names, voca.outputs, voca.phones):
+            f.write(f"{name}\t[{out}]\t{' '.join(phones)}\n")
+    write_bingram(files["lm"], lm)
+    protos = hmm.means[hmm.state_mix[:, 0]]
+    truths, frames, _ = make_flagship_utts(
+        hmm, voca, lm, protos, n_utts, dim, 1, min_words=min_words,
+        max_words=max_words, seed=seed + 1)
+    utts = []
+    for u, x in enumerate(frames):
+        utts.append(os.path.join(out_dir, f"u{u:03d}.mfc"))
+        write_htk_param(utts[-1], HTKParam(data=x, samp_period=100000,
+                                           kind=kind))
+    with open(files["list"], "w") as f:
+        f.write("\n".join(utts) + "\n")
+    files["utts"] = utts
+    return truths, files
 
 
 def flagship_engine(n_words: int = 5000, n_phones: int = 668,

@@ -1,0 +1,273 @@
+"""Port vs reference: the `julius` command line (jconf.py, fusion.py,
+tools/recognize.py) and the lattice/confnet/MBR outputs
+(search/graphout.py).
+
+* `parse_jconf` gives the same EngineConfig, every field, on the
+  reference's own jconf test inputs and on the GMM, lattice and input
+  options;
+* `create_engines` loads the same models from the same files;
+* both packages' `recognize.main` decode the same GMM-HMM task files
+  (`tools.synth.write_gmm_task` at a small size: binhmm, dictionary,
+  bingram, HTK parameter files) and print the same lines: sentences,
+  word sequences, confidence lines, word-graph and confusion-network
+  lines equal, each number in them within atol 1e-2 (CLI scores are
+  sums of a few hundred float32 GMM scores; word-graph posteriors agree
+  to 1e-6), with plain output, with -lattice -confnet -mbr -n 3, with
+  -gshmm -separatescore and an -outprobout dump (the dumped scores
+  within atol 1e-4), and -version's engine dump;
+* graphout's functions give the same graph, text dump, confusion
+  network, MBR order and edit distances on the same lattice;
+* options whose paths the port has not yet raise NotImplementedError
+  naming their ROADMAP.md item, and the CLI needs CUDA unless the CPU
+  is asked for.
+"""
+
+import contextlib
+import dataclasses
+import io
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from julius_tpu import fusion as jfusion
+from julius_tpu.io.htk_param import read_htk_param
+from julius_tpu.jconf import parse_jconf as jparse
+from julius_tpu.search import graphout as jgo
+from julius_tpu.search import pass2 as jp2
+from julius_tpu.tools import recognize as jrec
+from julius_tpu_torch import fusion as tfusion
+from julius_tpu_torch.jconf import parse_jconf as tparse
+from julius_tpu_torch.search import graphout as tgo
+from julius_tpu_torch.tools import recognize as trec
+from julius_tpu_torch.tools.synth import write_gmm_task
+
+TASK = dict(n_utts=3, n_words=60, n_phones=24, dim=39, n_mix=4,
+            min_words=2, max_words=4)
+
+
+@pytest.fixture(scope="module")
+def task(tmp_path_factory):
+    d = tmp_path_factory.mktemp("gmm_task")
+    truths, files = write_gmm_task(str(d), **TASK)
+    (d / "sub.jconf").write_text("-b 400\n-lmp 9.0 -1.0\n")
+    (d / "main.jconf").write_text(
+        "# comment\n-C sub.jconf\n-smpFreq 8000\n-n 3 -m 1000\n")
+    (d / "config").write_text(
+        "SOURCERATE = 625\nTARGETKIND = MFCC_E_D_Z\n"
+        "WINDOWSIZE = 250000.0\nTARGETRATE = 100000.0\n"
+        "NUMCHANS = 24\nNUMCEPS = 12\n")
+    (d / "run.jconf").write_text(
+        f"-h {files['am']}\n-v {files['dict']}\n-d {files['lm']}\n"
+        "-input mfcfile\n-batchsize 3\n")
+    return d, truths, files
+
+
+JCONF_CASES = {
+    "sections": ["-C", "{d}/main.jconf"],
+    "multi_instance": ["-AM", "am1", "-h", "x.hmm", "-AM", "am2", "-h",
+                       "y.hmm", "-LM", "lm1", "-v", "d.dict", "-d", "l.arpa",
+                       "-SR", "s1", "am1", "lm1", "-SR", "s2", "am2", "lm1"],
+    "unknown_option": ["-notarealoption", "xyz", "-n", "2"],
+    "htkconf": ["-htkconf", "{d}/config"],
+    "output_options": ["-separatescore", "-progout", "-proginterval", "500",
+                       "-record", "/tmp/recdir", "-charconv", "utf-8",
+                       "sjis", "-quiet", "-plugindir", "a:b"],
+    "option_surface": [
+        "-b2", "40", "-bs", "150.0", "-spmodel", "isp", "-multipath",
+        "-sscalc", "-sscalclen", "250", "-cmnupdate",
+        "-nousepower", "-novtln", "-nocvn", "-cvnstatic",
+        "-iwsppenalty", "-2.5", "-iwspword", "-iwspentry",
+        "<UNK> [sp] sp", "-forcedict", "-wsil", "silB", "silE", "NULL",
+        "-zmean", "-lvscale", "0.5", "-48", "-nostrip", "-notypecheck",
+        "-chunksize", "2000", "-realtime", "-spsegment", "-spdur", "12",
+        "-pausemodels", "sp,silB", "-graphrange", "3", "-graphcut",
+        "60", "-cmthres", "0.7", "-mbr_wwer", "-mbr_weight", "0.2",
+        "-fallback1pass", "-looktrellis", "-inactive",
+        "-fvad", "2", "-fvad_param", "7", "0.5"],
+    "gmm_and_outputs": [
+        "-C", "{d}/run.jconf", "-gprune", "beam", "-tmix", "2",
+        "-gshmm", "gs.binhmm", "-gsnum", "8", "-iwcd1", "best", "2",
+        "-lattice", "-confnet", "-mbr", "-cmalpha", "0.1", "-n", "3",
+        "-output", "2", "-outprobout", "out", "-filelist", "list.txt",
+        "-rejectshort", "200", "-1pass", "-nolattice", "-lattice"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(JCONF_CASES))
+def test_parse_jconf(task, case):
+    argv = [a.format(d=task[0]) for a in JCONF_CASES[case]]
+    got, want = tparse(argv), jparse(argv)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.unknown == want.unknown
+
+
+def test_create_engines_loads_the_same_models(task):
+    d, _, files = task
+    argv = ["-C", str(d / "run.jconf"), "-gshmm", files["gs"]]
+    teng = tfusion.create_engines(tparse(argv), device="cpu")[0]
+    jeng = jfusion.create_engines(jparse(argv))[0]
+    for name in ("means", "ivars", "gconst", "state_mix", "state_lw",
+                 "phone_states", "phone_trans"):
+        assert np.array_equal(getattr(teng.hmm, name),
+                              getattr(jeng.hmm, name)), name
+    assert teng.voca.names == jeng.voca.names
+    assert teng.voca.phones == jeng.voca.phones
+    assert teng.lm.ngrams == jeng.lm.ngrams
+    assert dataclasses.asdict(teng.fe_cfg) == dataclasses.asdict(jeng.fe_cfg)
+    assert teng.net.n_nodes == jeng.net.n_nodes
+    assert teng.gms is not None and jeng.gms is not None
+    assert np.array_equal(teng.gms.state2gs.numpy(),
+                          np.asarray(jeng.gms.state2gs))
+
+
+def run_main(main, argv, **kw):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv, **kw) == 0
+    return buf.getvalue().splitlines()
+
+
+NUMBER = re.compile(r"-?\d+\.\d+")
+
+
+def assert_same_lines(got, want, atol=1e-2):
+    """Lines equal once their decimal numbers are masked, and each
+    number within atol."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert NUMBER.sub("#", g) == NUMBER.sub("#", w), (g, w)
+        np.testing.assert_allclose(
+            [float(x) for x in NUMBER.findall(g)],
+            [float(x) for x in NUMBER.findall(w)], rtol=0, atol=atol)
+
+
+CLI_CASES = {
+    "plain": [],
+    "lattice_confnet_mbr": ["-lattice", "-confnet", "-mbr", "-n", "3"],
+    "gshmm_outprob": ["-gshmm", "{gs}", "-gsnum", "8", "-separatescore",
+                      "-outprobout", "{d}/{pkg}"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLI_CASES))
+def test_recognize_main(task, case):
+    d, truths, files = task
+    out = {}
+    for pkg, main, kw in (("torch", trec.main, dict(device="cpu")),
+                          ("jax", jrec.main, {})):
+        argv = ["-C", str(d / "run.jconf"), "-filelist", files["list"]] + [
+            a.format(gs=files["gs"], d=d, pkg=pkg) for a in CLI_CASES[case]]
+        out[pkg] = [ln.replace(f"{d}/{pkg}.", "PREFIX.")
+                    for ln in run_main(main, argv, **kw)]
+    got, want = out["torch"], out["jax"]
+    assert_same_lines(got, want)
+    sentences = [ln.split(": ", 1)[1] for ln in got
+                 if ln.startswith("sentence1: ")]
+    assert sentences == [" ".join(w for w in t if w not in ("<s>", "</s>"))
+                         for t in truths]
+    if case == "lattice_confnet_mbr":
+        assert "--- begin wordgraph data ---" in got
+        assert "--- begin confusion network ---" in got
+        assert any(ln.startswith("sentence3: ") for ln in got)
+    if case == "gshmm_outprob":
+        assert any("(AM:" in ln for ln in got)
+        for u in range(len(truths)):
+            t = read_htk_param(str(d / f"torch.{u:04d}.prob"))
+            j = read_htk_param(str(d / f"jax.{u:04d}.prob"))
+            assert t.kind == j.kind == "USER"
+            np.testing.assert_allclose(t.data, j.data, rtol=0, atol=1e-4)
+
+
+def test_version_prints_the_engine(task):
+    files = task[2]
+    lines = run_main(trec.main, ["-h", files["am"], "-v", files["dict"],
+                                 "-d", files["lm"], "-version"],
+                     device="cpu")
+    text = "\n".join(lines)
+    assert "scorer: GMM (gprune=none num=10)" in text
+    assert "device=cpu" in text and "vocabulary=60 words" in text
+
+
+@pytest.fixture(scope="module")
+def lattice(task):
+    """The pass-1 lattice of the task's first utterance, decoded by the
+    reference's GMM engine, and its 3-best list."""
+    d, _, files = task
+    eng = jfusion.create_engines(jparse(["-C", str(d / "run.jconf"),
+                                         "-n", "3"]))[0]
+    x = read_htk_param(files["utts"][0]).data[None]
+    n = np.asarray([x.shape[1]], np.int32)
+    res = eng.decode_features(jnp.asarray(x), jnp.asarray(n))[0]
+    trellis = eng._pass1_jit(eng._outprob_jit(jnp.asarray(x)), n)
+    tb = [np.asarray(a)[0] for a in trellis]
+    return (jp2.TrellisLattice(type(trellis)(*tb), int(n[0])),
+            eng.voca.names, [jp2.NBestResult(
+                word_ids=r.word_ids, score=r.score, am_score=r.am_score,
+                lm_score=r.lm_score, bounds=[]) for r in res.nbest])
+
+
+def graph_fields(g):
+    return [dataclasses.asdict(w) for w in g.words], g.n_frames
+
+
+def test_graphout_functions(lattice):
+    lat, names, nbest = lattice
+    for scale in (0.05, 0.2):
+        tg, jg = tgo.build_word_graph(lat, scale), jgo.build_word_graph(
+            lat, scale)
+        assert graph_fields(tg) == graph_fields(jg)
+    tp, jp = tgo.prune_graph(tg, 1e-3), jgo.prune_graph(jg, 1e-3)
+    assert graph_fields(tp) == graph_fields(jp) and len(tp) < len(tg)
+    assert tgo.graph_to_text(tp, names) == jgo.graph_to_text(jp, names)
+    assert [dataclasses.asdict(c) for c in tgo.confusion_network(tp)] == \
+        [dataclasses.asdict(c) for c in jgo.confusion_network(jp)]
+    gwords = {(w.word, w.begin, w.end): (w.score, w.am, w.lm)
+              for w in jp.words}
+    assert graph_fields(tgo.build_word_graph_pass2(gwords, lat.T)) == \
+        graph_fields(jgo.build_word_graph_pass2(gwords, lat.T))
+    assert len(nbest) == 3
+    weights = np.linspace(0.5, 2.0, len(names)).astype(np.float32)
+    for scale, w in ((0.1, None), (1.0, weights)):
+        assert [r.word_ids for r in tgo.mbr_rerank(nbest, scale, w)] == \
+            [r.word_ids for r in jgo.mbr_rerank(nbest, scale, w)]
+    for a in nbest:
+        for b in nbest:
+            assert tgo.edit_distance(a.word_ids, b.word_ids, weights) == \
+                jgo.edit_distance(a.word_ids, b.word_ids, weights)
+
+
+UNPORTED = [
+    (["-gram", "{d}/sample"], "unfused pass1_step paths"),
+    (["-dfa", "{d}/sample.dfa"], "unfused pass1_step paths"),
+    (["-w", "{d}/words.list"], "unfused pass1_step paths"),
+    (["-nrl", "{d}/back.arpa"], "backward N-gram"),
+    (["-gmm", "{d}/gmmdefs"], "streaming"),
+    (["-powerthres", "100.0"], "streaming"),
+    (["-input", "mic"], "streaming"),
+    (["-48"], "streaming"),
+    (["-plugindir", "{d}"], "entry points"),
+    (["-check", "wchmm"], "entry points"),
+    (["-walign"], "align"),
+]
+
+
+@pytest.mark.parametrize("extra,item", UNPORTED,
+                         ids=[e[0] for e, _ in UNPORTED])
+def test_unported_options_raise(task, extra, item):
+    d, _, files = task
+    argv = ["-C", str(d / "run.jconf"), files["utts"][0]] + [
+        a.format(d=d) for a in extra]
+    with pytest.raises(NotImplementedError, match=item):
+        run_main(trec.main, argv, device="cpu")
+
+
+def test_cli_needs_cuda_unless_cpu_is_asked(task, monkeypatch):
+    d, _, files = task
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trec.main(["-C", str(d / "run.jconf"), files["utts"][0]])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tfusion.create_engines(tparse(["-C", str(d / "run.jconf")]))

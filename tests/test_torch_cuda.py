@@ -2,7 +2,8 @@
 version, and the decode on CUDA against the decode on the CPU, for the
 default pass 2 (device A*), the host re-scan and the frozen search; the
 tied-triphone configuration (pseudo-set outprobs, the strict-head scan,
-its decode) and the waveform front end likewise.
+its decode), the waveform front end, the GMM scorer and the command
+line on GMM-HMM model files likewise.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference package, so it also runs where
@@ -346,3 +347,71 @@ def test_front_end_on_card_matches_cpu(engines):
     want = cpu.recognize_batch(wave, lens)
     assert [r.word_ids for r in got] == [r.word_ids for r in want]
     assert [r.valid for r in got] == [True, True, False]
+
+
+@pytest.fixture(scope="module")
+def gmm_task(tmp_path_factory):
+    """A small GMM-HMM task written as the command line's files."""
+    d = tmp_path_factory.mktemp("gmm_task")
+    truths, files = synth.write_gmm_task(
+        str(d), n_utts=2, n_words=60, n_phones=24, dim=39, n_mix=4,
+        min_words=2, max_words=4)
+    return truths, files
+
+
+@pytest.mark.parametrize("topk,gms", [(0, False), (2, False), (0, True)])
+def test_gmm_scorer_on_card_matches_cpu(cuda, gmm_task, topk, gms):
+    """gauss_scores / senone_scores (and GMS) on the card against the
+    CPU: TF32 off, so within atol 1e-3 (products of 39-wide frames
+    summed in another order)."""
+    from julius_tpu_torch.io.binhmm import read_binhmm
+    from julius_tpu_torch.ops import gmm as tgmm
+    from julius_tpu_torch.ops import gms as tgms
+    _, files = gmm_task
+    hmm = read_binhmm(files["am"])[0]
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, 40, 39)).astype(np.float32)) + torch.from_numpy(hmm.means[:40])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tabs = tgmm.build_gmm_tables(hmm, device=dev)
+        xd = x.to(dev)
+        if gms:
+            sel = tgms.build_gms(hmm, read_binhmm(files["gs"])[0], 8,
+                                 device=dev)
+            out[dev] = tgms.gms_senone_scores(tabs, sel, xd, topk=topk)
+        else:
+            out[dev] = tgmm.senone_scores(tabs, xd, topk=topk)
+        out[dev + "_g"] = tgmm.gauss_scores(tabs, xd)
+    for key in ("cuda", "cuda_g"):
+        got, want = out[key].cpu(), out[key.replace("cuda", "cpu")]
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= 1e-3
+
+
+def test_cli_on_card_matches_cpu(cuda, gmm_task):
+    """The command line on two feature files on the card and on the
+    CPU: the same sentences, scores within 1e-2."""
+    import contextlib
+    import io
+
+    from julius_tpu_torch.tools import recognize
+    truths, files = gmm_task
+    argv = ["-h", files["am"], "-v", files["dict"], "-d", files["lm"],
+            "-input", "mfcfile", "-batchsize", "2"] + files["utts"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        before = tpk.LAUNCHES
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert recognize.main(argv, device=dev) == 0
+        if dev == "cuda":
+            assert tpk.LAUNCHES > before
+        out[dev] = buf.getvalue().splitlines()
+    sent = [[ln for ln in out[d] if ln.startswith("sentence1")]
+            for d in out]
+    assert sent[0] == sent[1] == [
+        "sentence1: " + " ".join(w for w in t if w not in ("<s>", "</s>"))
+        for t in truths]
+    scores = [[float(ln.split()[1]) for ln in out[d]
+               if ln.startswith("score1")] for d in out]
+    np.testing.assert_allclose(scores[0], scores[1], rtol=0, atol=1e-2)

@@ -139,16 +139,35 @@ def test_engine_needs_cuda_unless_cpu_is_asked(reference, monkeypatch):
 
 def test_configurations_outside_the_slice_raise(reference):
     eng = reference[0]
-    for search, item in ((dict(graph_out=True), "graphout"),
-                         (dict(cm_search=True), "graphout"),
-                         (dict(mbr=True), "graphout")):
+    for search, item in ((dict(align_word=True), "align"),
+                         (dict(align_state=True), "align")):
         teng = converted_engine(eng, **search)
         with pytest.raises(NotImplementedError, match=item):
             teng.decode_features(reference[3], reference[4])
         with pytest.raises(NotImplementedError, match=item):
             teng.recognize_batch(np.zeros((1, 1600), np.float32), [1600])
-    with pytest.raises(NotImplementedError, match="GMM"):
-        Engine(eng.hmm, eng.voca, eng.lm, device="cpu")
-    with pytest.raises(NotImplementedError, match="factoring"):
-        Engine(eng.hmm, eng.voca, eng.lm, dnn=eng.dnn_params,
-               search=SearchConfig(factoring=2), device="cpu")
+    for search in (dict(factoring=2), dict(beam_width=400)):
+        with pytest.raises(NotImplementedError,
+                           match="unfused pass1_step paths"):
+            Engine(eng.hmm, eng.voca, eng.lm, dnn=eng.dnn_params,
+                   search=SearchConfig(**search), device="cpu")
+    with pytest.raises(NotImplementedError, match="unfused pass1_step paths"):
+        Engine(eng.hmm, eng.voca, dfa=object(), device="cpu")
+
+
+def test_graph_outputs_take_the_host_rescan(reference):
+    """-lattice / -confnet / search-time CM collect the pass-2 word graph
+    in the host re-scan, never the device A*; MBR re-orders the N-best."""
+    _, _, truths, feats, lens, _, ref = reference
+    eng = reference[0]
+    teng = converted_engine(eng, pass2_rescan=True, graph_out=True,
+                            confnet_out=True, cm_search=True, mbr=True,
+                            nbest=2)
+    assert not teng._device_astar_ok() and teng._rescan_ok()
+    got = teng.decode_features(feats, lens)
+    for g, r in zip(got, ref):
+        assert g.word_ids == r.word_ids and g.from_pass == 2
+        assert g.graph is not None and len(g.graph) > 0
+        assert g.confnet and g.cm is not None
+        assert len(g.cm) == len(g.word_ids)
+        assert all(0.0 <= c <= 1.0 + 1e-6 for c in g.cm)
