@@ -49,15 +49,19 @@ Phases, one line each, in order (any failure exits non-zero):
      the flagship's width (668 monophones x 3 states x 16 diagonal
      Gaussians at MFCC_E_D_A's 39 dims, the 5000-word 2-gram) is written
      with the port's writers (binhmm, HTK dictionary, bingram, 16
-     generative utterances as HTK parameter files); the engine
-     fusion.create_engines loads from them holds both kernels against
-     their plain versions and times them at its shapes, its GMM scorer on
-     the card against the CPU, and times the scorer's two stages
-     (gauss_scores, the mixture log-sum-exp) against their bounds; a
-     staged decode splits the wall; then recognize.main runs on all 16
-     files (-input mfcfile -batchsize 16), on 4 with -lattice -confnet
-     -mbr -n 3 (the host re-scan) and on 2 with -gshmm, the launch counts
-     read around each run;
+     generative utterances as HTK parameter files); on the engine
+     fusion.create_engines loads from them, the GMM scorer on the card
+     against the CPU, the scorer's two stages (gauss_scores, the mixture
+     log-sum-exp) timed against their bounds, and a staged decode that
+     splits the wall; then recognize.main runs on all 16 files (-input
+     mfcfile -batchsize 16), on 4 with -lattice -confnet -mbr -n 3 (the
+     host re-scan) and on 2 with -gshmm, the launch counts read around
+     each run.  Each run records the shapes both kernels get (and keeps
+     the arguments of a few calls); after it, each kernel is held
+     against its plain version at every such shape, on the run's own
+     arguments and on integer-valued inputs over the run's engine
+     tables, and timed there: the run's entries carry the
+     launch-weighted mean time, plain time and bound;
  10. the kernels' JSON line (one entry per kernel and path), the card
      line, and the result line last.
 
@@ -66,7 +70,9 @@ outside the repository.  Exits non-zero without a result where CUDA is
 not available.
 """
 
+import contextlib
 import dataclasses
+import inspect
 import json
 import re
 import subprocess
@@ -566,8 +572,8 @@ def waveform_phase(eng, card, step_t):
 
 def gauss_cost(BT, D, G):
     """(f32 operations, least bytes) of gauss_scores on [BT, D] frames:
-    two products of 2 * BT * D * G operations, x * x, the subtraction and
-    the constant's add; x, the two [D, G] tables and c read once, the
+    the product [x, x*x] @ [a; -half_iv] of 2 * BT * 2D * G operations,
+    x * x and the bias's add; x, the [2D, G] table and c read once, the
     [BT, G] scores written once."""
     return (4 * BT * D * G + BT * D + 2 * BT * G,
             4 * (BT * D + 2 * D * G + G + BT * G))
@@ -584,19 +590,122 @@ def mixture_cost(BT, S, M):
             4 * BT * S * M + 12 * S * M + 4 * BT * S)
 
 
+KEEP_CALL = 64    # besides the first, the call of a shape whose arguments are kept
+
+
+@contextlib.contextmanager
+def recorded_calls(pk, sk, p2d, scan_mod):
+    """Wrap both kernels' wrappers where the decode looks them up: each
+    call's shape is counted, and the arguments of the first and the
+    KEEP_CALL-th call at each shape are copied.  Yields calls[kernel]
+    = {shape: [count, [args, ...]]}; the wrappers' own launch counts are
+    untouched."""
+    calls = {"pass1_step": {}, "scan_win": {}}
+
+    def wrap(name, fn, shape_of):
+        # the arguments are named as the plain version's, which the
+        # wrapper shares
+        plain = pk.fused_step_plain if name == "pass1_step" \
+            else sk.scan_core_win_plain
+        params = list(inspect.signature(plain).parameters)
+
+        def wrapped(*a, **kw):
+            args = dict(zip(params, a), **kw)
+            entry = calls[name].setdefault(shape_of(args), [0, []])
+            entry[0] += 1
+            if entry[0] in (1, KEEP_CALL):
+                entry[1].append({k: v.clone() if torch.is_tensor(v) else v
+                                 for k, v in args.items()})
+            return fn(*a, **kw)
+        return wrapped
+
+    def step_shape(a):
+        return (*a["score"].shape, a["loc_lp"].shape[0], a["row"].shape[-1])
+
+    def scan_shape(a):
+        K, K1, N = a["loc"].shape
+        return (K, a["seed"].shape[1], N, K1, *a["out_ext"].shape)
+
+    real = pk.fused_step, p2d.scan_core_win, scan_mod.scan_core_win
+    pk.fused_step = wrap("pass1_step", real[0], step_shape)
+    p2d.scan_core_win = wrap("scan_win", real[1], scan_shape)
+    scan_mod.scan_core_win = wrap("scan_win", real[2], scan_shape)
+    try:
+        yield calls
+    finally:
+        pk.fused_step, p2d.scan_core_win, scan_mod.scan_core_win = real
+
+
+def path_kernels(label, calls, launches, eng, card):
+    """Both kernels at the shapes one run gave them (`recorded_calls`):
+    per shape, held against the plain version on the run's own kept
+    arguments and on integer-valued inputs at that shape over the run's
+    engine tables, then timed on the kept arguments beside the plain
+    version and the bound.  -> {kernel: entry fields}, the times and
+    bound the launch-weighted mean over the run's shapes."""
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass1 as p1
+
+    dev, tabs = eng.dev_net, eng.device_chains
+    etot = p1.entry_total(dev)
+    out = {}
+    for name in ("pass1_step", "scan_win"):
+        shapes = []
+        for key, (count, kept) in sorted(calls[name].items()):
+            if name == "pass1_step":
+                B, N, K1, R = key
+                err = max(compare_step(pk, a)[0] for a in kept)
+                ties = step_inputs(dev, etot, B, R, seed=41, ties=True)
+                err = max(err, compare_step(pk, ties)[0])
+                t = time_step(pk, kept[-1], B, N, K1, R)
+            else:
+                K, W, N, K1, B, T, R = key
+                if N != tabs.nmax:
+                    raise RuntimeError(f"{label}: scan_win on {N}-node "
+                                       f"chains, tables of {tabs.nmax}")
+                err = max(compare_scan(sk, a) for a in kept)
+                ties = scan_inputs(tabs, K, W, T, R, B, 43, True)
+                err = max(err, compare_scan(sk, ties))
+                t = time_scan(sk, kept[-1], K, W, N, K1, n_plain=5)
+            shapes.append(dict(shape=list(key), launches=count,
+                               max_abs_err=err, **t))
+        n = sum(x["launches"] for x in shapes)
+        if n != launches[name]:
+            raise RuntimeError(f"{label}: {n} {name} calls recorded for "
+                               f"{launches[name]} launches")
+
+        def mean(k):
+            return sum(x[k] * x["launches"] for x in shapes) / n
+
+        by = {b: sum(x["bound_ms"] * x["launches"] for x in shapes
+                     if x["bound_by"] == b) for b in ("bytes", "operations")}
+        out[name] = dict(
+            launches=n, max_abs_err=max(x["max_abs_err"] for x in shapes),
+            ms=mean("ms"), plain_ms=mean("plain_ms"),
+            bound_ms=mean("bound_ms"), bound_by=max(by, key=by.get),
+            n_shapes=len(shapes))
+        phase("kernel_path", path=label, kernel=name,
+              shape_is=("[B, N, K+1, R]" if name == "pass1_step"
+                        else "[K, W, N, K+1, B, T, R]"),
+              shapes=shapes, **out[name], library_ms=None, card=card)
+    return out
+
+
 def run_cli(recognize, argv, results):
     """recognize.main(argv) on the card, its standard output captured and
     each engine's results appended to `results` (a result callback) ->
-    (output lines, wall seconds)."""
-    import contextlib
+    (output lines, wall seconds, the engines it built)."""
     import io
 
     real = recognize.create_engines
+    built = []
 
     def engines_with_callback(*args, **kw):
         engines = real(*args, **kw)
         for eng in engines:
             eng.callbacks.add("result", results.append)
+        built.extend(engines)
         return engines
 
     buf = io.StringIO()
@@ -611,7 +720,7 @@ def run_cli(recognize, argv, results):
         recognize.create_engines = real
     if rc != 0:
         raise RuntimeError(f"recognize.main returned {rc}")
-    return buf.getvalue().splitlines(), wall
+    return buf.getvalue().splitlines(), wall, built
 
 
 def cli_exact(lines, truths) -> int:
@@ -640,6 +749,7 @@ def cli_phase(card):
     from julius_tpu_torch.search import pass1 as p1
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.search import pass2_rescan as p2r
+    from julius_tpu_torch.search import scan as scan_mod
     from julius_tpu_torch.tools import recognize
     from julius_tpu_torch.tools.synth import write_gmm_task
     from julius_tpu_torch.utils.cuda_timing import time_ms
@@ -666,39 +776,13 @@ def cli_phase(card):
         dev, tabs, gt = eng.dev_net, eng.device_chains, eng.gmm_tables
         N, K1 = dev.loc_lp.shape[1], dev.loc_lp.shape[0]
         S, M = gt.state_mix.shape
-        G = gt.a.shape[1]
+        G = gt.w.shape[1]
         R = S
         phase("cli_models", write_s=write_s, engine_build_s=build_s,
               gaussians=G, senones=S, mixtures=M, dim=D, nodes=N,
               arc_span_k=K1 - 1, words=eng.voca.n_words,
               trellis_m=eng.p1_cfg.n_atoms, utterances=B, frames=T,
               files=sorted(k for k in files if k != "utts"))
-
-        # ---- both kernels on this engine's tables, at this path's shapes
-        etot = p1.entry_total(dev)
-        step_err = 0.0
-        for ties in (True, False):
-            args = step_inputs(dev, etot, B, R, seed=31 + ties, ties=ties)
-            step_err = max(step_err, compare_step(pk, args)[0])
-        K_A, W_A = B * p2d.POPS, min(p2d.SCAN_WIN, T)
-        scan_err = 0.0
-        for ties in (True, False):
-            args = scan_inputs(tabs, K_A, W_A, T, R, B, 33 + ties, ties)
-            scan_err = max(scan_err, compare_scan(sk, args))
-        phase("kernel_check", path="cli", kernels=["pass1_step", "scan_win"],
-              pass1_step_max_abs_err=step_err, scan_win_max_abs_err=scan_err,
-              pass1_step_shape=[B, N, K1 - 1, R],
-              scan_win_shape=[K_A, W_A, tabs.nmax, tabs.kl, R])
-        args = step_inputs(dev, etot, B, R, seed=35, ties=False)
-        step_t = time_step(pk, args, B, N, K1, R)
-        phase("kernel_time", path="cli", kernel="pass1_step", batch=B,
-              nodes=N, **step_t, library_ms=None, card=card)
-        args = scan_inputs(tabs, K_A, W_A, T, R, B, 37, False)
-        scan_t = time_scan(sk, args, K_A, W_A, tabs.nmax, tabs.kl + 1)
-        phase("kernel_time", path="cli", kernel="scan_win", chains=K_A,
-              window=W_A, nodes=tabs.nmax, arc_span_k=tabs.kl, **scan_t,
-              library_ms=None, card=card)
-        del args
 
         # ---- the GMM scorer: the card against the CPU on a few rows,
         # then its two stages timed over the whole batch
@@ -755,7 +839,9 @@ def cli_phase(card):
 
         # ---- the command line: all files in one batch, then -lattice
         # -confnet -mbr -n 3 on 4 of them, then -gshmm on 2; the launch
-        # counts are set to 0 just before each run and read just after
+        # counts are set to 0 just before each run and read just after,
+        # and both kernels are then checked and timed at the shapes that
+        # run gave them, on its engine's tables
         runs = {}
         entries = []
         for label, extra, n in (
@@ -765,11 +851,12 @@ def cli_phase(card):
                 ("cli_gshmm", ["-gshmm", files["gs"], "-batchsize", "2"],
                  2)):
             results = []
-            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
-            p2d.LAST_STATS.clear()
-            lines, wall = run_cli(recognize, models + extra
-                                  + files["utts"][:n], results)
-            launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+            with recorded_calls(pk, sk, p2d, scan_mod) as calls:
+                pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+                p2d.LAST_STATS.clear()
+                lines, wall, built = run_cli(recognize, models + extra
+                                             + files["utts"][:n], results)
+                launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
             chunks, rounds = p2r.CHUNKS, p2d.LAST_STATS.get("rounds", 0)
             t_run = int(lens_np[:n].max())
             if launches != t_run:
@@ -790,17 +877,19 @@ def cli_phase(card):
                 confnets=lines.count("--- begin confusion network ---"),
                 sentences_per_input=sum(ln.startswith("sentence")
                                         for ln in lines) / n)
+            measured = path_kernels(
+                label, calls, {"pass1_step": launches,
+                               "scan_win": scan_launches}, built[0], card)
+            del calls, built
             entries += [
                 {"name": "pass1_step", "path": label, "route": "cuda",
                  "source": "julius_tpu_torch/csrc/pass1_step.cu",
                  "replaces": "julius_tpu/ops/pass1_kernel.py:49",
-                 "launches": launches, "max_abs_err": step_err, **step_t,
-                 "library_ms": None},
+                 **measured["pass1_step"], "library_ms": None},
                 {"name": "scan_win", "path": label, "route": "cuda",
                  "source": "julius_tpu_torch/csrc/scan_win.cu",
                  "replaces": "julius_tpu/search/scan.py:317",
-                 "launches": scan_launches, "max_abs_err": scan_err,
-                 **scan_t, "library_ms": None}]
+                 **measured["scan_win"], "library_ms": None}]
     audio_s = float(lens_np.sum()) / 100.0
     phase("cli", audio_s=audio_s, xrt=audio_s / runs["cli"]["wall_s"],
           staged=walls, runs=runs, card=card)

@@ -116,12 +116,10 @@ def iwcd2_fields(tabs) -> dict:
 
 def load_gmm_tables(a: dict, device) -> GMMScorerTables:
     """GMMScorerTables from the reference GMM scorer's fields (a,
-    half_iv, c, state_mix, state_lw and the pseudo set-states'
-    pseudo_members, pseudo_segids, n_pseudo)."""
-    return gmm_tables_from_numpy(
-        a["a"], a["half_iv"], a["c"], a["state_mix"], a["state_lw"],
-        device, a.get("pseudo_members"), a.get("pseudo_segids"),
-        a.get("n_pseudo", 0))
+    half_iv, c, state_mix, state_lw; the engine keeps the pseudo
+    set-states itself, see `pseudo_fields`)."""
+    return gmm_tables_from_numpy(a["a"], a["half_iv"], a["c"],
+                                 a["state_mix"], a["state_lw"], device)
 
 
 def gms_fields(gms) -> dict:

@@ -185,8 +185,7 @@ class Engine:
                 np.asarray(hmm.state_sid), dtype=torch.int64,
                 device=self.device)
         else:
-            self.gmm_tables = build_gmm_tables(hmm, self.net.pseudo,
-                                               self.device)
+            self.gmm_tables = build_gmm_tables(hmm, self.device)
             if gshmm is not None:
                 self.gms = build_gms(hmm, gshmm, self.am_cfg.gsnum,
                                      self.device)
@@ -355,20 +354,21 @@ class Engine:
 
     # -- device compute path ----------------------------------------------
 
-    def _outprob(self, feats: torch.Tensor) -> torch.Tensor:
-        """[B, T, D] features -> [B, T, R] extended outprob rows."""
+    def _senones(self, feats: torch.Tensor) -> torch.Tensor:
+        """[B, T, D] features -> [B, T, S] senone score rows."""
         if self.dnn_scorer is not None:
             out = dnn_scores(self.dnn_scorer, feats)     # [B, T, n_out]
-            return self._extend(out.index_select(-1, self._state_sid))
+            return out.index_select(-1, self._state_sid)
         am = self.am_cfg
         topk = am.gprune_num if am.gprune == "topk" else 0
         if self.gms is not None:
             return gms_senone_scores(self.gmm_tables, self.gms, feats,
-                                     topk=topk,
-                                     iwcd=(am.iwcd_scheme, am.iwcd_nbest))
-        return senone_scores(self.gmm_tables, feats, topk=topk,
-                             iwcd_scheme=am.iwcd_scheme,
-                             iwcd_nbest=am.iwcd_nbest)
+                                     topk=topk)
+        return senone_scores(self.gmm_tables, feats, topk=topk)
+
+    def _outprob(self, feats: torch.Tensor) -> torch.Tensor:
+        """[B, T, D] features -> [B, T, R] extended outprob rows."""
+        return self._extend(self._senones(feats))
 
     def _extend(self, rows: torch.Tensor) -> torch.Tensor:
         """[B, T, S] senone rows -> [B, T, S + Q'] with the pseudo
@@ -434,8 +434,7 @@ class Engine:
         feats = torch.as_tensor(feats, dtype=torch.float32,
                                 device=self.device)
         with torch.no_grad():
-            rows = self._outprob(feats)
-        return rows[..., :self.hmm.n_states].cpu().numpy()
+            return self._senones(feats).cpu().numpy()
 
     def decode_outprob(self, rows, n_frames) -> List[Result]:
         """Decode directly from state output probabilities [B, T, S]

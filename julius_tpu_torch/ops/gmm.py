@@ -6,8 +6,9 @@ here.  A diagonal Gaussian's log density is
     log N(x; mu, diag sigma^2) = c_g + x . a_g - (x*x) . half_iv_g
 
 with a_g = mu_g * iv_g, half_iv_g = iv_g / 2 and c_g = -(gconst_g +
-sum(mu_g^2 iv_g)) / 2, so every Gaussian of a batch of frames is two
-full-f32 products [B*T, D] x [D, G] (`gauss_scores`; TF32 stays off).  A
+sum(mu_g^2 iv_g)) / 2, so every Gaussian of a batch of frames is one
+full-f32 product [B*T, 2D] x [2D, G] of [x, x*x] by the stacked table
+[a; -half_iv], with c as its bias (`gauss_scores`; TF32 stays off).  A
 senone's score is the log-sum-exp over its mixture of the gathered
 Gaussian scores plus log weights, optionally over its top-k components
 only (`gprune`, `senone_scores`); tied-mixture codebooks are shared
@@ -19,18 +20,17 @@ A word-edge node whose context is unknown at network build time scores
 a "pseudo set-state", an aggregate of the senones of every physical
 triphone that fits its partial context (models/hmm.py
 `PseudoPhoneSets`); the engine appends these columns after the senone
-columns of the outprob cache (`aggregate_pseudo`, `pseudo_scores`).
+columns of the outprob cache with `aggregate_pseudo`, whatever scored
+the senones.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
-
 import numpy as np
 import torch
 
-from julius_tpu_torch.models.hmm import HMMSet, PseudoPhoneSets
+from julius_tpu_torch.models.hmm import HMMSet
 from julius_tpu_torch.utils.logadd import LOG_ZERO
 
 NEG_HALF = LOG_ZERO / 2
@@ -113,44 +113,35 @@ def aggregate_pseudo(members: torch.Tensor, segids: torch.Tensor,
 class GMMScorerTables:
     """Constant tables of dense GMM scoring, on one device."""
 
-    a: torch.Tensor          # [D, G] mu * iv, transposed for x @ a
-    half_iv: torch.Tensor    # [D, G] 0.5 * iv, transposed
+    w: torch.Tensor          # [2D, G] [mu * iv; -0.5 * iv], transposed
     c: torch.Tensor          # [G]    -0.5*(gconst + sum(mu^2 iv))
     state_mix: torch.Tensor  # [S, M] int64 gaussian ids (pad: 0)
     state_lw: torch.Tensor   # [S, M] f32 log weights (pad: LOG_ZERO)
-    # pseudo-set aggregation: extended row j in [S, S+Q') aggregates the
-    # senones pseudo_members[k] with pseudo_segids[k] == j - S
-    pseudo_members: Optional[torch.Tensor] = None   # [L] int64 senone ids
-    pseudo_segids: Optional[torch.Tensor] = None    # [L] int64 set-state
-    n_pseudo: int = 0
 
     @property
     def n_states(self) -> int:
         return self.state_mix.shape[0]
 
 
-def gmm_tables_from_numpy(a, half_iv, c, state_mix, state_lw, device,
-                          pseudo_members=None, pseudo_segids=None,
-                          n_pseudo: int = 0) -> GMMScorerTables:
-    """GMMScorerTables on `device` from host arrays (the layout of the
-    fields above; ids may come as any integer type)."""
+def gmm_tables_from_numpy(a, half_iv, c, state_mix, state_lw,
+                          device) -> GMMScorerTables:
+    """GMMScorerTables on `device` from the reference's host arrays: a
+    and half_iv [D, G], c [G], state_mix / state_lw [S, M] (ids may come
+    as any integer type)."""
     def f32(v):
         return torch.tensor(np.asarray(v, np.float32), device=device)
 
-    def i64(v):
-        return None if v is None else torch.tensor(
-            np.asarray(v, np.int64), device=device)
-
+    w = np.concatenate([np.asarray(a, np.float32),
+                        -np.asarray(half_iv, np.float32)])
     return GMMScorerTables(
-        a=f32(a), half_iv=f32(half_iv), c=f32(c), state_mix=i64(state_mix),
-        state_lw=f32(state_lw), pseudo_members=i64(pseudo_members),
-        pseudo_segids=i64(pseudo_segids), n_pseudo=int(n_pseudo))
+        w=f32(w), c=f32(c), state_mix=torch.tensor(
+            np.asarray(state_mix, np.int64), device=device),
+        state_lw=f32(state_lw))
 
 
-def build_gmm_tables(hmm: HMMSet, pseudo: Optional[PseudoPhoneSets] = None,
-                     device="cuda") -> GMMScorerTables:
+def build_gmm_tables(hmm: HMMSet, device="cuda") -> GMMScorerTables:
     """The scorer's tables of `hmm` (products folded in float64, as the
-    reference does), with the pseudo set-states of a triphone network."""
+    reference does)."""
     iv = hmm.ivars.astype(np.float64)
     mu = hmm.means.astype(np.float64)
     a = (mu * iv).T.astype(np.float32)
@@ -158,22 +149,16 @@ def build_gmm_tables(hmm: HMMSet, pseudo: Optional[PseudoPhoneSets] = None,
     c = (-0.5 * (hmm.gconst.astype(np.float64)
                  + np.sum(mu * mu * iv, axis=1))).astype(np.float32)
     mix = np.where(hmm.state_mix >= 0, hmm.state_mix, 0)
-    members = segids = None
-    n_pseudo = 0
-    if pseudo is not None and pseudo.n_set_states > 0:
-        members = pseudo.members
-        segids = np.repeat(np.arange(pseudo.n_set_states),
-                           np.diff(pseudo.member_ofs))
-        n_pseudo = pseudo.n_set_states
-    return gmm_tables_from_numpy(a, half_iv, c, mix, hmm.state_lw, device,
-                                 members, segids, n_pseudo)
+    return gmm_tables_from_numpy(a, half_iv, c, mix, hmm.state_lw, device)
 
 
 def gauss_scores(tables: GMMScorerTables, x: torch.Tensor) -> torch.Tensor:
-    """[..., D] frames -> [..., G] per-Gaussian log-likelihoods (two
-    full-f32 products)."""
-    return (torch.matmul(x, tables.a) - torch.matmul(x * x, tables.half_iv)
-            + tables.c)
+    """[..., D] frames -> [..., G] per-Gaussian log-likelihoods (one
+    full-f32 product of [x, x*x] by the stacked table, c its bias)."""
+    flat = x.reshape(-1, x.shape[-1])
+    g = torch.addmm(tables.c, torch.cat([flat, flat * flat], dim=-1),
+                    tables.w)
+    return g.reshape(*x.shape[:-1], g.shape[-1])
 
 
 def mixture_scores(tables: GMMScorerTables, g: torch.Tensor,
@@ -201,21 +186,9 @@ def mixture_scores(tables: GMMScorerTables, g: torch.Tensor,
     return out.reshape(*g.shape[:-1], S)
 
 
-def senone_scores(tables: GMMScorerTables, x: torch.Tensor, topk: int = 0,
-                  iwcd_scheme: str = "best", iwcd_nbest: int = 3
-                  ) -> torch.Tensor:
-    """[..., D] frames -> [..., S(+Q')] senone log output probabilities,
-    with the pseudo set-states' columns after the senones' when the
-    tables carry them.  topk > 0 emulates gprune_beam (reference
-    gprune_beam.c); 0 sums every mixture component exactly."""
-    out = mixture_scores(tables, gauss_scores(tables, x), topk)
-    if tables.n_pseudo:
-        out = torch.cat([out, pseudo_scores(tables, out, iwcd_scheme,
-                                            iwcd_nbest)], dim=-1)
-    return out
-
-
-def pseudo_scores(tables: GMMScorerTables, senone: torch.Tensor,
-                  scheme: str = "best", nbest: int = 3) -> torch.Tensor:
-    return aggregate_pseudo(tables.pseudo_members, tables.pseudo_segids,
-                            tables.n_pseudo, senone, scheme, nbest)
+def senone_scores(tables: GMMScorerTables, x: torch.Tensor,
+                  topk: int = 0) -> torch.Tensor:
+    """[..., D] frames -> [..., S] senone log output probabilities.
+    topk > 0 emulates gprune_beam (reference gprune_beam.c); 0 sums every
+    mixture component exactly."""
+    return mixture_scores(tables, gauss_scores(tables, x), topk)

@@ -16,7 +16,6 @@ GS monophone with the matching center name.
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,7 +23,7 @@ import torch
 
 from julius_tpu_torch.models.hmm import HMMSet, center_name
 from julius_tpu_torch.ops.gmm import (GMMScorerTables, build_gmm_tables,
-                                      pseudo_scores, senone_scores)
+                                      senone_scores)
 from julius_tpu_torch.utils.jlog import LogLevel, jlog
 
 
@@ -68,19 +67,16 @@ def build_gms(hmm: HMMSet, gs_hmm: HMMSet, gsnum: int = 24,
 
 
 def gms_senone_scores(tables: GMMScorerTables, gms: GMSTables,
-                      x: torch.Tensor, topk: int = 0,
-                      iwcd=("best", 3)) -> torch.Tensor:
-    """[..., D] frames -> [..., S(+Q')] senone scores with GMS mixing.
+                      x: torch.Tensor, topk: int = 0) -> torch.Tensor:
+    """[..., D] frames -> [..., S] senone scores with GMS mixing.
 
     Every frame: rank the GS states, score fully the senones whose GS
     state is in the top gsnum (the k-th value from a stable descending
     sort; ties at it are all selected), give the others their GS state's
-    score (gms.c:42-63).  Unmapped senones always score fully.  Pseudo
-    set-state columns are built over the mixed scores, as the
-    reference's outprob_cd runs over GMS-gated outprob_state."""
-    plain = (tables if not tables.n_pseudo else dataclasses.replace(
-        tables, pseudo_members=None, pseudo_segids=None, n_pseudo=0))
-    full = senone_scores(plain, x, topk=topk)           # [..., S]
+    score (gms.c:42-63).  Unmapped senones always score fully.  The
+    engine builds the pseudo set-state columns over these mixed scores,
+    as the reference's outprob_cd runs over GMS-gated outprob_state."""
+    full = senone_scores(tables, x, topk=topk)          # [..., S]
     gs_sc = senone_scores(gms.gs, x)                    # [..., Sg]
     k = min(gms.gsnum, gs_sc.shape[-1])
     kth = gs_sc.sort(dim=-1, descending=True,
@@ -89,8 +85,4 @@ def gms_senone_scores(tables: GMMScorerTables, gms: GMSTables,
     s2g = gms.state2gs.clamp_min(0)
     use_full = torch.where(gms.state2gs >= 0,
                            selected.index_select(-1, s2g), True)
-    mixed = torch.where(use_full, full, gs_sc.index_select(-1, s2g))
-    if tables.n_pseudo:
-        mixed = torch.cat([mixed, pseudo_scores(tables, mixed, *iwcd)],
-                          dim=-1)
-    return mixed
+    return torch.where(use_full, full, gs_sc.index_select(-1, s2g))

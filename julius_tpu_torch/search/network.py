@@ -22,7 +22,7 @@ Cross-word context dependency follows the reference's pass-1 approximation
 (`outprob_style.c`, iwcd1 "best" mode): word-head phones use pseudo
 context sets with free left context ("p+r"), word-tail phones free right
 context ("l-p"), aggregated by max over member senones (ops/gmm.py
-pseudo_scores).
+aggregate_pseudo).
 """
 
 from __future__ import annotations

@@ -8,13 +8,15 @@ packages:
   by convert.py;
 * `gauss_scores`, `senone_scores` (all components, and the `gprune`
   top-k mask), over a model with a padded mixture and a state whose
-  weights are all LOG_ZERO: within atol 1e-4 of the reference's (two
-  float32 products, summed in another order than XLA's; the largest
-  difference measured on the CPU is 4.8e-6, on scores of magnitude 40),
+  weights are all LOG_ZERO: within atol 1e-4 of the reference's (one
+  float32 product of [x, x*x] by [a; -half_iv] where the reference
+  takes two, summed in another order than XLA's; the largest difference
+  measured on the CPU is 1.5e-5 on Gaussian scores of magnitude 90),
   no NaN, and the row-chunked gather equal to the whole one;
-* the pseudo set-states' columns of a tied-triphone network, for each
-  iwcd1 scheme, and Gaussian mixture selection (`gms_senone_scores`),
-  within the same atol;
+* the engine's outprob rows of a tied-triphone network (the pseudo
+  set-states' columns after the senones'), for each iwcd1 scheme, and
+  Gaussian mixture selection (`gms_senone_scores`), within the same
+  atol;
 * whole decodes from features through `Engine.decode_features` (GMM;
   with gprune, with -gshmm selection, with triphone pseudo sets): word
   ids and `from_pass` equal, scores within atol 0.05 (sums of a few
@@ -90,9 +92,11 @@ def test_tables(mono):
     ref = convert.numpy_fields(jgmm.build_gmm_tables(hmm))
     for tabs in (tgmm.build_gmm_tables(hmm, device="cpu"),
                  convert.load_gmm_tables(ref, "cpu")):
-        for name in ("a", "half_iv", "c", "state_mix", "state_lw"):
+        assert np.array_equal(tabs.w.numpy(),
+                              np.concatenate([ref["a"], -ref["half_iv"]]))
+        for name in ("c", "state_mix", "state_lw"):
             assert np.array_equal(getattr(tabs, name).numpy(), ref[name])
-        assert tabs.state_mix.dtype == torch.int64 and tabs.n_pseudo == 0
+        assert tabs.state_mix.dtype == torch.int64
 
 
 def test_gauss_scores(mono):
@@ -138,21 +142,31 @@ def triphones():
     return hmm, voca, lm, net.pseudo
 
 
+@pytest.fixture(scope="module")
+def triphone_engine(triphones):
+    hmm, voca, lm, _ = triphones
+    return Engine(hmm, voca, lm, device="cpu")
+
+
 @pytest.mark.parametrize("scheme", [("max", 1), ("avg", 3), ("best", 3)])
-def test_pseudo_scores(triphones, scheme):
+def test_pseudo_scores(triphones, triphone_engine, scheme):
+    """The engine's outprob rows of a GMM triphone network (senone
+    scores, then the pseudo set-states' columns aggregated from them)
+    against the reference scorer's senone_scores with pseudo tables."""
     hmm, _, _, pseudo = triphones
     ref = jgmm.build_gmm_tables(hmm, pseudo)
-    tabs = port_tables(ref)
-    own = tgmm.build_gmm_tables(hmm, pseudo, device="cpu")
-    for name in ("pseudo_members", "pseudo_segids"):
-        assert torch.equal(getattr(tabs, name), getattr(own, name))
-    assert tabs.n_pseudo == own.n_pseudo == pseudo.n_set_states
+    eng = triphone_engine
+    members, segids, n_pseudo = convert.pseudo_fields(eng).values()
+    assert np.array_equal(members, np.asarray(ref.pseudo_members))
+    assert np.array_equal(segids, np.asarray(ref.pseudo_segids))
+    assert n_pseudo == ref.n_pseudo == pseudo.n_set_states
+    eng.am_cfg = dataclasses.replace(eng.am_cfg, iwcd_scheme=scheme[0],
+                                     iwcd_nbest=scheme[1])
     x = np.random.default_rng(3).standard_normal((3, 7, DIM)).astype(
         np.float32)
     want = jgmm.senone_scores(ref, jnp.asarray(x), iwcd_scheme=scheme[0],
                               iwcd_nbest=scheme[1])
-    got = tgmm.senone_scores(tabs, torch.from_numpy(x),
-                             iwcd_scheme=scheme[0], iwcd_nbest=scheme[1])
+    got = eng._outprob(torch.from_numpy(x))
     assert got.shape[-1] == hmm.n_states + pseudo.n_set_states
     assert_close(got, want)
 
