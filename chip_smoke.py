@@ -27,7 +27,29 @@ Phases, one line each, in order (any failure exits non-zero):
   5. rescan: the host-driven re-scan (pass2_device=False) on 4 of the
      utterances, held to the device A*'s word ids;
   6. frozen: the frozen-score pass 2 (pass2_rescan=False) on 4 of them;
-  7. lvcsr: the 20k-word tied-triphone configuration at full width
+  7. grammar, the slice's path: a DFA grammar over the flagship's 5000
+     words and model (tools.synth.make_grammar: 40 word categories and
+     the <s> / </s> silence categories, routes of 1-8 categories and one
+     tail-recursive rule) compiled by the port's grammar.compile_grammar;
+     16 sentences it accepts (grammar_sentences, 3-10 words) decode
+     through Engine.decode_features with the default pass 2, the host
+     re-scan under the DFA, whose word scans launch scan_win; pass 1
+     takes its unfused step, so pass1_step is launched no time.  scan_win
+     is held and timed at the shapes the run gave it.  Then 4 of them
+     decode with the frozen DFA search (pass2_rescan=False);
+  8. isolated: lmtype "word" over the flagship's 5000 words, 16
+     one-word utterances, pass 1 only;
+  9. unfused_ngram: the flagship with factoring 2 and with a score
+     envelope (beam_width 400), each on 4 utterances with the default
+     pass 2; pass 1 alone timed a frame beside the fused path's on the
+     same outprobs;
+ 10. waveform: the flagship engine's waveform path (front end, splice,
+     DNN, pass 1: Engine._decode_device) on 64 x 10 s of seeded noise at
+     16 kHz, timed as bench.py times it, with the launch counts read
+     around one call; its front end held against the CPU front end on
+     the same waveforms; Engine.recognize_batch end to end on two short
+     waveforms;
+ 11. lvcsr: the 20k-word tied-triphone configuration at full width
      (lvcsr_engine: 299,718 nodes, 2040 senones plus the pseudo
      set-states' columns, 5 x 2048 DNN, strict inter-word CD in pass 2).
      Both kernels are held against their plain versions and timed at
@@ -38,31 +60,33 @@ Phases, one line each, in order (any failure exits non-zero):
      Engine.decode_features (the first two calibrate the device A*'s
      spot-check), the launch counts are read around the third, and a
      staged decode splits its wall into DNN, pseudo aggregation, pass 1,
-     device A*, retry net and assembly;
-  8. waveform: the flagship engine's waveform path (front end, splice,
-     DNN, pass 1: Engine._decode_device) on 64 x 10 s of seeded noise at
-     16 kHz, timed as bench.py times it, with the launch counts read
-     around one call; its front end held against the CPU front end on
-     the same waveforms; Engine.recognize_batch end to end on two short
-     waveforms;
-  9. cli: the julius command line from model files.  A GMM-HMM task of
+     device A*, retry net and assembly; then 8 of them decode with
+     head_rc_dynamic (per-context head emission rows: pass 1's unfused
+     step), timed as in 9;
+ 12. cli: the julius command line from model files.  A GMM-HMM task of
      the flagship's width (668 monophones x 3 states x 16 diagonal
      Gaussians at MFCC_E_D_A's 39 dims, the 5000-word 2-gram) is written
      with the port's writers (binhmm, HTK dictionary, bingram, 16
-     generative utterances as HTK parameter files); on the engine
+     generative utterances as HTK parameter files), and beside it a
+     grammar over the same words (gram.dfa / gram.dict, mkdfa), a word
+     list and 4 utterances of each; on the engine
      fusion.create_engines loads from them, the GMM scorer on the card
      against the CPU, the scorer's two stages (gauss_scores, the mixture
      log-sum-exp) timed against their bounds, and a staged decode that
      splits the wall; then recognize.main runs on all 16 files (-input
      mfcfile -batchsize 16), on 4 with -lattice -confnet -mbr -n 3 (the
-     host re-scan) and on 2 with -gshmm, the launch counts read around
-     each run.  Each run records the shapes both kernels get (and keeps
-     the arguments of a few calls); after it, each kernel is held
-     against its plain version at every such shape, on the run's own
-     arguments and on integer-valued inputs over the run's engine
+     host re-scan), on 2 with -gshmm, on the 4 grammar files with -gram
+     and on the 4 word files with -w, the launch counts read around
+     each run.  Each run records the shapes the kernels get (and keeps
+     the arguments of a few calls); after it, each kernel it launched is
+     held against its plain version at every such shape, on the run's
+     own arguments and on integer-valued inputs over the run's engine
      tables, and timed there: the run's entries carry the
      launch-weighted mean time, plain time and bound;
- 10. the kernels' JSON line (one entry per kernel and path), the card
+ 13. gather: a topology with backward in-word arcs (pass 1's
+     incoming-arc gather): no model in the repo has it at full width, so
+     it is held card against CPU at the tests' size;
+ 14. the kernels' JSON line (one entry per kernel and path), the card
      line, and the result line last.
 
 Weights and utterances are made from fixed seeds; nothing is read from
@@ -88,6 +112,8 @@ F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
 N_UTTS = 16
 N_SIDE = 4                    # utterances for the rescan / frozen phases
 N_LVCSR = 32                  # bench.py's lvcsr_20k batch
+N_RC = 8                      # lvcsr utterances for head_rc_dynamic
+N_CATS = 40                   # word categories of the grammar phase
 N_WAVE, WAVE_S = 64, 10.0     # bench.py's waveform batch and length
 DEVICE = "cuda"
 LOG_ZERO = -1e10
@@ -287,10 +313,15 @@ def exact_count(res, truths) -> int:
                == [w for w in truth if w not in ("<s>", "</s>")])
 
 
-def check_results(res, where: str) -> None:
+def check_results(res, where: str, edges="words") -> None:
+    """Every result valid, with a finite score and words; `edges` names
+    the field whose first and last entries are <s> and </s> (the words
+    of an N-gram dictionary, the output strings of a grammar's; None for
+    isolated words)."""
     for r in res:
+        ends = getattr(r, edges) if edges else ["<s>", "</s>"]
         if not (r.valid and np.isfinite(r.score) and r.words
-                and r.words[0] == "<s>" and r.words[-1] == "</s>"):
+                and ends[0] == "<s>" and ends[-1] == "</s>"):
             raise RuntimeError(f"bad {where} result {r}")
 
 
@@ -327,8 +358,10 @@ def pad_windows(wins, lens):
 
 def lvcsr_phase(card):
     """The 20k-word tied-triphone configuration: kernels at its shapes,
-    then three decodes of bench.py's 32 utterances and a staged one.
-    Returns the kernels' entries for the JSON line."""
+    then three decodes of bench.py's 32 utterances and a staged one, then
+    8 of them with head_rc_dynamic (pass 1's unfused step).  Returns the
+    kernels' entries for the JSON line."""
+    from julius_tpu_torch.engine import Engine
     from julius_tpu_torch.ops import gmm
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
@@ -470,16 +503,29 @@ def lvcsr_phase(card):
           rescan_chunks=chunks, card=card)
     if exact < N_LVCSR - 2:
         raise RuntimeError(f"only {exact}/{N_LVCSR} exact lvcsr transcripts")
-    return [{"name": "pass1_step", "path": "lvcsr", "route": "cuda",
-             "source": "julius_tpu_torch/csrc/pass1_step.cu",
-             "replaces": "julius_tpu/ops/pass1_kernel.py:49",
-             "launches": launches, "max_abs_err": step_err, **step_t,
-             "library_ms": None},
-            {"name": "scan_win", "path": "lvcsr", "route": "cuda",
-             "source": "julius_tpu_torch/csrc/scan_win.cu",
-             "replaces": "julius_tpu/search/scan.py:317",
-             "launches": scan_launches, "max_abs_err": scan_err, **scan_t,
-             "library_ms": None}]
+
+    # ---- head_rc_dynamic: per-context head emission rows in pass 1, so
+    # pass 1 takes its unfused step
+    t0 = time.perf_counter()
+    reng = Engine(eng.hmm, eng.voca, eng.lm, dnn=eng.dnn_params,
+                  frontend=eng.fe_cfg, search=eng.search_cfg,
+                  am_cfg=dataclasses.replace(eng.am_cfg, head_rc_dynamic=True),
+                  device=DEVICE)
+    build_s = time.perf_counter() - t0
+    if reng.dev_net.rc_head is None:
+        raise RuntimeError("lvcsr_rc_dynamic: no per-context head rows")
+    fields, rc_entries = unfused_run("lvcsr_rc_dynamic", reng, eng,
+                                     feats[:N_RC], lens_np[:N_RC],
+                                     truths[:N_RC], card)
+    phase("unfused_lvcsr", path="lvcsr_rc_dynamic", engine_build_s=build_s,
+          head_rows=int(reng.dev_net.rc_sidx.shape[0] // reng.dev_net.rc_C),
+          classes=reng.dev_net.rc_C, **fields, card=card)
+    del reng
+    return kernel_entries("lvcsr", {
+        "pass1_step": dict(launches=launches, max_abs_err=step_err,
+                           **step_t),
+        "scan_win": dict(launches=scan_launches, max_abs_err=scan_err,
+                         **scan_t)}) + rc_entries
 
 
 def waveform_phase(eng, card, step_t):
@@ -561,13 +607,8 @@ def waveform_phase(eng, card, step_t):
           recognize_batch=[dict(words=r.words, score=r.score,
                                 from_pass=r.from_pass) for r in rb],
           card=card)
-    return [{"name": "pass1_step", "path": "waveform", "route": "cuda",
-             "source": "julius_tpu_torch/csrc/pass1_step.cu",
-             "replaces": "julius_tpu/ops/pass1_kernel.py:49",
-             "launches": launches, "max_abs_err": step_t["max_abs_err"],
-             "ms": step_t["ms"], "plain_ms": step_t["plain_ms"],
-             "bound_ms": step_t["bound_ms"], "bound_by": step_t["bound_by"],
-             "library_ms": None}]
+    return kernel_entries("waveform", {"pass1_step": dict(step_t,
+                                                          launches=launches)})
 
 
 def gauss_cost(BT, D, G):
@@ -637,30 +678,34 @@ def recorded_calls(pk, sk, p2d, scan_mod):
 
 
 def path_kernels(label, calls, launches, eng, card):
-    """Both kernels at the shapes one run gave them (`recorded_calls`):
-    per shape, held against the plain version on the run's own kept
-    arguments and on integer-valued inputs at that shape over the run's
-    engine tables, then timed on the kept arguments beside the plain
-    version and the bound.  -> {kernel: entry fields}, the times and
-    bound the launch-weighted mean over the run's shapes."""
+    """Each kernel one run launched, at the shapes the run gave it
+    (`recorded_calls`): per shape, held against the plain version on the
+    run's own kept arguments and on integer-valued inputs at that shape
+    over the run's engine tables, then timed on the kept arguments
+    beside the plain version and the bound.  -> {kernel: entry fields},
+    the times and bound the launch-weighted mean over the run's shapes;
+    a kernel the run never called has no entry."""
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
     from julius_tpu_torch.search import pass1 as p1
 
-    dev, tabs = eng.dev_net, eng.device_chains
-    etot = p1.entry_total(dev)
+    dev = eng.dev_net
     out = {}
     for name in ("pass1_step", "scan_win"):
+        if not calls[name] and not launches[name]:
+            continue            # a kernel this path does not run
         shapes = []
         for key, (count, kept) in sorted(calls[name].items()):
             if name == "pass1_step":
                 B, N, K1, R = key
                 err = max(compare_step(pk, a)[0] for a in kept)
-                ties = step_inputs(dev, etot, B, R, seed=41, ties=True)
+                ties = step_inputs(dev, p1.entry_total(dev), B, R, seed=41,
+                                   ties=True)
                 err = max(err, compare_step(pk, ties)[0])
                 t = time_step(pk, kept[-1], B, N, K1, R)
             else:
                 K, W, N, K1, B, T, R = key
+                tabs = eng.device_chains
                 if N != tabs.nmax:
                     raise RuntimeError(f"{label}: scan_win on {N}-node "
                                        f"chains, tables of {tabs.nmax}")
@@ -723,16 +768,6 @@ def run_cli(recognize, argv, results):
     return buf.getvalue().splitlines(), wall, built
 
 
-def cli_exact(lines, truths) -> int:
-    """Inputs whose printed first sentence is the generating words."""
-    got = [ln.split(": ", 1)[1] if ": " in ln else ""
-           for ln in lines if ln.startswith("sentence1:")]
-    if len(got) != len(truths):
-        raise RuntimeError(f"{len(got)} sentences for {len(truths)} inputs")
-    return sum(g == " ".join(w for w in t if w not in ("<s>", "</s>"))
-               for g, t in zip(got, truths))
-
-
 def cli_phase(card):
     """The julius command line from model files: a GMM-HMM task of the
     flagship's width written to a temporary directory, both kernels and
@@ -751,7 +786,8 @@ def cli_phase(card):
     from julius_tpu_torch.search import pass2_rescan as p2r
     from julius_tpu_torch.search import scan as scan_mod
     from julius_tpu_torch.tools import recognize
-    from julius_tpu_torch.tools.synth import write_gmm_task
+    from julius_tpu_torch.tools.synth import (write_gmm_task,
+                                              write_grammar_task)
     from julius_tpu_torch.utils.cuda_timing import time_ms
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -844,30 +880,56 @@ def cli_phase(card):
         # run gave them, on its engine's tables
         runs = {}
         entries = []
-        for label, extra, n in (
-                ("cli", ["-batchsize", str(N_UTTS)], N_UTTS),
-                ("cli_lattice", ["-lattice", "-confnet", "-mbr", "-n", "3",
-                                 "-batchsize", str(N_SIDE)], N_SIDE),
-                ("cli_gshmm", ["-gshmm", files["gs"], "-batchsize", "2"],
-                 2)):
+        gram_truths, word_truths, gfiles = write_grammar_task(
+            tmp, n_utts=N_SIDE)
+        am_only = ["-h", files["am"], "-input", "mfcfile",
+                   "-batchsize", str(N_SIDE)]
+        dictation = [" ".join(w for w in t if w not in ("<s>", "</s>"))
+                     for t in truths]
+        # label, argv, inputs, their first sentences, whether pass 1
+        # launches the beam-update kernel (the N-gram runs) or takes the
+        # unfused step (grammar, isolated words)
+        plan = (
+            ("cli", models + ["-batchsize", str(N_UTTS)], files["utts"],
+             dictation, True),
+            ("cli_lattice", models + ["-lattice", "-confnet", "-mbr", "-n",
+                                      "3", "-batchsize", str(N_SIDE)],
+             files["utts"][:N_SIDE], dictation[:N_SIDE], True),
+            ("cli_gshmm", models + ["-gshmm", files["gs"], "-batchsize",
+                                    "2"], files["utts"][:2], dictation[:2],
+             True),
+            ("cli_gram", am_only + ["-gram", gfiles["gram"]],
+             gfiles["gram_utts"], [" ".join(t) for t in gram_truths], False),
+            ("cli_word", am_only + ["-w", gfiles["wordlist"]],
+             gfiles["word_utts"], [" ".join(t) for t in word_truths],
+             False))
+        for label, argv, inputs, want, fused in plan:
+            n = len(inputs)
             results = []
             with recorded_calls(pk, sk, p2d, scan_mod) as calls:
                 pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
                 p2d.LAST_STATS.clear()
-                lines, wall, built = run_cli(recognize, models + extra
-                                             + files["utts"][:n], results)
+                lines, wall, built = run_cli(recognize, argv + inputs,
+                                             results)
                 launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
             chunks, rounds = p2r.CHUNKS, p2d.LAST_STATS.get("rounds", 0)
-            t_run = int(lens_np[:n].max())
-            if launches != t_run:
+            t_run = max(read_htk_param(f).data.shape[0] for f in inputs)
+            if launches != (t_run if fused else 0):
                 raise RuntimeError(f"{label}: {launches} pass1_step launches "
                                    f"for {t_run} frames")
-            if scan_launches != rounds + chunks or scan_launches == 0:
+            if scan_launches != rounds + chunks \
+                    or (scan_launches > 0) != (label != "cli_word"):
                 raise RuntimeError(f"{label}: {scan_launches} scan_win "
                                    f"launches for {rounds} A* rounds + "
                                    f"{chunks} chunks")
-            check_results(results, label)
-            exact = cli_exact(lines, truths[:n])
+            check_results(results, label, edges={
+                "cli_gram": "texts", "cli_word": None}.get(label, "words"))
+            got = [ln.split(": ", 1)[1] if ": " in ln else ""
+                   for ln in lines if ln.startswith("sentence1:")]
+            if len(got) != n:
+                raise RuntimeError(f"{label}: {len(got)} sentences for {n} "
+                                   "inputs")
+            exact = sum(g == w for g, w in zip(got, want))
             runs[label] = dict(
                 utterances=n, wall_s=wall, exact_transcripts=f"{exact}/{n}",
                 from_pass2=sum(r.from_pass == 2 for r in results),
@@ -881,15 +943,7 @@ def cli_phase(card):
                 label, calls, {"pass1_step": launches,
                                "scan_win": scan_launches}, built[0], card)
             del calls, built
-            entries += [
-                {"name": "pass1_step", "path": label, "route": "cuda",
-                 "source": "julius_tpu_torch/csrc/pass1_step.cu",
-                 "replaces": "julius_tpu/ops/pass1_kernel.py:49",
-                 **measured["pass1_step"], "library_ms": None},
-                {"name": "scan_win", "path": label, "route": "cuda",
-                 "source": "julius_tpu_torch/csrc/scan_win.cu",
-                 "replaces": "julius_tpu/search/scan.py:317",
-                 **measured["scan_win"], "library_ms": None}]
+            entries += kernel_entries(label, measured)
     audio_s = float(lens_np.sum()) / 100.0
     phase("cli", audio_s=audio_s, xrt=audio_s / runs["cli"]["wall_s"],
           staged=walls, runs=runs, card=card)
@@ -901,7 +955,286 @@ def cli_phase(card):
         raise RuntimeError(f"cli_lattice: {lat}")
     if runs["cli_gshmm"]["exact_transcripts"] != "2/2":
         raise RuntimeError(f"cli_gshmm: {runs['cli_gshmm']}")
+    for label in ("cli_gram", "cli_word"):
+        if runs[label]["exact_transcripts"] != f"{N_SIDE}/{N_SIDE}":
+            raise RuntimeError(f"{label}: {runs[label]}")
+    if runs["cli_gram"]["from_pass2"] != N_SIDE:
+        raise RuntimeError(f"cli_gram: {runs['cli_gram']}")
     return entries
+
+def kernel_entries(path, measured):
+    """The kernels line's entries of one path (`path_kernels` output)."""
+    sources = {"pass1_step": ("julius_tpu_torch/csrc/pass1_step.cu",
+                              "julius_tpu/ops/pass1_kernel.py:49"),
+               "scan_win": ("julius_tpu_torch/csrc/scan_win.cu",
+                            "julius_tpu/search/scan.py:317")}
+    return [{"name": name, "path": path, "route": "cuda",
+             "source": sources[name][0], "replaces": sources[name][1],
+             **fields, "library_ms": None}
+            for name, fields in measured.items()]
+
+
+def timed_pass1(eng, out_ext, lens_np):
+    """Pass 1 alone on cached outprobs -> wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._pass1(out_ext, lens_np)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def grammar_phase(eng, protos, card):
+    """The slice's path: a DFA grammar over the flagship's vocabulary and
+    model, compiled by the port's grammar.compile_grammar, decodes 16
+    sentences the grammar accepts through Engine.decode_features with the
+    default pass 2 (the host re-scan with the DFA, whose word scans
+    launch scan_win), then 4 of them with the frozen DFA search.  Returns
+    the kernels' entries for the JSON line."""
+    from julius_tpu_torch import grammar
+    from julius_tpu_torch.engine import Engine
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass2_device as p2d
+    from julius_tpu_torch.search import pass2_rescan as p2r
+    from julius_tpu_torch.search import scan as scan_mod
+    from julius_tpu_torch.tools import synth
+
+    t0 = time.perf_counter()
+    gtext, vtext = synth.make_grammar(eng.voca, N_CATS)
+    dfa, dfa_fwd, voca, word_cat, cats = grammar.compile_grammar(gtext,
+                                                                 vtext)
+    wc = np.asarray(word_cat, np.int32)
+    geng = Engine(eng.hmm, voca, dnn=eng.dnn_params, frontend=eng.fe_cfg,
+                  search=eng.search_cfg, dfa=dfa, word_cat=wc, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    if not (geng.lmtype == "grammar" and geng._rescan_ok()
+            and not geng._device_astar_ok()):
+        raise RuntimeError("the grammar engine does not take the re-scan")
+    seqs = synth.grammar_sentences(dfa_fwd, wc, N_UTTS, seed=7)
+    wins, lens = synth.make_word_utts(eng.hmm, voca, protos, seqs, 120, 11,
+                                      seed=7)
+    feats, lens_np = pad_windows(wins, lens)
+    T = feats.shape[1]
+    truths = [[voca.outputs[w] for w in q] for q in seqs]
+    phase("grammar_engine", seconds=build_s, categories=len(cats),
+          dfa_states=dfa.n_states, forward_dfa_states=dfa_fwd.n_states,
+          grammar_rules=gtext.count("\n"), words=voca.n_words,
+          nodes=int(geng.dev_net.score_idx.shape[0]),
+          trellis_m=geng.p1_cfg.n_atoms, utterances=N_UTTS, frames=T,
+          words_per_sentence=[len(q) for q in seqs])
+
+    geng.decode_features(feats[:2], lens_np[:2])        # warm-up
+    torch.cuda.synchronize()
+    with recorded_calls(pk, sk, p2d, scan_mod) as calls:
+        pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+        t0 = time.perf_counter()
+        res = geng.decode_features(feats, lens_np)
+        wall = time.perf_counter() - t0
+        launches, scan_launches, chunks = pk.LAUNCHES, sk.LAUNCHES, p2r.CHUNKS
+    if launches != 0 or scan_launches != chunks or scan_launches == 0:
+        raise RuntimeError(f"grammar: {launches} pass1_step and "
+                           f"{scan_launches} scan_win launches for {chunks} "
+                           "re-scan chunks")
+    exact = sum(r.texts == t for r, t in zip(res, truths))
+    accepted = sum(r.valid and dfa.accepts_forward(
+        [int(wc[w]) for w in r.word_ids]) for r in res)
+    with torch.no_grad():
+        out_ext = geng._outprob(feats)
+        p1_s = timed_pass1(geng, out_ext, lens_np)
+        del out_ext
+    side = slice(0, N_SIDE)
+    base = geng.search_cfg
+    geng.search_cfg = dataclasses.replace(base, pass2_rescan=False)
+    try:
+        t0 = time.perf_counter()
+        res_f = geng.decode_features(feats[side], lens_np[side])
+        frozen_s = time.perf_counter() - t0
+    finally:
+        geng.search_cfg = base
+    measured = path_kernels("grammar", calls, {"pass1_step": launches,
+                                               "scan_win": scan_launches},
+                            geng, card)
+    phase("grammar", utterances=N_UTTS, frames=T,
+          audio_s=float(lens_np.sum()) / 100.0, e2e_wall_s=wall,
+          exact_transcripts=f"{exact}/{N_UTTS}",
+          from_pass2=sum(r.from_pass == 2 for r in res),
+          dfa_accepted=f"{accepted}/{N_UTTS}", pass1_wall_s=p1_s,
+          pass1_ms_per_frame=p1_s * 1e3 / T,
+          pass1_step_launches=launches,
+          pass1_step_note="0: the grammar path runs pass 1's unfused "
+                          "step, as the reference runs XLA there",
+          scan_win_launches=scan_launches, rescan_chunks=chunks,
+          frozen=dict(utterances=N_SIDE, wall_s=frozen_s,
+                      exact_transcripts=f"{sum(r.texts == t for r, t in zip(res_f, truths[side]))}/{N_SIDE}",
+                      from_pass2=sum(r.from_pass == 2 for r in res_f),
+                      dfa_accepted=sum(dfa.accepts_forward(
+                          [int(wc[w]) for w in r.word_ids])
+                          for r in res_f if r.valid)),
+          card=card)
+    if exact != N_UTTS or accepted != N_UTTS:
+        raise RuntimeError(f"grammar: {exact}/{N_UTTS} exact, "
+                           f"{accepted}/{N_UTTS} accepted by the DFA")
+    return kernel_entries("grammar", measured)
+
+
+def isolated_phase(eng, protos, card):
+    """Isolated-word recognition over the flagship's 5000 words: 16
+    one-word utterances through Engine.decode_features, pass 1 only."""
+    from julius_tpu_torch.engine import Engine
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.tools import synth
+
+    ieng = Engine(eng.hmm, eng.voca, dnn=eng.dnn_params, frontend=eng.fe_cfg,
+                  search=eng.search_cfg, lmtype="word", device=DEVICE)
+    rng = np.random.default_rng(11)
+    words = [[int(w)] for w in rng.integers(2, eng.voca.n_words, N_UTTS)]
+    wins, lens = synth.make_word_utts(eng.hmm, eng.voca, protos, words, 120,
+                                      11, seed=11)
+    feats, lens_np = pad_windows(wins, lens)
+    T = feats.shape[1]
+    ieng.decode_features(feats[:2], lens_np[:2])        # warm-up
+    torch.cuda.synchronize()
+    pk.LAUNCHES = sk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = ieng.decode_features(feats, lens_np)
+    wall = time.perf_counter() - t0
+    launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+    if launches or scan_launches:
+        raise RuntimeError(f"isolated: {launches} pass1_step and "
+                           f"{scan_launches} scan_win launches")
+    exact = sum(r.word_ids == w for r, w in zip(res, words))
+    with torch.no_grad():
+        p1_s = timed_pass1(ieng, ieng._outprob(feats), lens_np)
+    phase("isolated", utterances=N_UTTS, frames=T, words=eng.voca.n_words,
+          e2e_wall_s=wall, exact_transcripts=f"{exact}/{N_UTTS}",
+          from_pass1=sum(r.from_pass == 1 for r in res),
+          pass1_wall_s=p1_s, pass1_ms_per_frame=p1_s * 1e3 / T,
+          pass1_step_launches=launches, scan_win_launches=scan_launches,
+          card=card)
+    if exact < N_UTTS - 1 or any(r.from_pass != 1 for r in res):
+        raise RuntimeError(f"isolated: {exact}/{N_UTTS} exact")
+
+
+def unfused_run(label, ueng, fused_eng, feats, lens_np, truths, card):
+    """One N-gram configuration that takes pass 1's unfused step: a
+    decode through Engine.decode_features (the launch counts read around
+    it, scan_win held and timed at its shapes), then pass 1 alone timed
+    beside the fused path's on the same outprobs.  -> (phase fields,
+    kernel entries)."""
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass1 as p1
+    from julius_tpu_torch.search import pass2_device as p2d
+    from julius_tpu_torch.search import pass2_rescan as p2r
+    from julius_tpu_torch.search import scan as scan_mod
+
+    if p1.fused_ok(ueng.dev_net, ueng.p1_cfg):
+        raise RuntimeError(f"{label}: the configuration takes the kernel")
+    B, T = feats.shape[0], feats.shape[1]
+    ueng.decode_features(feats[:2], lens_np[:2])        # warm-up
+    torch.cuda.synchronize()
+    with recorded_calls(pk, sk, p2d, scan_mod) as calls:
+        pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+        p2d.LAST_STATS.clear()
+        t0 = time.perf_counter()
+        res = ueng.decode_features(feats, lens_np)
+        wall = time.perf_counter() - t0
+        launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+    chunks, rounds = p2r.CHUNKS, p2d.LAST_STATS.get("rounds", 0)
+    if launches or scan_launches != rounds + chunks or not scan_launches:
+        raise RuntimeError(f"{label}: {launches} pass1_step and "
+                           f"{scan_launches} scan_win launches for "
+                           f"{rounds} A* rounds + {chunks} chunks")
+    check_results(res, label)
+    exact = exact_count(res, truths)
+    with torch.no_grad():
+        out_ext = ueng._outprob(feats)
+        unfused_s = timed_pass1(ueng, out_ext, lens_np)
+        fused_s = timed_pass1(fused_eng, out_ext, lens_np)
+    measured = path_kernels(label, calls, {"pass1_step": launches,
+                                           "scan_win": scan_launches},
+                            ueng, card)
+    fields = dict(utterances=B, frames=T, e2e_wall_s=wall,
+                  exact_transcripts=f"{exact}/{B}",
+                  from_pass2=sum(r.from_pass == 2 for r in res),
+                  retried=ueng.last_pass2["retried"],
+                  unfused_pass1_ms_per_frame=unfused_s * 1e3 / T,
+                  fused_pass1_ms_per_frame=fused_s * 1e3 / T,
+                  pass1_step_launches=launches,
+                  scan_win_launches=scan_launches, astar_rounds=rounds,
+                  rescan_chunks=chunks)
+    if exact < B - 1:
+        raise RuntimeError(f"{label}: {fields}")
+    return fields, kernel_entries(label, measured)
+
+
+def unfused_ngram_phase(eng, feats, lens_np, truths, card):
+    """The flagship with factoring 2 and with a score envelope
+    (beam_width 400), on 4 of its utterances.  Returns the kernels'
+    entries for the JSON line."""
+    from julius_tpu_torch.engine import Engine
+
+    runs, entries = {}, []
+    side = slice(0, N_SIDE)
+    for label, kw in (("factoring2", dict(factoring=2)),
+                      ("envelope", dict(beam_width=400))):
+        ueng = Engine(eng.hmm, eng.voca, eng.lm, dnn=eng.dnn_params,
+                      frontend=eng.fe_cfg,
+                      search=dataclasses.replace(eng.search_cfg, **kw),
+                      device=DEVICE)
+        runs[label], e = unfused_run(label, ueng, eng, feats[side],
+                                     lens_np[side], truths[side], card)
+        entries += e
+        del ueng
+    phase("unfused_ngram", runs=runs, card=card)
+    return entries
+
+
+def gather_phase(card):
+    """The incoming-arc gather (a topology with backward in-word arcs):
+    no model in the repo has it at full width, so it is held card
+    against CPU at the tests' size (24 phones, 60 words, random outprob
+    rows), pass 1 and the frozen pass 2."""
+    from julius_tpu_torch.config import SearchConfig
+    from julius_tpu_torch.engine import Engine
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.tools import synth
+
+    hmm = synth.make_hmmset(n_phones=24, dim=8, seed=4)
+    hmm.phone_trans[:, 3, 2] = np.log(0.1)
+    voca = synth.make_vocabulary(hmm, n_words=60, seed=5)
+    lm = synth.make_ngram(voca, seed=6)
+    search = SearchConfig(trellis_topm=16, lm_weight=4.0)
+    card_eng, cpu_eng = (Engine(hmm, voca, lm, search=search, device=d)
+                         for d in (DEVICE, "cpu"))
+    if card_eng.dev_net.local_k >= 0 or card_eng._rescan_ok():
+        raise RuntimeError("gather: the network is shift-structured")
+    rows = np.random.default_rng(7).normal(
+        -8.0, 3.0, (3, 70, hmm.n_states)).astype(np.float32)
+    lens = np.asarray([70, 52, 31], np.int32)
+    pk.LAUNCHES = 0
+    tr_card = card_eng._pass1(torch.from_numpy(rows).to(DEVICE), lens)
+    tr_cpu = cpu_eng._pass1(torch.from_numpy(rows), lens)
+    valid = tr_cpu.word >= 0
+    err = float(torch.where(valid, (tr_card.score.cpu() - tr_cpu.score).abs(),
+                            0.0).max())
+    same = all(torch.equal(torch.where(valid, getattr(tr_card, f).cpu(), 0),
+                           torch.where(valid, getattr(tr_cpu, f), 0))
+               for f in ("word", "prev", "begin", "ectx"))
+    got = card_eng.decode_outprob(rows, lens)
+    want = cpu_eng.decode_outprob(rows, lens)
+    same_words = [r.word_ids for r in got] == [r.word_ids for r in want]
+    phase("gather", note="held card against CPU at the tests' size: no "
+          "model in the repo has this topology at full width",
+          nodes=card_eng.net.n_nodes, words=voca.n_words,
+          in_arcs=int(card_eng.dev_net.in_src.shape[1]),
+          trellis_max_abs_err=err, trellis_ints_equal=same,
+          decode_words_equal=same_words,
+          from_pass=[r.from_pass for r in got],
+          pass1_step_launches=pk.LAUNCHES, card=card)
+    if err > 1e-5 or not same or not same_words or pk.LAUNCHES:
+        raise RuntimeError("gather: the card differs from the CPU")
 
 
 def main() -> int:
@@ -1171,28 +1504,21 @@ def main() -> int:
           exact_transcripts=f"{frozen_exact}/{N_SIDE}",
           from_pass2=sum(r.from_pass == 2 for r in res_frozen), card=card)
 
-    kernels = waveform_phase(eng, card, dict(timings[64],
-                                             max_abs_err=max_err))
+    kernels = grammar_phase(eng, protos, card)
+    isolated_phase(eng, protos, card)
+    kernels += unfused_ngram_phase(eng, feats, lens_np, truths, card)
+    kernels += waveform_phase(eng, card, dict(timings[64],
+                                              max_abs_err=max_err))
     kernels += lvcsr_phase(card)
     kernels += cli_phase(card)
+    gather_phase(card)
 
-    t = timings[N_UTTS]
-    s = scan_t[tabs.nmax, K_A, W_A]
-    print(json.dumps({"kernels": [{
-        "name": "pass1_step", "path": "flagship", "route": "cuda",
-        "source": "julius_tpu_torch/csrc/pass1_step.cu",
-        "replaces": "julius_tpu/ops/pass1_kernel.py:49",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": None}, {
-        "name": "scan_win", "path": "flagship", "route": "cuda",
-        "source": "julius_tpu_torch/csrc/scan_win.cu",
-        "replaces": "julius_tpu/search/scan.py:317",
-        "launches": scan_launches, "max_abs_err": scan_err,
-        "ms": s["ms"], "plain_ms": s["plain_ms"],
-        "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-        "library_ms": None}] + kernels}))
+    flagship = kernel_entries("flagship", {
+        "pass1_step": dict(timings[N_UTTS], launches=launches,
+                           max_abs_err=max_err),
+        "scan_win": dict(scan_t[tabs.nmax, K_A, W_A], launches=scan_launches,
+                         max_abs_err=scan_err)})
+    print(json.dumps({"kernels": flagship + kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

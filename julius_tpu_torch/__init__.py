@@ -3,12 +3,19 @@
 A second package beside `julius_tpu` (the JAX reference, which it never
 imports).  Its layout mirrors the reference's so each module's
 counterpart is easy to find:
-  io/, models/, config.py - host model formats and tables (copies)
-  ops/     - DNN senone scoring (torch) and the pass-1 beam-update
-             kernel (hand-written CUDA, csrc/pass1_step.cu)
-  search/  - flat decode network, device N-gram hash, pass-1 Viterbi,
-             pass-2 frozen-score stack search
-  engine.py - Engine.decode_features, the batched decode entry point
+  io/, models/, config.py, jconf.py, grammar.py - host model formats,
+             DFA grammars and the mkdfa compiler, options (copies)
+  frontend/ - the waveform front end
+  ops/     - DNN and GMM senone scoring (torch), the pass-1 beam-update
+             kernel and the pass-2 word-scan kernel (hand-written CUDA,
+             csrc/pass1_step.cu, csrc/scan_win.cu)
+  search/  - flat decode network, device N-gram hash, pass-1 Viterbi
+             (kernel path and unfused step), pass 2 (device A*, host
+             re-scan, frozen N-gram and DFA searches), word graphs
+  engine.py - Engine.decode_features / recognize_batch, the batched
+             decode entry points; fusion.py, tools/recognize.py the
+             command line
+  cache.py  - the on-disk network cache
   convert.py - carries the reference's parameters and tables across
 
 Entry points run on CUDA unless the caller passes device="cpu".

@@ -61,15 +61,10 @@ def dnn_scorer(a: dict, device) -> DNNScorer:
 
 
 def device_network(a: dict, device) -> DeviceNetwork:
-    """DeviceNetwork from the reference network's fields.  Tables of
-    configurations outside the port's pass 1 raise."""
-    for name, item in (("cpair", "DFA"), ("rc_head", "head_rc_dynamic")):
-        if a.get(name) is not None:
-            raise NotImplementedError(
-                f"{item} tables: ROADMAP.md queue 1, unfused pass1_step "
-                "paths")
+    """DeviceNetwork from the reference network's fields (the DFA and
+    per-context head tables included where the network has them)."""
     return device_network_from_numpy(a, a["head_word"], a["tail_word"],
-                                     a["local_k"], device)
+                                     a["local_k"], a["rc_C"], device)
 
 
 def device_ngram(a: dict, device) -> DeviceNgram:

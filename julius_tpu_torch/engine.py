@@ -1,24 +1,27 @@
 """Recognition engine: model fusion + batched decoding (torch).
 
-Port of `julius_tpu/engine.py` for the N-gram decode: waveform -> front
-end (frontend/mfcc.py) -> senone scores, from a DNN (ops/dnn.py) or from
-Gaussian mixtures (ops/gmm.py, with Gaussian mixture selection by
-ops/gms.py), plus the pseudo-phone-set columns of triphone networks
-(ops/gmm.py) -> pass 1 (ops/pass1_kernel.py beam-update kernel) -> pass
-2 -> N-best, with the word graph, confusion network, MBR re-ranking and
+Port of `julius_tpu/engine.py`: waveform -> front end (frontend/mfcc.py)
+-> senone scores, from a DNN (ops/dnn.py) or from Gaussian mixtures
+(ops/gmm.py, with Gaussian mixture selection by ops/gms.py), plus the
+pseudo-phone-set columns of triphone networks (ops/gmm.py) -> pass 1
+(search/pass1.py: the ops/pass1_kernel.py beam-update kernel where the
+reference takes its fused kernel, its unfused step elsewhere) -> pass 2
+-> N-best, with the word graph, confusion network, MBR re-ranking and
 search-time confidence of search/graphout.py; decoding may also start
-from features or from outprobs.  Pass 2 is the
+from features or from outprobs.  Three LM modes: an N-gram, a DFA
+grammar (io/dfa.py; category pairs constrain pass 1, the automaton pass
+2) and isolated words (no cross-word entry, no pass 2).  Pass 2 is the
 reference's default, the acoustic re-scan A* on the device
-(search/pass2_device.py, whose word scans run
-the ops/scan_kernel.py kernel) with its retry/spot-check net through the
-host-driven re-scan (search/pass2_rescan.py); `pass2_device=False`
-takes the host-driven re-scan alone, and `pass2_rescan=False` the
-frozen-score stack search (search/pass2.py); `strict_iwcd2` resolves
-word-head triphones against the previous word in both re-scans
-(search/iwcd2.py).  One Engine = one AM + one LM (for both passes) + one
-search config; it owns the device tables.
+(search/pass2_device.py, whose word scans run the ops/scan_kernel.py
+kernel) with its retry/spot-check net through the host-driven re-scan
+(search/pass2_rescan.py), which is also the grammar mode's re-scan;
+`pass2_device=False` takes the host-driven re-scan alone, and
+`pass2_rescan=False` the frozen-score stack search (search/pass2.py);
+`strict_iwcd2` resolves word-head triphones against the previous word
+in both re-scans (search/iwcd2.py).  One Engine = one AM + one LM (for
+both passes) + one search config; it owns the device tables.
 
-Configurations outside this slice raise NotImplementedError naming the
+Configurations outside the port raise NotImplementedError naming the
 ROADMAP.md item that brings them; nothing falls back silently.
 """
 
@@ -31,9 +34,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from julius_tpu_torch.cache import build_network_cached
 from julius_tpu_torch.config import AMConfig, FrontendConfig, SearchConfig
 from julius_tpu_torch.frontend import mfcc as fe
 from julius_tpu_torch.io.arpa import NGramLM
+from julius_tpu_torch.io.dfa import DFAGrammar
 from julius_tpu_torch.io.dnn import DNNParams
 from julius_tpu_torch.io.htk_dict import Vocabulary
 from julius_tpu_torch.models.hmm import HMMSet
@@ -46,7 +51,7 @@ from julius_tpu_torch.search import pass1 as p1
 from julius_tpu_torch.search import pass2 as p2
 from julius_tpu_torch.search import pass2_device as p2d
 from julius_tpu_torch.search import pass2_rescan as p2r
-from julius_tpu_torch.search.iwcd2 import StrictIWCDTables
+from julius_tpu_torch.search.iwcd2 import StrictIWCDTables, build_rc_tables
 from julius_tpu_torch.search.network import DecodeNetwork, build_network
 from julius_tpu_torch.search.scan import DeviceChainTables
 from julius_tpu_torch.search.ngram_device import (DeviceNgram,
@@ -83,7 +88,8 @@ def unsupported(what: str, item: str) -> NotImplementedError:
 
 
 class Engine:
-    """One recognition instance (DNN or GMM AM + N-gram LM + search)."""
+    """One recognition instance (DNN or GMM AM + N-gram, DFA grammar or
+    word list + search)."""
 
     def __init__(
         self,
@@ -94,61 +100,77 @@ class Engine:
         frontend: Optional[FrontendConfig] = None,
         search: Optional[SearchConfig] = None,
         am_cfg: Optional[AMConfig] = None,
-        dfa=None,
+        dfa: Optional[DFAGrammar] = None,
+        word_cat: Optional[np.ndarray] = None,
         lmtype: Optional[str] = None,
         iwsp: bool = False,
         sp_name: str = "sp",
         iwsp_penalty: float = -1.0,
+        lm_forward: Optional[NGramLM] = None,
+        use_cache: bool = False,
         gshmm: Optional[HMMSet] = None,
+        *,
         device="cuda",
     ):
         self.device = resolve_device(device)
-        # the reference pins full-f32 products; TF32 would round ids and
-        # scores (CUDA defaults differ between matmul and cuDNN)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        if lm is not None and getattr(lm, "direction", "LR") == "RL":
+            raise unsupported("a backward (RL) N-gram", "backward N-gram")
+        if lm_forward is not None:
+            raise unsupported("a separate forward 2-gram for pass 1 "
+                              "(lm_forward)", "backward N-gram")
+        if dfa is not None and word_cat is None:
+            raise ValueError("a DFA grammar needs word_cat, the category "
+                             "of each dictionary word")
         if lmtype is None:
             lmtype = ("ngram" if lm is not None
                       else "grammar" if dfa is not None else "word")
-        if lmtype != "ngram" or dfa is not None:
-            raise unsupported(f"lmtype {lmtype!r} (DFA/grammar, isolated "
-                              "words)", "unfused pass1_step paths")
-        if lm is not None and getattr(lm, "direction", "LR") == "RL":
-            raise unsupported("a backward (RL) N-gram", "backward N-gram")
         self.am_cfg = am_cfg or AMConfig()
-        if self.am_cfg.head_rc_dynamic:
-            raise unsupported("head_rc_dynamic", "unfused pass1_step paths")
         self.hmm = hmm
         self.voca = voca
         self.lm = lm
+        self.dfa = dfa
+        self.word_cat = word_cat
         self.lmtype = lmtype
         self.search_cfg = search or SearchConfig()
         self.fe_cfg = frontend or FrontendConfig()
         self.fe_tables = fe.build_tables(self.fe_cfg)
         self.noise_spectrum: Optional[torch.Tensor] = None   # -ssload
         sc = self.search_cfg
-        if sc.factoring >= 2:
-            raise unsupported("factoring=2", "unfused pass1_step paths")
-        if sc.beam_width:
-            raise unsupported("beam_width > 0", "unfused pass1_step paths")
 
         self._resolve_silwords()
         self._wid2lm = self._map_vocab_to_lm(lm)
 
         use_tri = hmm.names_are_triphone and not self.am_cfg.force_mono
-        self.net: DecodeNetwork = build_network(
-            hmm, voca, use_triphone=use_tri, iwsp=iwsp, sp_name=sp_name,
-            iwsp_penalty=iwsp_penalty)
+        net_kwargs = dict(use_triphone=use_tri, iwsp=iwsp, sp_name=sp_name,
+                          iwsp_penalty=iwsp_penalty)
+        self.net: DecodeNetwork = (
+            build_network_cached(hmm, voca, **net_kwargs) if use_cache
+            else build_network(hmm, voca, **net_kwargs))
         self.ngram_dev: Optional[DeviceNgram] = (
             build_device_ngram(lm, self.device) if lm is not None else None)
+        self.final_mask: Optional[np.ndarray] = None
+        cpair = cat_init = cat_final = None
+        if dfa is not None:
+            cpair, cat_init, cat_final = dfa.category_pair_matrix()
+            # the .dfa is the reversed automaton: cp_end marks the
+            # categories that may END the spoken sentence
+            self.final_mask = cat_final[word_cat]
+        elif lmtype == "word":
+            # isolated-word recognition: any word may end the input
+            self.final_mask = np.ones(voca.n_words, dtype=bool)
         transparent = np.asarray(voca.transparent, dtype=bool) \
             if voca.transparent else None
+        rc_tables = None
+        if self.am_cfg.head_rc_dynamic and use_tri:
+            rc_tables = build_rc_tables(self.net, hmm, voca,
+                                        use_triphone=True)
         self.dev_net = p1.build_device_network(
             self.net, self.device, self.ngram_dev, self._wid2lm,
             lm_weight=sc.lm_weight, lm_penalty=sc.lm_penalty,
-            transparent=transparent,
+            word_cat=word_cat, cpair=cpair, cat_init=cat_init,
+            cat_final=cat_final, transparent=transparent,
             transparent_penalty=sc.transparent_penalty,
-            cprob=self._cprob_arr())
+            cprob=self._cprob_arr(), rc_tables=rc_tables)
         trellis_topm = sc.trellis_topm
         if trellis_topm <= 0:
             # auto-size M with the vocabulary: the reference's
@@ -162,10 +184,13 @@ class Engine:
             n_atoms=trellis_topm,
             lm_weight=sc.lm_weight,
             lm_penalty=sc.lm_penalty,
+            beam_width=float(sc.beam_width) if sc.beam_width else 0.0,
             use_lm=lm is not None,
+            use_dfa=dfa is not None,
+            crossword=(lmtype != "word"),
             factoring=sc.factoring,
+            expand_k=sc.crossword_topk,
         )
-        p1.check_supported(self.dev_net, self.p1_cfg)
 
         self.callbacks = CallbackRegistry()
         # input-rejection hooks (reference recogmain.c short/long)
@@ -276,11 +301,16 @@ class Engine:
 
     def _rescan_ok(self) -> bool:
         """True when pass 2 should re-derive acoustics with scan_word
-        (reference search_bestfirst_v1.c:589).  AMs whose in-word
-        topology is not left-to-right (backward arcs, which the
-        shift-structured chain scan cannot express) fall back to the
-        frozen-score search instead of raising mid-decode."""
+        (reference search_bestfirst_v1.c:589): N-gram and grammar modes.
+        AMs whose in-word topology is not left-to-right (backward arcs,
+        which the shift-structured chain scan cannot express) fall back
+        to the frozen-score search instead of raising mid-decode."""
         if not self.search_cfg.pass2_rescan:
+            return False
+        if self.lmtype == "grammar":
+            if self.dfa is None:
+                return False
+        elif self.lmtype != "ngram":
             return False
         try:
             self.device_chains
@@ -330,7 +360,9 @@ class Engine:
         else keeps the host-driven re-scan (pass2_rescan.py), which
         implements the full semantics."""
         sc = self.search_cfg
-        if not sc.pass2_device or self.lm is None or self.ngram_dev is None:
+        if not sc.pass2_device or self.lmtype != "ngram":
+            return False
+        if self.lm is None or self.ngram_dev is None:
             return False
         if getattr(self.lm, "order", 99) > 2:
             return False
@@ -340,7 +372,11 @@ class Engine:
             return False
         return sc.nbest <= p2d.NB_SLOTS
 
-    def _rescan_strategy(self) -> p2r.NgramStrategy:
+    def _rescan_strategy(self):
+        """The host re-scan's LM: the DFA's reverse-NFA state sets for a
+        grammar, else the N-gram."""
+        if self.lmtype == "grammar":
+            return p2r.DfaStrategy(self.dfa, self.word_cat, self.search_cfg)
         transparent = np.asarray(self.voca.transparent, dtype=bool) \
             if self.voca.transparent else None
         return p2r.NgramStrategy(self.lm, self._wid2lm, self.search_cfg,
@@ -470,7 +506,7 @@ class Engine:
         host = p1.Trellis(*[a.cpu().numpy() for a in trellis])
         out: List[Optional[Result]] = [None] * B
         tbs: List[Optional[p1.Trellis]] = [None] * B
-        want_p2 = self.search_cfg.enable_pass2
+        want_p2 = self.search_cfg.enable_pass2 and self.lmtype != "word"
         rescan = want_p2 and out_ext is not None and self._rescan_ok()
         lattices: List[Optional[p2.TrellisLattice]] = [None] * B
         for b in range(B):
@@ -589,7 +625,8 @@ class Engine:
         return nbest_lists
 
     def _pass1_result(self, tb, n_frames: int) -> Result:
-        r = p1.backtrace(tb, n_frames, self.net.tail_word)
+        r = p1.backtrace(tb, n_frames, self.net.tail_word,
+                         final_mask=self.final_mask)
         if r is None:
             return Result(valid=False)
         return Result(
@@ -650,6 +687,8 @@ class Engine:
                 [lattice], self._dispatcher(out_ext),
                 self._rescan_strategy(), sc, graphs=graphs)[0]
             gwords = graphs[0] if graphs else None
+        elif self.lmtype == "grammar":
+            nbest = p2.pass2_search_dfa(lattice, self.dfa, self.word_cat, sc)
         else:
             transparent = np.asarray(self.voca.transparent, dtype=bool) \
                 if self.voca.transparent else None
@@ -743,6 +782,7 @@ class Engine:
         L.append(f" cross-word CD: iwcd1={am.iwcd_scheme}"
                  + (f" best{am.iwcd_nbest}" if am.iwcd_scheme == "best"
                     else "")
+                 + (", pass1 RC dynamic" if am.head_rc_dynamic else "")
                  + (", pass2 strict IWCD (v2)" if sc.strict_iwcd2
                     else ", pass2 v1"))
         L.append("---------- front-end ----------")
@@ -759,6 +799,8 @@ class Engine:
         if self.lm is not None:
             L.append(f" N-gram: order={getattr(self.lm, 'order', '?')} "
                      f"direction={getattr(self.lm, 'direction', 'LR')}")
+        if self.dfa is not None:
+            L.append(f" DFA: {self.dfa.n_states} states")
         L.append("---------- search ----------")
         L.append(f" lexicon: flat, {self.net.n_nodes} nodes "
                  f"(local_k={self.dev_net.local_k}); trellis M="

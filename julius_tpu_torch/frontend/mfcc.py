@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from julius_tpu_torch.config import FrontendConfig
+from julius_tpu_torch.utils.device import full_f32_matmul
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +212,8 @@ def extract_basic(
     if cfg.use_power:
         mag = mag * mag
 
-    fbank = torch.matmul(mag, _const(tables.mel_w, wave))   # [B, T, nchan]
+    with full_f32_matmul():
+        fbank = torch.matmul(mag, _const(tables.mel_w, wave))  # [B, T, nchan]
 
     base = (cfg.feature_type or "MFCC").split("_")[0].upper()
     if base in ("FBANK", "MELSPEC"):
@@ -223,7 +225,8 @@ def extract_basic(
         return torch.cat(parts, dim=-1)
 
     logfb = _log_floor(fbank, 1.0)
-    cep = torch.matmul(logfb, _const(tables.dct_m, wave))  # [B, T, mfcc]
+    with full_f32_matmul():
+        cep = torch.matmul(logfb, _const(tables.dct_m, wave))  # [B, T, mfcc]
     cep = cep * _const(tables.lifter, wave)
     parts = [cep]
     if cfg.use_c0:

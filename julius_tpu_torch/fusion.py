@@ -7,17 +7,22 @@ binhmm-embedded, m_fusion.c:73; j_launch_recognition_instance:1028).
 Model files are read on the host; each Engine puts its tables on the
 device `create_engines` is given.
 
-Configurations the port does not decode yet raise NotImplementedError
-naming the ROADMAP.md queue-1 item that brings them: grammars (-gram,
--gramlist, -dfa) and isolated-word lists (-w) with the unfused pass-1
-paths, GMM input verification (-gmm) with streaming, a backward N-gram
+Three LM modes: an N-gram with its dictionary (-d / -nlr, -v), a DFA
+grammar (-gram prefix, -gramlist, or -dfa with -v; several grammars are
+merged into one automaton as the reference's multigram_build does) and
+an isolated-word list (-w).  Configurations the port does not decode yet
+raise NotImplementedError naming the ROADMAP.md queue-1 item that brings
+them: GMM input verification (-gmm) with streaming, a backward N-gram
 (-nrl) with the backward N-gram.
 """
 
 from __future__ import annotations
 
 import gzip
+import os
 from typing import List, Optional
+
+import numpy as np
 
 from julius_tpu_torch.config import (AMConfig, EngineConfig, LMConfig,
                                      parse_feature_type)
@@ -25,9 +30,11 @@ from julius_tpu_torch.engine import Engine, unsupported
 from julius_tpu_torch.io.arpa import load_arpa
 from julius_tpu_torch.io.binhmm import read_binhmm
 from julius_tpu_torch.io.bingram import read_bingram
+from julius_tpu_torch.io.dfa import DFAGrammar, load_dfa, load_grammar
 from julius_tpu_torch.io.dnn import DNNParams, load_dnn
 from julius_tpu_torch.io.hmmlist import load_hmmlist
-from julius_tpu_torch.io.htk_dict import load_htkdict, parse_dict_line
+from julius_tpu_torch.io.htk_dict import (Vocabulary, load_htkdict,
+                                          load_wordlist, parse_dict_line)
 from julius_tpu_torch.io.htk_hmm import load_hmmdefs
 from julius_tpu_torch.io.ss import load_noise_spectrum
 from julius_tpu_torch.utils.jlog import LogLevel, jlog
@@ -103,24 +110,86 @@ def _apply_dict_extras(voca, lm: LMConfig) -> None:
 
 
 def load_lm(lm: LMConfig):
-    """Load the dictionary and N-gram of an LM block.  Returns (voca,
-    ngram); ngram is None for a dictionary without -d/-nlr."""
-    if lm.lmtype in ("grammar", "word"):
-        raise unsupported(f"lmtype {lm.lmtype!r} (-gram/-gramlist/-dfa, "
-                          "-w)", "unfused pass1_step paths")
-    if lm.lmtype != "ngram":
-        raise ValueError(f"unknown lmtype {lm.lmtype}")
-    if lm.ngram_backward_path:
-        raise unsupported("a backward (RL) N-gram (-nrl)", "backward N-gram")
-    if not lm.dict_path:
-        raise ValueError(f"LM '{lm.name}': ngram mode needs -v dict")
-    voca = load_htkdict(lm.dict_path)
-    _apply_dict_extras(voca, lm)
-    ngram = None
-    if lm.ngram_path:
-        ngram = (read_bingram(lm.ngram_path) if _is_bingram(lm.ngram_path)
-                 else load_arpa(lm.ngram_path))
-    return voca, ngram
+    """Load the LM block's dictionary and language model.  Returns
+    (lmtype, voca, ngram, dfa, word_cat): the N-gram (None for a
+    dictionary without -d/-nlr) in ngram mode, the automaton and each
+    word's category in grammar mode, neither in word mode."""
+    if lm.lmtype == "ngram":
+        if lm.ngram_backward_path:
+            raise unsupported("a backward (RL) N-gram (-nrl)",
+                              "backward N-gram")
+        if not lm.dict_path:
+            raise ValueError(f"LM '{lm.name}': ngram mode needs -v dict")
+        voca = load_htkdict(lm.dict_path)
+        _apply_dict_extras(voca, lm)
+        ngram = None
+        if lm.ngram_path:
+            ngram = (read_bingram(lm.ngram_path)
+                     if _is_bingram(lm.ngram_path)
+                     else load_arpa(lm.ngram_path))
+        return "ngram", voca, ngram, None, None
+    if lm.lmtype == "grammar":
+        if lm.gram_prefix:
+            dfa, voca, word_cat = load_grammar(lm.gram_prefix)
+        elif lm.gramlist_path:
+            base = os.path.dirname(os.path.abspath(lm.gramlist_path))
+            prefixes = []
+            with open(lm.gramlist_path) as f:
+                for line in f:
+                    s = line.strip()
+                    if s and not s.startswith("#"):
+                        prefixes.append(os.path.join(base, s))
+            dfa, voca, word_cat = load_multiple_grammars(prefixes)
+        elif lm.dfa_path and lm.dict_path:
+            dfa = load_dfa(lm.dfa_path)
+            voca = load_htkdict(lm.dict_path)
+            # a grammar dictionary names each word by its category id
+            word_cat = np.asarray([int(n) for n in voca.names],
+                                  dtype=np.int32)
+        else:
+            raise ValueError(
+                f"LM '{lm.name}': grammar mode needs -gram/-gramlist or "
+                "-dfa + -v")
+        return "grammar", voca, None, dfa, word_cat
+    if lm.lmtype == "word":
+        if not lm.wordlist_path:
+            raise ValueError(f"LM '{lm.name}': word mode needs -w list")
+        return "word", load_wordlist(lm.wordlist_path), None, None, None
+    raise ValueError(f"unknown lmtype {lm.lmtype}")
+
+
+def load_multiple_grammars(prefixes: List[str]):
+    """Load each prefix.dfa + prefix.dict and merge them into one
+    automaton and dictionary (`merge_grammars`)."""
+    return merge_grammars([load_grammar(p) for p in prefixes])
+
+
+def merge_grammars(grams):
+    """Merge (dfa, voca, word_cat) triples into one global DFA +
+    dictionary (reference multigram_build gramlist.c/multi-gram.c:174:
+    category ids and DFA states are offset per grammar and the automata
+    run in parallel as one big DFA with multiple initial/accept
+    states)."""
+    gdfa = DFAGrammar()
+    voca = Vocabulary()
+    cats: List[int] = []
+    for dfa, v, wc in grams:
+        soff = gdfa.n_states
+        coff = gdfa.n_terms
+        gdfa.n_states += dfa.n_states
+        gdfa.n_terms += dfa.n_terms
+        gdfa.arcs.extend(
+            [[(c + coff, s + soff) for (c, s) in arcs] for arcs in dfa.arcs])
+        gdfa.accept.extend(dfa.accept)
+        gdfa.initial.extend(dfa.initial)
+        for i in range(v.n_words):
+            voca.add(str(int(wc[i]) + coff), v.phones[i], v.outputs[i],
+                     v.transparent[i], v.cprob[i], v.weight[i])
+            cats.append(int(wc[i]) + coff)
+    gdfa.term_words = [[] for _ in range(gdfa.n_terms)]
+    for wid, c in enumerate(cats):
+        gdfa.term_words[c].append(wid)
+    return gdfa, voca, np.asarray(cats, dtype=np.int32)
 
 
 def create_engines(cfg: EngineConfig, device="cuda") -> List[Engine]:
@@ -139,11 +208,11 @@ def create_engines(cfg: EngineConfig, device="cuda") -> List[Engine]:
         hmm, dnn, gshmm = am_cache[id(am_cfg)]
         if id(lm_cfg) not in lm_cache:
             lm_cache[id(lm_cfg)] = load_lm(lm_cfg)
-        voca, ngram = lm_cache[id(lm_cfg)]
+        lmtype, voca, ngram, dfa, word_cat = lm_cache[id(lm_cfg)]
         eng = Engine(hmm, voca, lm=ngram, dnn=dnn,
                      frontend=am_cfg.frontend, search=sr, am_cfg=am_cfg,
-                     lmtype="ngram", iwsp=lm_cfg.enable_iwsp, gshmm=gshmm,
-                     device=device)
+                     dfa=dfa, word_cat=word_cat, lmtype=lmtype,
+                     iwsp=lm_cfg.enable_iwsp, gshmm=gshmm, device=device)
         shift = am_cfg.frontend.shift_ms or 10.0
         if am_cfg.sscalc:
             am_cfg.frontend.sscalc_frames = max(
@@ -159,5 +228,5 @@ def create_engines(cfg: EngineConfig, device="cuda") -> List[Engine]:
         engines.append(eng)
         jlog(LogLevel.STAT,
              f"instance '{sr.name}': AM={am_cfg.name} LM={lm_cfg.name} "
-             f"type=ngram nodes={eng.net.n_nodes} device={eng.device}")
+             f"type={lmtype} nodes={eng.net.n_nodes} device={eng.device}")
     return engines

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from julius_tpu_torch.models.hmm import HMMSet
+from julius_tpu_torch.utils.device import full_f32_matmul
 from julius_tpu_torch.utils.logadd import LOG_ZERO
 
 NEG_HALF = LOG_ZERO / 2
@@ -156,8 +157,9 @@ def gauss_scores(tables: GMMScorerTables, x: torch.Tensor) -> torch.Tensor:
     """[..., D] frames -> [..., G] per-Gaussian log-likelihoods (one
     full-f32 product of [x, x*x] by the stacked table, c its bias)."""
     flat = x.reshape(-1, x.shape[-1])
-    g = torch.addmm(tables.c, torch.cat([flat, flat * flat], dim=-1),
-                    tables.w)
+    with full_f32_matmul():
+        g = torch.addmm(tables.c, torch.cat([flat, flat * flat], dim=-1),
+                        tables.w)
     return g.reshape(*x.shape[:-1], g.shape[-1])
 
 

@@ -23,9 +23,8 @@ scan is identical.  Resolution policy matches the reference fallback
 chain (outprob_style.c lcdset handling): an exact physical triphone
 `lc-p+r` wins; anything unresolvable keeps the v1 approximation.
 
-`build_rc_tables` is the node-level view for pass 1's `head_rc_dynamic`,
-which the port's pass 1 does not take yet (ROADMAP.md queue 1, unfused
-pass1_step paths).
+`build_rc_tables` is the node-level view for pass 1's `head_rc_dynamic`
+(search/pass1.py's per-context head emission rows).
 """
 
 from __future__ import annotations

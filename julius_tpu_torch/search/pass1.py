@@ -1,26 +1,33 @@
 """Pass 1: frame-synchronous Viterbi over the flat decode network (torch).
 
-Port of `julius_tpu/search/pass1.py` for the configuration its fused
-kernel serves: a shift-structured network (every arc spans dst - src in
-[0, K], K <= MAX_LOCAL_K), cross-word N-gram decoding with unigram
-factoring at word entry (factoring 1) or no LM, no DFA, no score
-envelope, no per-context head emission rows.  Every node carries one
-score + payload (LM context word, trellis backpointer); each frame
+Port of `julius_tpu/search/pass1.py`.  Every node carries one score +
+payload (LM context word, trellis backpointer); each frame
 
   * emits up to M corrected word-end records ("atoms") for frame t-1:
     the top 2M exits get the exact 2-gram swap for their entry unigram
     (hash probes), then the best M are kept in the [T, M] trellis;
-  * picks the single best atom per utterance as the cross-word winner
-    (under unigram factoring the winner is the same for every word);
-  * advances every node with one launch of the beam-update kernel
-    (ops/pass1_kernel.py).
+  * advances every node: in-word arcs, the cross-word entry from the
+    atoms, the emission, frozen past each utterance's end.
 
 The frame loop is Python over a batch written out as a leading [B]
-axis, with no host synchronisation inside it.  Tie order is part of the
-result (trellis slot order fixes `prev` ids): every top-k here is a
-stable descending sort, so ties go to the lowest index as `lax.top_k`
-and `argmax` give them, and payloads are selected by index gathers, not
-by one-hot products.
+axis, with no host synchronisation inside it.  Where the reference
+takes its fused Pallas kernel (`_fused_ok`: a shift-structured network,
+cross-word N-gram decoding with unigram factoring or no LM, no DFA, no
+score envelope, no per-context head emission rows) each frame picks the
+single best atom per utterance as the cross-word winner and launches the
+beam-update kernel (ops/pass1_kernel.py).  Every other configuration
+runs `pass1_step`, the reference's XLA step in PyTorch: the arc gather
+of a general topology, the per-category winners of a DFA grammar, the
+per-word 2-gram winners of factoring 2, isolated words (no cross-word
+entry), the per-context head emission rows of `head_rc_dynamic` and the
+score envelope.  Each reduction the reference makes inside `jax.vmap` is
+per utterance here (over a row's own axis, never the batch).
+
+Tie order is part of the result (trellis slot order fixes `prev` ids):
+every top-k here is a stable descending sort and every winner a first
+maximum, so ties go to the lowest index as `lax.top_k` and `argmax`
+give them, and payloads are selected by index gathers, not by one-hot
+products.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ import torch
 
 from julius_tpu_torch.ops import pass1_kernel as pk
 from julius_tpu_torch.search.network import DecodeNetwork
-from julius_tpu_torch.search.ngram_device import DeviceNgram, bigram_score_fast
+from julius_tpu_torch.search.ngram_device import (DeviceNgram, bigram_score,
+                                                  bigram_score_fast)
 from julius_tpu_torch.utils.logadd import LOG_ZERO
 
 NEG_HALF = LOG_ZERO / 2
@@ -44,11 +52,16 @@ MAX_LOCAL_K = 8     # max arc span for the shift-structured network
 class DeviceNetwork:
     """Decode network tables on one device.
 
-    `loc_lp[k, i]` = ln p of the arc i-k -> i (LOG_ZERO if none), so the
-    incoming-arc max is K+1 shifted adds."""
+    A network whose arcs all span dst - src in [0, K], K <= MAX_LOCAL_K,
+    has `local_k` = K and `loc_lp[k, i]` = ln p of the arc i-k -> i
+    (LOG_ZERO if none), so the incoming-arc max is K+1 shifted adds;
+    any other topology has `local_k` = -1, no `loc_lp`, and takes the
+    [N, Din] incoming-arc gather."""
 
     score_idx: torch.Tensor   # [N] i32 node -> outprob row column
-    loc_lp: torch.Tensor      # [K+1, N] f32 shifted-arc scores
+    in_src: torch.Tensor      # [N, Din] i64 source node of each in-arc
+    in_lp: torch.Tensor       # [N, Din] f32 its ln p (pad: LOG_ZERO)
+    loc_lp: Optional[torch.Tensor]  # [K+1, N] f32 shifted-arc scores
     entry_word: torch.Tensor  # [N] i32 vocab word entered here, -1 none
     entry_lp: torch.Tensor    # [N] f32
     # compressed exit-node view: word ends only occur at these nodes
@@ -61,36 +74,53 @@ class DeviceNetwork:
     # per-vocab-word LM context row: (LM id as f32, unigram back-off)
     ctx_info: Optional[torch.Tensor]  # [V, 2] f32
     word_entry_lm: torch.Tensor  # [V] f32 lm_weight*log10 uni + penalty
+    wid2lm: torch.Tensor      # [V] i64 vocab word -> LM word id, -1 none
+    transparent: torch.Tensor  # [V] bool: word passes LM context through
+    word_cat: torch.Tensor    # [V] i64 DFA category (grammar mode) or 0
+    cpair: Optional[torch.Tensor]     # [C, C] bool: category j may follow i
+    cat_init: Optional[torch.Tensor]  # [C] bool: category may start
+    cat_final: Optional[torch.Tensor]  # [C] bool: category may end
+    # per-context head emission rows (reference outprob_style.c:354
+    # AS_RSET dynamic assignment): a word-head node reads the column of
+    # its token's LM-context word class; None = the pseudo-set columns
+    rc_head: Optional[torch.Tensor]   # [N] i64 row into rc_sidx, -1 fixed
+    rc_sidx: Optional[torch.Tensor]   # [NH * C] i64 override columns
+    lc_class: Optional[torch.Tensor]  # [V] i64 word -> left-context class
     head_word: int
     tail_word: int
     local_k: int
+    rc_C: int = 0             # classes per rc_sidx row
 
 
 #: DeviceNetwork tensor fields, with their dtypes (convert.py reads the
-#: reference's tables by these names)
+#: reference's tables by these names; a field may be None)
 NETWORK_FIELDS = {
-    "score_idx": torch.int32, "loc_lp": torch.float32,
+    "score_idx": torch.int32, "in_src": torch.int64,
+    "in_lp": torch.float32, "loc_lp": torch.float32,
     "entry_word": torch.int32, "entry_lp": torch.float32,
     "exit_nodes": torch.int64, "exit_w": torch.int32,
     "exit_nlp": torch.float32, "exit_wlm": torch.int32,
     "exit_uni": torch.float32, "exit_transp": torch.bool,
     "ctx_info": torch.float32, "word_entry_lm": torch.float32,
+    "wid2lm": torch.int64, "transparent": torch.bool,
+    "word_cat": torch.int64, "cpair": torch.bool, "cat_init": torch.bool,
+    "cat_final": torch.bool, "rc_head": torch.int64,
+    "rc_sidx": torch.int64, "lc_class": torch.int64,
 }
 
 
 def device_network_from_numpy(arrays, head_word: int, tail_word: int,
-                              local_k: int, device) -> DeviceNetwork:
+                              local_k: int, rc_C: int,
+                              device) -> DeviceNetwork:
     """DeviceNetwork from host arrays keyed by NETWORK_FIELDS names."""
-    if local_k < 0:
-        raise _unfused("a network with arcs outside the [0, MAX_LOCAL_K] "
-                       "shift window")
     t = {}
     for name, dt in NETWORK_FIELDS.items():
         a = arrays[name]
         t[name] = None if a is None else torch.as_tensor(
             np.array(a), dtype=dt, device=device)
     return DeviceNetwork(**t, head_word=int(head_word),
-                         tail_word=int(tail_word), local_k=int(local_k))
+                         tail_word=int(tail_word), local_k=int(local_k),
+                         rc_C=int(rc_C))
 
 
 def build_device_network(
@@ -100,12 +130,18 @@ def build_device_network(
     wid2lm: Optional[np.ndarray] = None,
     lm_weight: float = 8.0,
     lm_penalty: float = 0.0,
+    word_cat: Optional[np.ndarray] = None,
+    cpair: Optional[np.ndarray] = None,
+    cat_init: Optional[np.ndarray] = None,
+    cat_final: Optional[np.ndarray] = None,
     transparent: Optional[np.ndarray] = None,
     transparent_penalty: float = 0.0,
     cprob: Optional[np.ndarray] = None,
+    rc_tables=None,
 ) -> DeviceNetwork:
     """Host decode network -> device tables (the reference's
-    build_device_network for the shift-structured case)."""
+    build_device_network).  `rc_tables` is `iwcd2.build_rc_tables`'
+    (rc_head, rc_sidx, lc_class) for per-context head emission rows."""
     V = net.n_words
     if transparent is None:
         transparent = np.zeros(V, dtype=bool)
@@ -153,16 +189,27 @@ def build_device_network(
             np.asarray(wid2lm, np.float32),
             np.where(wid2lm >= 0, bo[np.maximum(wid2lm, 0)], 0.0)],
             axis=1).astype(np.float32)
+    rc_head = rc_sidx = lc_class = None
+    rc_C = 0
+    if rc_tables is not None:
+        rc_head, rc_sidx, lc_class = rc_tables
+        rc_C = int(rc_sidx.shape[1])
+        rc_sidx = rc_sidx.reshape(-1)
     arrays = dict(
-        score_idx=net.score_idx, loc_lp=loc,
-        entry_word=net.entry_word, entry_lp=net.entry_lp,
+        score_idx=net.score_idx, in_src=net.in_src, in_lp=net.in_lp,
+        loc_lp=loc, entry_word=net.entry_word, entry_lp=net.entry_lp,
         exit_nodes=exit_nodes, exit_w=exit_w,
         exit_nlp=net.exit_lp[exit_nodes], exit_wlm=exit_wlm,
         exit_uni=exit_uni,
         exit_transp=np.asarray(transparent, dtype=bool)[exit_w],
-        ctx_info=ctx_info, word_entry_lm=entry)
+        ctx_info=ctx_info, word_entry_lm=entry, wid2lm=wid2lm,
+        transparent=transparent,
+        word_cat=(word_cat if word_cat is not None
+                  else np.zeros(V, np.int32)),
+        cpair=cpair, cat_init=cat_init, cat_final=cat_final,
+        rc_head=rc_head, rc_sidx=rc_sidx, lc_class=lc_class)
     return device_network_from_numpy(arrays, net.head_word, net.tail_word,
-                                      local_k, device)
+                                      local_k, rc_C, device)
 
 
 @dataclass(frozen=True)
@@ -172,11 +219,15 @@ class Pass1Config:
     n_atoms: int = 32           # trellis word-ends kept per frame (M)
     lm_weight: float = 8.0
     lm_penalty: float = 0.0
-    beam_width: float = 0.0     # score envelope; only 0 (exact) here
-    use_lm: bool = True         # ngram mode vs no LM
+    beam_width: float = 0.0     # score envelope; 0 = exact dense Viterbi
+    use_lm: bool = True         # ngram mode vs grammar/isolated-word
     use_dfa: bool = False       # category-pair constrained cross-word
     crossword: bool = True      # False = isolated word recognition
-    factoring: int = 1          # 1 = unigram at entry + 2-gram at end
+    # LM factoring at word entry: 1 = unigram at entry + exact 2-gram
+    # swap at word end; 2 = exact 2-gram at entry for the top expand_k
+    # contexts (context-dependent entry winners)
+    factoring: int = 1
+    expand_k: int = 8
 
 
 class Trellis(NamedTuple):
@@ -191,23 +242,12 @@ class Trellis(NamedTuple):
     ectx: torch.Tensor    # int32 effective LM context for what follows
 
 
-def _unfused(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the torch port yet: ROADMAP.md queue 1, "
-        "unfused pass1_step paths")
-
-
-def check_supported(dev: DeviceNetwork, cfg: Pass1Config) -> None:
-    """Raise NotImplementedError for configurations outside this port's
-    pass 1 (the reference's `_fused_ok` gate; no silent fallback)."""
-    why = ("a gather-topology network" if dev.local_k < 0
-           else "isolated-word pass 1" if not cfg.crossword
-           else "DFA category pairs" if cfg.use_dfa
-           else "factoring=2" if cfg.use_lm and cfg.factoring >= 2
-           else "a score-envelope beam" if cfg.beam_width > 0
-           else None)
-    if why is not None:
-        raise _unfused(why)
+def fused_ok(dev: DeviceNetwork, cfg: Pass1Config) -> bool:
+    """True for the configurations the beam-update kernel serves (the
+    reference's `_fused_ok` `supported` expression, pass1.py:581-583)."""
+    return (dev.local_k >= 0 and cfg.crossword and not cfg.use_dfa
+            and not (cfg.use_lm and cfg.factoring >= 2)
+            and cfg.beam_width == 0.0 and dev.rc_head is None)
 
 
 def entry_total(dev: DeviceNetwork) -> torch.Tensor:
@@ -249,7 +289,12 @@ def _word_end_candidates(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
         vrow = dev.ctx_info[ctx_k.clamp(min=0).long()]          # [B, k, 2]
         v_lm = torch.where(ctx_k >= 0, vrow[..., 0].to(torch.int32), -1)
         bi = bigram_score_fast(ngram, v_lm, vrow[..., 1], wlm_k, uni_k)
-        delta = torch.where(wlm_k >= 0, cfg.lm_weight * (bi - uni_k), 0.0)
+        if cfg.factoring >= 2:
+            # the entry already applied the exact 2-gram: no swap
+            delta = torch.zeros_like(sc)
+        else:
+            delta = torch.where(wlm_k >= 0, cfg.lm_weight * (bi - uni_k),
+                                0.0)
         lm_sc = torch.where(wlm_k >= 0, cfg.lm_weight * bi + cfg.lm_penalty,
                             cfg.lm_penalty)
     else:
@@ -296,31 +341,163 @@ def _scalar_entry_batched(atoms: Trellis, t: int, M: int):
     return ent, ectx.to(torch.int32), eprev
 
 
+def _entry_scores(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
+                  cfg: Pass1Config, atoms: Trellis, t: int):
+    """Cross-word expansion: each word-head node's entry score, LM
+    context and trellis pointer ([B, N] each, or [B, 1] when the winner
+    is the same for every word).
+
+    N-gram mode under unigram factoring (or no LM): the single best
+    corrected word end wins every entry.  DFA mode: one winner per
+    category through the category-pair table (reference dfa/cpair.c as
+    the pass-1 inter-word constraint).  Factoring 2: one winner per word
+    over the top expand_k contexts, each scored with its exact 2-gram."""
+    B, M = atoms.word.shape
+    valid = atoms.word >= 0
+    wq = dev.entry_word.clamp(min=0).long()                      # [N]
+    if cfg.use_dfa and dev.cpair is not None:
+        kcat = dev.word_cat[atoms.word.clamp(min=0).long()]       # [B, M]
+        allowed = dev.cpair[kcat] & valid[..., None]              # [B, M, C]
+        sc = torch.where(allowed, atoms.score[..., None], LOG_ZERO)
+        best_k = sc.argmax(dim=1)                    # [B, C], first max
+        ncat = dev.word_cat[wq]                                   # [N]
+        k = best_k[:, ncat]                                       # [B, N]
+        return (sc.amax(dim=1)[:, ncat],
+                atoms.word.gather(1, k).clamp(min=0),
+                ((t - 1) * M + k).to(torch.int32))
+    if cfg.use_lm and cfg.factoring >= 2 and ngram is not None:
+        K = min(cfg.expand_k, M)
+        aw = atoms.ectx[:, :K]                                    # [B, K]
+        asc = torch.where(valid[:, :K], atoms.score[:, :K], LOG_ZERO)
+        v_lm = torch.where(aw >= 0, dev.wid2lm[aw.clamp(min=0).long()], -1)
+        w_lm = dev.wid2lm                                         # [V]
+        w0 = w_lm.clamp(min=0)
+        bi = bigram_score(ngram, v_lm[..., None], w0)             # [B, K, V]
+        # the merge adds word_entry_lm = lw*uni + pen, so the increment
+        # here is lw*(bigram - uni); words outside the LM keep the raw
+        # score
+        sc = asc[..., None] + cfg.lm_weight * (bi - ngram.uni[w0])
+        sc = torch.where(w_lm >= 0, sc, asc[..., None])
+        k_best = sc.argmax(dim=1)[:, wq]                          # [B, N]
+        return (sc.amax(dim=1)[:, wq],
+                aw.gather(1, k_best).clamp(min=-1),
+                ((t - 1) * M + k_best).to(torch.int32))
+    ent, ectx, eprev = _scalar_entry_batched(atoms, t, M)
+    return ent[:, None], ectx[:, None], eprev[:, None]
+
+
+def _shift(x: torch.Tensor, k: int, fill) -> torch.Tensor:
+    """x[:, n-k] along the node axis, `fill` where n-k < 0."""
+    if k == 0:
+        return x
+    return torch.cat([x.new_full((x.shape[0], k), fill), x[:, :-k]], dim=1)
+
+
+def pass1_init(dev: DeviceNetwork, cfg: Pass1Config,
+               out_row0: torch.Tensor) -> torch.Tensor:
+    """[B, N] initial scores from the first frame's [B, R] outprob rows.
+    N-gram mode enters the head silence word only (reference
+    init_nodescore beam.c:1552); DFA mode every word of a category that
+    may start the sentence; isolated-word mode every word."""
+    ew = dev.entry_word
+    w = ew.clamp(min=0).long()
+    if cfg.use_dfa and dev.cat_init is not None:
+        enter = (ew >= 0) & dev.cat_init[dev.word_cat[w]]
+    elif cfg.crossword:
+        enter = ew == dev.head_word
+    else:
+        enter = ew >= 0
+    return torch.where(
+        enter, dev.entry_lp + dev.word_entry_lm[w]
+        + out_row0[:, dev.score_idx.long()], LOG_ZERO)
+
+
+def pass1_step(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
+               cfg: Pass1Config, score: torch.Tensor, ctx: torch.Tensor,
+               prev: torch.Tensor, atoms: Trellis, out_row: torch.Tensor,
+               frame_valid: torch.Tensor, t: int):
+    """One frame of the reference's unfused `pass1_step` (pass1.py:458)
+    over the batch: [B, N] state, the [B, M] atoms of frame t-1, the
+    [B, R] outprob rows of frame t, [B] frame_valid -> the new state,
+    frozen where frame_valid is False."""
+    if dev.local_k >= 0:
+        # K+1 shifted adds; ties keep the smallest span k
+        cands = [_shift(score, k, LOG_ZERO) + dev.loc_lp[k]
+                 for k in range(dev.local_k + 1)]
+        inw = cands[0]
+        for c in cands[1:]:
+            inw = torch.maximum(inw, c)
+        nctx, nprev = ctx, prev
+        taken = cands[0] >= inw
+        for k in range(1, dev.local_k + 1):
+            hit = (cands[k] >= inw) & ~taken
+            taken = taken | hit
+            nctx = torch.where(hit, _shift(ctx, k, -1), nctx)
+            nprev = torch.where(hit, _shift(prev, k, -1), nprev)
+    else:
+        # general topology: gather + first max over the incoming arcs
+        cand = score[:, dev.in_src] + dev.in_lp                   # [B, N, D]
+        best_d = cand.argmax(dim=2, keepdim=True)
+        inw = cand.gather(2, best_d)[..., 0]
+        src = dev.in_src.expand(score.shape[0], -1, -1).gather(
+            2, best_d)[..., 0]
+        nctx, nprev = ctx.gather(1, src), prev.gather(1, src)
+
+    if cfg.crossword:
+        ent, ectx, eprev = _entry_scores(dev, ngram, cfg, atoms, t)
+        wq = dev.entry_word.clamp(min=0).long()
+        cand_e = torch.where(dev.entry_word >= 0,
+                             ent + dev.entry_lp + dev.word_entry_lm[wq],
+                             LOG_ZERO)
+        use_e = cand_e > inw
+        merged = torch.where(use_e, cand_e, inw)
+        nctx = torch.where(use_e, ectx, nctx)
+        nprev = torch.where(use_e, eprev, nprev)
+    else:
+        merged = inw
+
+    sidx = dev.score_idx.long()
+    if dev.rc_head is not None:
+        # per-context head emission rows: the class comes from the
+        # token's LM context after the entry merge (a transparent
+        # predecessor contributes its inherited context)
+        cls = torch.where(nctx >= 0, dev.lc_class[nctx.clamp(min=0).long()],
+                          0)
+        ov = dev.rc_sidx[dev.rc_head.clamp(min=0) * dev.rc_C + cls]
+        emit = out_row.gather(1, torch.where(dev.rc_head >= 0, ov, sidx))
+    else:
+        emit = out_row[:, sidx]
+    new_score = torch.where(merged > NEG_HALF, merged + emit, LOG_ZERO)
+    if cfg.beam_width > 0:
+        # the envelope is per utterance: each row's own best
+        thr = new_score.amax(dim=1, keepdim=True) - cfg.beam_width
+        new_score = torch.where(new_score >= thr, new_score, LOG_ZERO)
+    fv = frame_valid[:, None]
+    return (torch.where(fv, new_score, score), torch.where(fv, nctx, ctx),
+            torch.where(fv, nprev, prev))
+
+
 def pass1_batch(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
                 cfg: Pass1Config, out_ext: torch.Tensor,
                 n_frames: torch.Tensor) -> Trellis:
     """[B, T, R] extended outprob rows + [B] valid frame counts ->
     Trellis of [B, T, M] tensors (atom row t holds word-ends at frame
-    t).  Reference: get_back_trellis pass1.c:616."""
-    check_supported(dev, cfg)
+    t).  Reference: get_back_trellis pass1.c:616.  Each frame launches
+    the beam-update kernel where `fused_ok` holds, else runs
+    `pass1_step`."""
     B, T, _ = out_ext.shape
     M = cfg.n_atoms
     device = out_ext.device
     n_frames = n_frames.to(device=device, dtype=torch.int32)
     out_ext = out_ext.to(torch.float32).contiguous()
+    fused = fused_ok(dev, cfg)
+    if fused:
+        etot = entry_total(dev)
+        loc = dev.loc_lp.contiguous()
 
-    etot = entry_total(dev)
-    loc = dev.loc_lp.contiguous()
-    sidx = dev.score_idx
-
-    # initial state: enter the head silence word only (reference
-    # init_nodescore beam.c:1552)
-    N = etot.shape[0]
-    enter = dev.entry_word == dev.head_word
-    score = torch.where(enter, etot + out_ext[:, 0][:, sidx.long()],
-                        LOG_ZERO)
-    ctx = torch.full((B, N), -1, dtype=torch.int32, device=device)
-    prev = torch.full((B, N), -1, dtype=torch.int32, device=device)
+    score = pass1_init(dev, cfg, out_ext[:, 0])
+    ctx = torch.full(score.shape, -1, dtype=torch.int32, device=device)
+    prev = torch.full(score.shape, -1, dtype=torch.int32, device=device)
 
     rows_out = []
     # steps t = 1..T advance through frame t; step T runs on a dummy row
@@ -331,10 +508,14 @@ def pass1_batch(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
         row = out_ext[:, t] if t < T else zero_row
         frame_valid = t < n_frames                                  # [B]
         atoms = _word_end_candidates(dev, ngram, cfg, score, ctx, prev)
-        ent_s, ectx_s, eprev_s = _scalar_entry_batched(atoms, t, M)
-        score, ctx, prev = pk.fused_step(
-            score, ctx, prev, loc, etot, row, sidx,
-            ent_s, ectx_s, eprev_s, frame_valid)
+        if fused:
+            ent_s, ectx_s, eprev_s = _scalar_entry_batched(atoms, t, M)
+            score, ctx, prev = pk.fused_step(
+                score, ctx, prev, loc, etot, row, dev.score_idx,
+                ent_s, ectx_s, eprev_s, frame_valid)
+        else:
+            score, ctx, prev = pass1_step(dev, ngram, cfg, score, ctx, prev,
+                                          atoms, row, frame_valid, t)
         # atoms describe frame t-1, valid while t-1 < n_frames
         atom_ok = ((t - 1) < n_frames)[:, None] & (atoms.word >= 0)
         atoms = atoms._replace(
@@ -348,8 +529,9 @@ def backtrace(trellis, n_frames: int, tail_word: int = -1,
               final_mask: Optional[np.ndarray] = None):
     """Host-side pass-1 result backtrace (reference find_1pass_result
     beam.c:372): best word-end at the final frame, preferring acceptable
-    final words (the tail silence word for N-gram), then follow
-    backpointers.  `trellis` holds one utterance's [T, M] arrays."""
+    final words (the tail silence word for N-gram, sentence-final
+    categories for DFA and any word for isolated words via final_mask),
+    then follow backpointers.  `trellis` holds one utterance's [T, M] arrays."""
     word = np.asarray(trellis.word)
     score = np.asarray(trellis.score)
     prev = np.asarray(trellis.prev)

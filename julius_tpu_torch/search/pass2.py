@@ -22,9 +22,9 @@ re-derives them in scan_word; a device-batched boundary refinement is the
 planned next step — see SURVEY.md §7 step 6).
 
 This is a copy of `julius_tpu/search/pass2.py`'s forward frozen-score
-search (with `TrellisLattice`, `NBestResult` and `confidence_scores`);
-the backward-LM and DFA searches come with the ROADMAP items that need
-them.
+searches, the N-gram one and the DFA grammar one (with `TrellisLattice`,
+`NBestResult` and `confidence_scores`); the backward-LM search comes
+with the ROADMAP item that needs it.
 """
 
 from __future__ import annotations
@@ -228,6 +228,92 @@ def _final_best(lattice: TrellisLattice) -> float:
     if not valid.any():
         return float("-inf")
     return float(np.max(np.where(valid, row, -np.inf)))
+
+
+def pass2_search_dfa(
+    lattice: TrellisLattice,
+    dfa,
+    word_cat: np.ndarray,
+    cfg: SearchConfig,
+) -> List[NBestResult]:
+    """A* N-best over the trellis lattice under exact DFA grammar
+    acceptance (reference dfa_decode.c dfa_firstwords/dfa_nextwords/
+    dfa_acceptable).  The hypothesis state is the reverse-NFA state set
+    of the (reversed-convention) .dfa; a sentence is acceptable when the
+    set contains an initial state at the final frame."""
+    T, M = lattice.T, lattice.M
+    if T == 0:
+        return []
+    pen2 = cfg.lm_penalty2
+    best_total = _final_best(lattice)
+    if not np.isfinite(best_total):
+        return []
+
+    g0 = dfa.accept_start_set()
+    step_cache: Dict[Tuple[frozenset, int], frozenset] = {}
+
+    def nfa_step(g: frozenset, cat: int) -> frozenset:
+        key = (g, cat)
+        out = step_cache.get(key)
+        if out is None:
+            out = dfa.reverse_nfa_step(g, cat)
+            step_cache[key] = out
+        return out
+
+    stack: List[Tuple[float, Hypo, frozenset]] = []
+
+    def push(h: Hypo, g: frozenset):
+        heapq.heappush(stack, (-h.score, h, g))
+
+    for (t, m) in lattice.by_begin.get(0, []):
+        w = int(lattice.word[t, m])
+        g = nfa_step(g0, int(word_cat[w]))
+        if not g:
+            continue
+        am = lattice.am_of(t, m)
+        sc = am + pen2
+        rest = best_total - float(lattice.score[t, m])
+        push(Hypo(score=sc + rest, atom=lattice.atom_id(t, m), words=(w,),
+                  am_score=am, lm_score=pen2,
+                  bounds=((int(lattice.begin[t, m]), t),)), g)
+
+    results: List[NBestResult] = []
+    seen: Dict[Tuple[int, frozenset], int] = {}
+    n_pop = 0
+    while stack and len(results) < cfg.nbest and n_pop < cfg.max_hypo_pop:
+        _, h, g = heapq.heappop(stack)
+        n_pop += 1
+        t, m = divmod(h.atom, M)
+        key = (h.atom, g)
+        cnt = seen.get(key, 0)
+        if cnt >= cfg.nbest:
+            continue
+        seen[key] = cnt + 1
+        exact = h.score - (best_total - float(lattice.score[t, m]))
+        if t == T - 1:
+            if any(dfa.initial[s] for s in g):
+                results.append(NBestResult(
+                    word_ids=list(h.words), score=exact,
+                    am_score=h.am_score, lm_score=h.lm_score,
+                    bounds=list(h.bounds)))
+            continue
+        for (nt, nm) in lattice.by_begin.get(t + 1, []):
+            w = int(lattice.word[nt, nm])
+            ng = nfa_step(g, int(word_cat[w]))
+            if not ng:
+                continue
+            am = lattice.am_of(nt, nm)
+            nsc = exact + am + pen2
+            rest = best_total - float(lattice.score[nt, nm])
+            push(Hypo(score=nsc + rest,
+                      atom=lattice.atom_id(nt, nm),
+                      words=h.words + (w,),
+                      am_score=h.am_score + am,
+                      lm_score=h.lm_score + pen2,
+                      bounds=h.bounds + ((int(lattice.begin[nt, nm]), nt),)),
+                 ng)
+    results.sort(key=lambda r: -r.score)
+    return results
 
 
 def confidence_scores(results: List[NBestResult],

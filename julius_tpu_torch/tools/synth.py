@@ -8,7 +8,12 @@ reference README.md Quick Run model + Sample.dnnconf) and the 20k-word
 tied-triphone configuration (`lvcsr_engine`: HMMList-tied triphones,
 cross-word pseudo sets, strict inter-word CD in pass 2).  Beside them,
 `write_gmm_task` writes a GMM-HMM task of the flagship's shape as the
-model, dictionary, N-gram and feature files the command line reads.
+model, dictionary, N-gram and feature files the command line reads;
+`make_grammar` splits a dictation vocabulary into the categories of a
+command grammar, `grammar_sentences` samples word sequences the grammar
+accepts, `make_word_utts` turns given word sequences into generative
+utterances, and `write_grammar_task` writes a grammar and an
+isolated-word list beside a `write_gmm_task` task.
 """
 
 from __future__ import annotations
@@ -455,6 +460,30 @@ def _lm_sampler(lm, voca, rng, follow_p=0.85):
     return draw
 
 
+def _word_frames(hmm, voca, protos, seq, dim, context, rng):
+    """Spliced [T, dim * context] windows of a word sequence: senone path
+    via the HMM transitions, base frames = senone prototypes + noise."""
+    senones = []
+    for w in seq:
+        for p in voca.phones[w]:
+            pid = hmm.phone_index[p]
+            ns = int(hmm.phone_ns[pid])
+            trans = hmm.phone_trans[pid]
+            s = 0
+            while s < ns:
+                senones.append(int(hmm.phone_states[pid, s]))
+                if rng.random() > math.exp(trans[s + 1, s + 1]):
+                    s += 1
+    base = protos[senones] \
+        + 0.25 * rng.standard_normal((len(senones), dim)) \
+        .astype(np.float32)
+    half = context // 2
+    T = base.shape[0]
+    idx = np.clip(np.arange(T)[:, None]
+                  + np.arange(-half, context - half)[None, :], 0, T - 1)
+    return base[idx].reshape(T, dim * context).astype(np.float32)
+
+
 def make_flagship_utts(hmm, voca, lm, protos, n_utts, dim, context,
                        min_words=4, max_words=9, seed=0):
     """Generative flagship utterances: word sequence -> senone path via
@@ -471,29 +500,84 @@ def make_flagship_utts(hmm, voca, lm, protos, n_utts, dim, context,
         for _i in range(k):
             seq.append(draw(seq[-1]))
         seq.append(name2id["</s>"])
-        senones = []
-        for w in seq:
-            for p in voca.phones[w]:
-                pid = hmm.phone_index[p]
-                ns = int(hmm.phone_ns[pid])
-                trans = hmm.phone_trans[pid]
-                s = 0
-                while s < ns:
-                    senones.append(int(hmm.phone_states[pid, s]))
-                    if rng.random() > math.exp(trans[s + 1, s + 1]):
-                        s += 1
-        base = protos[senones] \
-            + 0.25 * rng.standard_normal((len(senones), dim)) \
-            .astype(np.float32)
-        half = context // 2
-        T = base.shape[0]
-        idx = np.clip(np.arange(T)[:, None]
-                      + np.arange(-half, context - half)[None, :], 0, T - 1)
-        win = base[idx].reshape(T, dim * context).astype(np.float32)
+        win = _word_frames(hmm, voca, protos, seq, dim, context, rng)
         truths.append([voca.names[w] for w in seq])
         windows.append(win)
-        lens.append(T)
+        lens.append(win.shape[0])
     return truths, windows, lens
+
+
+def make_word_utts(hmm, voca, protos, seqs, dim, context, seed=0):
+    """Generative utterances of the given word-id sequences, made as
+    `make_flagship_utts` makes its own.  Returns (windows, lens)."""
+    rng = np.random.default_rng(seed + 9)
+    windows = [_word_frames(hmm, voca, protos, seq, dim, context, rng)
+               for seq in seqs]
+    return windows, [w.shape[0] for w in windows]
+
+
+def make_grammar(voca: Vocabulary, n_cats: int = 40, max_route: int = 8):
+    """A command grammar over a dictation vocabulary whose silence words
+    are <s> and </s> (`make_vocabulary`'s), as the .grammar and .voca
+    texts that `grammar.compile_grammar` compiles.
+
+    <s> and </s> form the sentence-edge categories NS_B and NS_E; the
+    other words are dealt in id order into n_cats categories C00, C01,
+    ...  A sentence is NS_B, one route and NS_E.  The routes take the
+    categories in order, 1, 2, ..., max_route of them a route and again,
+    so each position of each route is a state of the automaton; the last
+    three categories form the route Ca LIST with the tail-recursive LIST
+    : Cb | Cc LIST.  Returns (grammar text, voca text)."""
+    if n_cats < 4:
+        raise ValueError(f"n_cats={n_cats}: the grammar needs at least 4")
+    edge = {"<s>": "NS_B", "</s>": "NS_E"}
+    cats = {name: [] for name in edge.values()}
+    cats.update({f"C{k:02d}": [] for k in range(n_cats)})
+    others = [w for w in range(voca.n_words) if voca.names[w] not in edge]
+    for w in range(voca.n_words):
+        if voca.names[w] in edge:
+            cats[edge[voca.names[w]]].append(w)
+    for j, w in enumerate(others):
+        cats[f"C{j % n_cats:02d}"].append(w)
+    rules = ["S : NS_B BODY NS_E"]
+    n_route, c, length = n_cats - 3, 0, 1
+    while c < n_route:
+        k = min(length, n_route - c)
+        rules.append("BODY : "
+                     + " ".join(f"C{i:02d}" for i in range(c, c + k)))
+        c += k
+        length = length % max_route + 1
+    a, b, d = n_cats - 3, n_cats - 2, n_cats - 1
+    rules += [f"BODY : C{a:02d} LIST", f"LIST : C{b:02d}",
+              f"LIST : C{d:02d} LIST"]
+    voca_lines = []
+    for name, words in cats.items():
+        voca_lines.append(f"% {name}")
+        voca_lines += [f"{voca.names[w]} {' '.join(voca.phones[w])}"
+                       for w in words]
+    return "\n".join(rules) + "\n", "\n".join(voca_lines) + "\n"
+
+
+def grammar_sentences(dfa_fwd, word_cat, n: int, seed: int = 0,
+                      min_words: int = 3, max_words: int = 10):
+    """n word-id sequences of min_words..max_words words that the forward
+    automaton accepts: category sequences drawn by
+    `grammar.generate_sentences`, each category's word drawn uniformly."""
+    from julius_tpu_torch.grammar import generate_sentences
+
+    rng = np.random.default_rng(seed)
+    members = {}
+    for w, c in enumerate(word_cat):
+        members.setdefault(int(c), []).append(w)
+    out = []
+    draw_seed = seed
+    while len(out) < n:
+        for cats in generate_sentences(dfa_fwd, n=4 * n, seed=draw_seed):
+            if min_words <= len(cats) <= max_words and len(out) < n:
+                out.append([members[c][int(rng.integers(len(members[c])))]
+                            for c in cats])
+        draw_seed += 1
+    return out
 
 
 def make_lvcsr_utts(eng, protos, n_utts, dim, context,
@@ -677,3 +761,56 @@ def flagship_engine(n_words: int = 5000, n_phones: int = 668,
                    n_out=hmm.n_states, seed=seed + 3)
     return Engine(hmm, voca, lm, dnn=dnn, frontend=fe_cfg, search=search,
                   device=device)
+
+
+def write_grammar_task(out_dir: str, n_utts: int = 16, n_words: int = 5000,
+                       n_phones: int = 668, dim: int = 39, n_mix: int = 16,
+                       seed: int = 0, n_cats: int = 40):
+    """A grammar task and an isolated-word task beside `write_gmm_task`'s
+    files (the same seeds give the same models and vocabulary): the
+    vocabulary's `make_grammar` compiled by `grammar.mkdfa` into
+    `gram.dfa`, `gram.dfa.forward`, `gram.dict` and `gram.term`
+    (-gram gram), its words as the word list `words.list` (-w), and
+    `n_utts` generative utterances each as HTK parameter files: grammar
+    sentences `gNNN.mfc` (`grammar_sentences`) and single words
+    `iNNN.mfc`.
+
+    Returns (grammar truths, word truths, {name: path}), the truths as
+    lists of output strings."""
+    from julius_tpu_torch import grammar
+    from julius_tpu_torch.io.dfa import load_dfa, load_grammar
+    from julius_tpu_torch.io.htk_param import HTKParam, write_htk_param
+
+    hmm = make_hmmset(n_phones=n_phones, n_states=3, dim=dim, n_mix=n_mix,
+                      seed=seed)
+    voca = make_vocabulary(hmm, n_words, seed=seed + 1)
+    prefix = os.path.join(out_dir, "gram")
+    gtext, vtext = make_grammar(voca, n_cats)
+    for ext, text in ((".grammar", gtext), (".voca", vtext)):
+        with open(prefix + ext, "w", encoding="utf-8") as f:
+            f.write(text)
+    grammar.mkdfa(prefix)
+    _, gvoca, word_cat = load_grammar(prefix)
+    seqs = grammar_sentences(load_dfa(prefix + ".dfa.forward"), word_cat,
+                             n_utts, seed=seed + 5)
+    files = {"gram": prefix, "dfa": prefix + ".dfa",
+             "gram_dict": prefix + ".dict",
+             "wordlist": os.path.join(out_dir, "words.list")}
+    with open(files["wordlist"], "w", encoding="utf-8") as f:
+        for name, phones in zip(voca.names, voca.phones):
+            f.write(f"{name} {' '.join(phones)}\n")
+    rng = np.random.default_rng(seed + 6)
+    words = [[int(w)] for w in rng.integers(2, voca.n_words, n_utts)]
+    protos = hmm.means[hmm.state_mix[:, 0]]
+    kind = "MFCC_E_D_A"
+    for key, tag, v, batch in (("gram_utts", "g", gvoca, seqs),
+                               ("word_utts", "i", voca, words)):
+        frames, _ = make_word_utts(hmm, v, protos, batch, dim, 1,
+                                   seed=seed + 7)
+        files[key] = []
+        for u, x in enumerate(frames):
+            files[key].append(os.path.join(out_dir, f"{tag}{u:03d}.mfc"))
+            write_htk_param(files[key][-1], HTKParam(
+                data=x, samp_period=100000, kind=kind))
+    return ([[gvoca.outputs[w] for w in q] for q in seqs],
+            [[voca.names[w] for w in q] for q in words], files)

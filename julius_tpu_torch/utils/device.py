@@ -1,6 +1,9 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the f32 product
+precision they pin."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -16,3 +19,18 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Run float32 matrix products in full float32 inside the block and
+    restore the caller's setting after it.  The reference pins its f32
+    products at HIGHEST; a caller that allows TF32 (a 10-bit mantissa,
+    a relative error of 4.9e-4) would otherwise round Gaussian scores
+    and features far beyond the port's tolerances."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)

@@ -15,6 +15,8 @@ tools/recognize.py) and the lattice/confnet/MBR outputs
   to 1e-6), with plain output, with -lattice -confnet -mbr -n 3, with
   -gshmm -separatescore and an -outprobout dump (the dumped scores
   within atol 1e-4), and -version's engine dump;
+* the same for a grammar task and an isolated-word list written beside
+  it (`tools.synth.write_grammar_task`): -gram, -dfa with -v, and -w;
 * graphout's functions give the same graph, text dump, confusion
   network, MBR order and edit distances on the same lattice;
 * options whose paths the port has not yet raise NotImplementedError
@@ -42,7 +44,9 @@ from julius_tpu_torch import fusion as tfusion
 from julius_tpu_torch.jconf import parse_jconf as tparse
 from julius_tpu_torch.search import graphout as tgo
 from julius_tpu_torch.tools import recognize as trec
-from julius_tpu_torch.tools.synth import write_gmm_task
+from julius_tpu_torch.tools.synth import write_gmm_task, write_grammar_task
+
+import torch_fixtures  # noqa: F401  (one intra-op thread a worker)
 
 TASK = dict(n_utts=3, n_words=60, n_phones=24, dim=39, n_mix=4,
             min_words=2, max_words=4)
@@ -52,6 +56,11 @@ TASK = dict(n_utts=3, n_words=60, n_phones=24, dim=39, n_mix=4,
 def task(tmp_path_factory):
     d = tmp_path_factory.mktemp("gmm_task")
     truths, files = write_gmm_task(str(d), **TASK)
+    gram_truths, word_truths, gfiles = write_grammar_task(
+        str(d), n_utts=TASK["n_utts"], n_words=TASK["n_words"],
+        n_phones=TASK["n_phones"], dim=TASK["dim"], n_mix=TASK["n_mix"],
+        n_cats=8)
+    files.update(gfiles, gram_truths=gram_truths, word_truths=word_truths)
     (d / "sub.jconf").write_text("-b 400\n-lmp 9.0 -1.0\n")
     (d / "main.jconf").write_text(
         "# comment\n-C sub.jconf\n-smpFreq 8000\n-n 3 -m 1000\n")
@@ -181,6 +190,28 @@ def test_recognize_main(task, case):
             np.testing.assert_allclose(t.data, j.data, rtol=0, atol=1e-4)
 
 
+MODE_CASES = {"gram": (["-gram", "{gram}"], "gram_utts", "gram_truths"),
+              "dfa": (["-v", "{gram_dict}", "-dfa", "{dfa}"], "gram_utts",
+                      "gram_truths"),
+              "w": (["-w", "{wordlist}"], "word_utts", "word_truths")}
+
+
+@pytest.mark.parametrize("case", sorted(MODE_CASES))
+def test_grammar_and_word_modes_print_like_reference(task, case):
+    """The command line in grammar mode (-gram, -dfa + -v) and
+    isolated-word mode (-w): both packages print the same lines, and
+    each input's first sentence is its generating words."""
+    files = task[2]
+    extra, utts, truths = MODE_CASES[case]
+    argv = ["-h", files["am"], "-input", "mfcfile", "-batchsize", "3"] + [
+        a.format(**files) for a in extra] + files[utts]
+    got = run_main(trec.main, argv, device="cpu")
+    assert_same_lines(got, run_main(jrec.main, argv))
+    sentences = [ln.split(": ", 1)[1] for ln in got
+                 if ln.startswith("sentence1: ")]
+    assert sentences == [" ".join(t) for t in files[truths]]
+
+
 def test_version_prints_the_engine(task):
     files = task[2]
     lines = run_main(trec.main, ["-h", files["am"], "-v", files["dict"],
@@ -240,9 +271,6 @@ def test_graphout_functions(lattice):
 
 
 UNPORTED = [
-    (["-gram", "{d}/sample"], "unfused pass1_step paths"),
-    (["-dfa", "{d}/sample.dfa"], "unfused pass1_step paths"),
-    (["-w", "{d}/words.list"], "unfused pass1_step paths"),
     (["-nrl", "{d}/back.arpa"], "backward N-gram"),
     (["-gmm", "{d}/gmmdefs"], "streaming"),
     (["-powerthres", "100.0"], "streaming"),

@@ -3,7 +3,10 @@ version, and the decode on CUDA against the decode on the CPU, for the
 default pass 2 (device A*), the host re-scan and the frozen search; the
 tied-triphone configuration (pseudo-set outprobs, the strict-head scan,
 its decode), the waveform front end, the GMM scorer and the command
-line on GMM-HMM model files likewise.
+line on GMM-HMM model files likewise; pass 1's unfused step (factoring
+2, the score envelope, isolated words, a topology with backward arcs)
+and a grammar decode on the card against the CPU; and the f32 products
+that stay full f32 when the caller turns TF32 on.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference package, so it also runs where
@@ -415,3 +418,130 @@ def test_cli_on_card_matches_cpu(cuda, gmm_task):
     scores = [[float(ln.split()[1]) for ln in out[d]
                if ln.startswith("score1")] for d in out]
     np.testing.assert_allclose(scores[0], scores[1], rtol=0, atol=1e-2)
+
+
+def test_tf32_on_keeps_full_f32_products(cuda, gmm_task, engines):
+    """A caller that turns TF32 on (the global precision and the matmul
+    flag) still gets full-f32 Gaussian scores and features: the card
+    within 1e-4 of the CPU, the caller's setting left as it was."""
+    from julius_tpu_torch.io.binhmm import read_binhmm
+    from julius_tpu_torch.ops import gmm as tgmm
+    eng, cpu, _, _ = engines
+    hmm = read_binhmm(gmm_task[1]["am"])[0]
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 60, 39)).astype(np.float32)) + torch.from_numpy(hmm.means[:60])
+    rng = np.random.default_rng(8)
+    wave = (2000.0 * rng.standard_normal((2, 16000))).astype(np.float32)
+    lens = torch.tensor([16000, 12000])
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got = tgmm.gauss_scores(tgmm.build_gmm_tables(hmm, device="cuda"),
+                                x.cuda()).cpu()
+        feats, _ = eng._features(torch.from_numpy(wave).cuda(), lens.cuda())
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    want = tgmm.gauss_scores(tgmm.build_gmm_tables(hmm, device="cpu"), x)
+    assert float((got - want).abs().max()) <= 1e-4
+    want_f, _ = cpu._features(torch.from_numpy(wave), lens)
+    assert torch.allclose(feats.cpu(), want_f, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kw", [dict(factoring=2, expand_k=16),
+                                dict(beam_width=150.0),
+                                dict(crossword=False)],
+                         ids=["factoring2", "envelope", "isolated"])
+def test_unfused_pass1_on_card_matches_cpu(engines, kw):
+    """Pass 1's unfused step on the card against the CPU on the same
+    outprob rows; the beam-update kernel is never launched."""
+    eng, cpu, feats, lens = engines
+    with torch.no_grad():
+        out = cpu._outprob(torch.from_numpy(feats))
+    cfg = dataclasses.replace(eng.p1_cfg, **kw)
+    assert not tp1.fused_ok(eng.dev_net, cfg)
+    before = tpk.LAUNCHES
+    got = tp1.pass1_batch(eng.dev_net, eng.ngram_dev, cfg, out.cuda(),
+                          torch.from_numpy(lens))
+    torch.cuda.synchronize()
+    assert tpk.LAUNCHES == before
+    want = tp1.pass1_batch(cpu.dev_net, cpu.ngram_dev, cfg, out,
+                           torch.from_numpy(lens))
+    assert torch.equal(got.word.cpu(), want.word)
+    valid = want.word >= 0
+    for name in tp1.Trellis._fields:
+        a, b = getattr(got, name).cpu(), getattr(want, name)
+        if a.dtype.is_floating_point:
+            assert float(torch.where(valid, (a - b).abs(), 0.0).max()) \
+                <= 1e-5
+        else:
+            assert torch.equal(torch.where(valid, a, 0),
+                               torch.where(valid, b, 0))
+
+
+def test_gather_topology_on_card_matches_cpu(cuda):
+    """A network with backward in-word arcs takes the incoming-arc
+    gather: decodes on the card equal the CPU's (the frozen pass 2, as
+    the chain scan cannot take such arcs)."""
+    from julius_tpu_torch.config import SearchConfig
+    from julius_tpu_torch.engine import Engine
+    hmm = synth.make_hmmset(n_phones=24, dim=8, seed=4)
+    hmm.phone_trans[:, 3, 2] = np.log(0.1)
+    voca = synth.make_vocabulary(hmm, n_words=60, seed=5)
+    lm = synth.make_ngram(voca, seed=6)
+    search = SearchConfig(trellis_topm=16, lm_weight=4.0)
+    engs = [Engine(hmm, voca, lm, search=search, device=d)
+            for d in ("cuda", "cpu")]
+    assert engs[0].dev_net.local_k < 0 and not engs[0]._rescan_ok()
+    rows = np.random.default_rng(7).normal(
+        -8.0, 3.0, (3, 70, hmm.n_states)).astype(np.float32)
+    lens = np.asarray([70, 52, 31], np.int32)
+    got, want = (e.decode_outprob(rows, lens) for e in engs)
+    assert [r.word_ids for r in got] == [r.word_ids for r in want]
+    assert [r.from_pass for r in got] == [r.from_pass for r in want]
+    for g, w in zip(got, want):
+        assert g.score == pytest.approx(w.score, abs=1e-3)
+
+
+def test_grammar_decode_on_card_matches_cpu(engines):
+    """A grammar over the small flagship vocabulary: the default pass 2
+    (the host re-scan, whose word scans launch the scan kernel) and the
+    frozen DFA search on the card against the CPU; every result is
+    accepted by the automaton."""
+    from julius_tpu_torch import grammar
+    from julius_tpu_torch.engine import Engine
+    from julius_tpu_torch.search import pass2_rescan as tp2r
+    eng, cpu, _, _ = engines
+    gtext, vtext = synth.make_grammar(eng.voca, n_cats=8)
+    rev, fwd, voca, wc, _ = grammar.compile_grammar(gtext, vtext)
+    wc = np.asarray(wc, np.int32)
+    seqs = synth.grammar_sentences(fwd, wc, 3, seed=2)
+    protos = synth.trained_dnn_weights(
+        eng.hmm.n_states, 1320, 120, 11, SMALL["hidden"],
+        SMALL["n_layers"], 3)[4]
+    wins, lens = synth.make_word_utts(eng.hmm, voca, protos, seqs, 120, 11)
+    feats = np.zeros((3, max(lens), 1320), np.float32)
+    for u, w in enumerate(wins):
+        feats[u, :w.shape[0]] = w
+    lens = np.asarray(lens, np.int32)
+    for rescan in (True, False):
+        search = dataclasses.replace(eng.search_cfg, pass2_rescan=rescan)
+        res = {}
+        for e in (eng, cpu):
+            g = Engine(e.hmm, voca, dnn=e.dnn_params, frontend=e.fe_cfg,
+                       search=search, dfa=rev, word_cat=wc,
+                       device=e.device)
+            before = (tsk.LAUNCHES, tp2r.CHUNKS)
+            res[e.device.type] = g.decode_features(feats, lens)
+            if e is eng and rescan:
+                assert tsk.LAUNCHES - before[0] == \
+                    tp2r.CHUNKS - before[1] > 0
+        got, want = res["cuda"], res["cpu"]
+        assert [r.word_ids for r in got] == [r.word_ids for r in want]
+        assert [r.from_pass for r in got] == [r.from_pass for r in want]
+        for g, w in zip(got, want):
+            assert g.score == pytest.approx(w.score, abs=1e-2)
+            assert rev.accepts_forward([int(wc[x]) for x in g.word_ids])
+        assert [r.word_ids for r in got] == seqs

@@ -18,6 +18,8 @@ from julius_tpu.tools.synth import make_dnn, trained_dnn_weights
 from julius_tpu_torch import convert
 from julius_tpu_torch.ops import dnn as tdnn
 
+import torch_fixtures  # noqa: F401  (one intra-op thread a worker)
+
 
 def params(kind):
     if kind == "random":

@@ -9,26 +9,29 @@ come from pass 2), and the frozen-score stack search
 pass-1 result, the third comes from pass 2).  The port's engine is
 built two ways: from the reference engine's own arrays carried across
 by convert.py, and from the port's copy of the synth builders, whose
-tables must then equal the reference's.  Word ids and `from_pass` must
-be equal.  Scores are held to atol 1e-2: the DNN scores agree to a few
+tables must then equal the reference's.  Factoring 2 and the score
+envelope, which take pass 1's unfused step, decode like the reference
+too.  Word ids and `from_pass` must be equal.  Scores are held to atol 1e-2: the DNN scores agree to a few
 1e-6 here and a decode sums a few hundred of them."""
 
 import dataclasses
+import inspect
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+from julius_tpu.engine import Engine as JaxEngine
 from julius_tpu.tools.synth import flagship_engine, make_flagship_utts
 from julius_tpu_torch import convert
-from julius_tpu_torch.config import SearchConfig
 from julius_tpu_torch.engine import Engine
 from julius_tpu_torch.search import pass1 as tp1
 from julius_tpu_torch.search import scan as tscan
 from julius_tpu_torch.tools import synth as tsynth
 
 from test_torch_pass2_device import converted_engine
+import torch_fixtures  # noqa: F401  (one intra-op thread a worker)
 
 SIZE = dict(n_words=120, n_phones=48, hidden=128, n_layers=2)
 FROZEN = dict(pass2_rescan=False)
@@ -57,8 +60,10 @@ def reference():
 
 def assert_same_tables(a, b):
     for name in tp1.NETWORK_FIELDS:
-        assert torch.equal(getattr(a.dev_net, name),
-                           getattr(b.dev_net, name)), name
+        x, y = getattr(a.dev_net, name), getattr(b.dev_net, name)
+        assert (x is None) == (y is None), name
+        if x is not None:
+            assert torch.equal(x, y), name
     assert a.dev_net.local_k == b.dev_net.local_k
     for name in ("uni", "bo_uni", "bi_rows"):
         assert torch.equal(getattr(a.ngram_dev, name),
@@ -146,13 +151,40 @@ def test_configurations_outside_the_slice_raise(reference):
             teng.decode_features(reference[3], reference[4])
         with pytest.raises(NotImplementedError, match=item):
             teng.recognize_batch(np.zeros((1, 1600), np.float32), [1600])
-    for search in (dict(factoring=2), dict(beam_width=400)):
-        with pytest.raises(NotImplementedError,
-                           match="unfused pass1_step paths"):
-            Engine(eng.hmm, eng.voca, eng.lm, dnn=eng.dnn_params,
-                   search=SearchConfig(**search), device="cpu")
-    with pytest.raises(NotImplementedError, match="unfused pass1_step paths"):
-        Engine(eng.hmm, eng.voca, dfa=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="backward N-gram"):
+        Engine(eng.hmm, eng.voca, eng.lm, dnn=eng.dnn_params,
+               lm_forward=eng.lm, device="cpu")
+
+
+def test_engine_takes_the_reference_arguments_in_order():
+    """The reference's arguments in the reference's order, `device` a
+    keyword after them."""
+    want = list(inspect.signature(JaxEngine).parameters)
+    got = inspect.signature(Engine).parameters
+    assert list(got)[:-1] == want
+    assert got["device"].kind is inspect.Parameter.KEYWORD_ONLY
+
+
+@pytest.mark.parametrize("search", [dict(factoring=2),
+                                    dict(beam_width=400)],
+                         ids=["factoring2", "envelope"])
+def test_unfused_configurations_decode_like_reference(reference, search):
+    """Factoring 2 and the score envelope take pass 1's unfused step in
+    both packages; the default pass 2 after it."""
+    eng, _, truths, feats, lens, _, _ = reference
+    jeng = JaxEngine(eng.hmm, eng.voca, eng.lm, dnn=eng.dnn_params,
+                     frontend=eng.fe_cfg, search=dataclasses.replace(
+                         eng.search_cfg, pass2_rescan=True, **search))
+    teng = converted_engine(jeng)
+    assert not tp1.fused_ok(teng.dev_net, teng.p1_cfg)
+    want = jeng.decode_features(jnp.asarray(feats), jnp.asarray(lens))
+    got = teng.decode_features(feats, lens)
+    assert [g.from_pass for g in got] == [w.from_pass for w in want]
+    for g, w in zip(got, want):
+        assert g.word_ids == w.word_ids
+        assert g.score == pytest.approx(w.score, abs=1e-2)
+        assert [s["begin"] for s in g.segments] == \
+            [s["begin"] for s in w.segments]
 
 
 def test_graph_outputs_take_the_host_rescan(reference):

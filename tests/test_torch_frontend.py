@@ -34,6 +34,7 @@ from julius_tpu_torch.config import FrontendConfig, parse_feature_type
 from julius_tpu_torch.frontend import mfcc as tfe
 
 from test_torch_pass2_device import converted_engine
+import torch_fixtures  # noqa: F401  (one intra-op thread a worker)
 
 SIZE = dict(n_words=120, n_phones=48, hidden=128, n_layers=2)
 LENGTHS = (16000, 11234, 5000, 300)

@@ -47,6 +47,7 @@ from julius_tpu_torch.tools.synth import first_component_hmmset
 from julius_tpu_torch.utils.logadd import LOG_ZERO
 
 from fixtures import make_hmmdefs_text
+import torch_fixtures  # noqa: F401  (one intra-op thread a worker)
 
 ATOL = 1e-4
 DIM = 8

@@ -36,6 +36,7 @@ from julius_tpu_torch.io import wav as twav
 
 from fixtures import make_arpa_text, make_dict_text, make_hmmdefs_text
 from test_bingram import make_trigram_text
+import torch_fixtures  # noqa: F401  (one intra-op thread a worker)
 
 MACROS = (
     '~o <VecSize> 2 <MFCC> <DIAGC>\n'

@@ -45,6 +45,7 @@ from julius_tpu_torch.tools import synth as tsynth
 from test_torch_engine import assert_same_tables
 from test_torch_pass2_device import (assert_same_nbest, converted_engine,
                                      reference_outputs)
+import torch_fixtures  # noqa: F401  (one intra-op thread a worker)
 
 SIZE = dict(n_words=400, hidden=256, n_layers=2)
 LOG_ZERO = -1e10

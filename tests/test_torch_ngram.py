@@ -15,6 +15,8 @@ from julius_tpu.tools.synth import make_hmmset, make_ngram, make_vocabulary
 from julius_tpu_torch import convert
 from julius_tpu_torch.search import ngram_device as tng
 
+import torch_fixtures  # noqa: F401  (one intra-op thread a worker)
+
 
 def test_hash_bit_equal_to_reference():
     rng = np.random.default_rng(0)

@@ -7,7 +7,9 @@ and the same network and N-gram tables (carried across by convert.py).
 The trellis is compared by the reference's own fused-vs-fallback rule
 (tests/test_pass1_fused.py): word ids equal everywhere, other integer
 fields equal and scores allclose(atol=1e-5) where a word survived; and
-the backtraced words must be equal."""
+the backtraced words must be equal.  Factoring 2, the score envelope and
+isolated words take the port's unfused step on the same network and
+rows."""
 
 import dataclasses
 
@@ -21,6 +23,8 @@ from julius_tpu.search import pass1 as jp1
 from julius_tpu.tools.synth import flagship_engine
 from julius_tpu_torch import convert
 from julius_tpu_torch.search import pass1 as tp1
+
+import torch_fixtures  # noqa: F401  (one intra-op thread a worker)
 
 
 def trellis_equal(a, b):
@@ -87,11 +91,24 @@ def test_pass1_batch_matches_reference(reference):
     assert n_words > 3
 
 
-def test_unsupported_pass1_configs_raise(reference):
-    eng = reference[0]
+@pytest.mark.parametrize("kw", [dict(factoring=2, expand_k=16),
+                                dict(beam_width=150.0),
+                                dict(crossword=False)],
+                         ids=["factoring2", "envelope", "isolated"])
+def test_unfused_configs_match_reference(reference, kw):
+    """The configurations the kernel does not serve, on the same network:
+    the port's unfused step against the reference's XLA step."""
+    eng, out, nfr, _ = reference
+    jcfg = dataclasses.replace(eng.p1_cfg, **kw)
+    ref = jax.tree_util.tree_map(np.asarray, jp1.pass1_batch(
+        eng.dev_net, eng.ngram_dev, jcfg, jnp.asarray(out),
+        jnp.asarray(nfr)))
     dev = convert.device_network(convert.numpy_fields(eng.dev_net), "cpu")
-    for cfg in (tp1.Pass1Config(factoring=2), tp1.Pass1Config(use_dfa=True),
-                tp1.Pass1Config(beam_width=100.0),
-                tp1.Pass1Config(crossword=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tp1.check_supported(dev, cfg)
+    ng = convert.device_ngram(convert.numpy_fields(eng.ngram_dev), "cpu")
+    cfg = tp1.Pass1Config(**{f.name: getattr(jcfg, f.name)
+                             for f in dataclasses.fields(tp1.Pass1Config)})
+    assert not tp1.fused_ok(dev, cfg)
+    got = tp1.pass1_batch(dev, ng, cfg, torch.from_numpy(out),
+                          torch.from_numpy(nfr))
+    trellis_equal(ref, tp1.Trellis(*[a.numpy() for a in got]))
+    assert (ref.word >= 0).sum() > 1000

@@ -30,6 +30,8 @@ from julius_tpu_torch.engine import Engine
 from julius_tpu_torch.search import pass2 as tp2
 from julius_tpu_torch.search import pass2_device as tp2d
 
+import torch_fixtures  # noqa: F401  (one intra-op thread a worker)
+
 SIZE = dict(n_words=120, n_phones=48, hidden=128, n_layers=2)
 
 

@@ -34,6 +34,7 @@ from julius_tpu.tools.synth import flagship_engine
 
 from test_torch_pass2_device import (assert_same_nbest, converted_engine,
                                      reference_batch)
+import torch_fixtures  # noqa: F401  (one intra-op thread a worker)
 
 SIZE = dict(n_words=120, n_phones=48, hidden=128, n_layers=2)
 

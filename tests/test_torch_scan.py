@@ -24,6 +24,8 @@ from julius_tpu_torch.ops import scan_kernel as tsk
 from julius_tpu_torch.search import scan as tscan
 from julius_tpu_torch.search.network import build_network
 
+import torch_fixtures  # noqa: F401  (one intra-op thread a worker)
+
 SIZE = dict(n_words=120, n_phones=48, hidden=128, n_layers=2)
 LOG_ZERO = -1e10
 B, T, R = 3, 90, 150

@@ -30,6 +30,8 @@ import torch
 from julius_tpu.search.scan import _scan_core_win
 from julius_tpu_torch.ops import scan_kernel as tsk
 
+import torch_fixtures  # noqa: F401  (one intra-op thread a worker)
+
 LOG_ZERO = np.float32(-1e10)
 NEG_HALF = np.float32(-0.5e10)
 C = tsk.CHUNK

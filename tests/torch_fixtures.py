@@ -1,6 +1,6 @@
-"""Shared inputs for the port's tests (imports neither JAX nor the
-reference package, so the card-only tests can use it where JAX is not
-installed)."""
+"""Shared inputs and settings for the port's tests (imports neither JAX
+nor the reference package, so the card-only tests can use it where JAX
+is not installed)."""
 
 import numpy as np
 import torch
@@ -8,6 +8,14 @@ import torch
 from julius_tpu_torch.ops import pass1_kernel as tpk
 
 LOG_ZERO = -1e10
+
+# The test suite runs in several pytest workers on one machine.  torch's
+# OpenMP threads spin between parallel regions, and with one pool per
+# core in every worker a host re-scan test ran 29 times slower (290 s
+# against 10 s, six workers on eight cores) than with one thread each.
+# Every test module of the port imports this one, so each worker keeps
+# a single intra-op thread.
+torch.set_num_threads(1)
 
 
 def make_step_inputs(seed, B, N, K, R=50):
