@@ -962,6 +962,7 @@ def cli_phase(card):
         raise RuntimeError(f"cli_gram: {runs['cli_gram']}")
     return entries
 
+
 def kernel_entries(path, measured):
     """The kernels line's entries of one path (`path_kernels` output)."""
     sources = {"pass1_step": ("julius_tpu_torch/csrc/pass1_step.cu",
@@ -1054,6 +1055,7 @@ def grammar_phase(eng, protos, card):
     measured = path_kernels("grammar", calls, {"pass1_step": launches,
                                                "scan_win": scan_launches},
                             geng, card)
+    exact_f = sum(r.texts == t for r, t in zip(res_f, truths[side]))
     phase("grammar", utterances=N_UTTS, frames=T,
           audio_s=float(lens_np.sum()) / 100.0, e2e_wall_s=wall,
           exact_transcripts=f"{exact}/{N_UTTS}",
@@ -1065,7 +1067,7 @@ def grammar_phase(eng, protos, card):
                           "step, as the reference runs XLA there",
           scan_win_launches=scan_launches, rescan_chunks=chunks,
           frozen=dict(utterances=N_SIDE, wall_s=frozen_s,
-                      exact_transcripts=f"{sum(r.texts == t for r, t in zip(res_f, truths[side]))}/{N_SIDE}",
+                      exact_transcripts=f"{exact_f}/{N_SIDE}",
                       from_pass2=sum(r.from_pass == 2 for r in res_f),
                       dfa_accepted=sum(dfa.accepts_forward(
                           [int(wc[w]) for w in r.word_ids])
@@ -1504,13 +1506,15 @@ def main() -> int:
           exact_transcripts=f"{frozen_exact}/{N_SIDE}",
           from_pass2=sum(r.from_pass == 2 for r in res_frozen), card=card)
 
-    kernels = grammar_phase(eng, protos, card)
-    isolated_phase(eng, protos, card)
-    kernels += unfused_ngram_phase(eng, feats, lens_np, truths, card)
-    kernels += waveform_phase(eng, card, dict(timings[64],
-                                              max_abs_err=max_err))
+    kernels = waveform_phase(eng, card, dict(timings[64],
+                                             max_abs_err=max_err))
     kernels += lvcsr_phase(card)
     kernels += cli_phase(card)
+    # the grammar slice's paths after the earlier ones, so that those run
+    # in the same process state as before and compare with older runs
+    kernels += grammar_phase(eng, protos, card)
+    isolated_phase(eng, protos, card)
+    kernels += unfused_ngram_phase(eng, feats, lens_np, truths, card)
     gather_phase(card)
 
     flagship = kernel_entries("flagship", {

@@ -24,7 +24,7 @@ from __future__ import annotations
 import io
 import re
 from dataclasses import dataclass, field
-from typing import Dict, FrozenSet, List, Optional, Sequence, Set, Tuple
+from typing import Dict, FrozenSet, List, Sequence, Set, Tuple
 
 from julius_tpu_torch.io.dfa import DFAGrammar
 from julius_tpu_torch.io.htk_dict import Vocabulary

@@ -531,7 +531,8 @@ def backtrace(trellis, n_frames: int, tail_word: int = -1,
     beam.c:372): best word-end at the final frame, preferring acceptable
     final words (the tail silence word for N-gram, sentence-final
     categories for DFA and any word for isolated words via final_mask),
-    then follow backpointers.  `trellis` holds one utterance's [T, M] arrays."""
+    then follow backpointers.  `trellis` holds one utterance's [T, M]
+    arrays."""
     word = np.asarray(trellis.word)
     score = np.asarray(trellis.score)
     prev = np.asarray(trellis.prev)

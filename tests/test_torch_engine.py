@@ -11,8 +11,9 @@ built two ways: from the reference engine's own arrays carried across
 by convert.py, and from the port's copy of the synth builders, whose
 tables must then equal the reference's.  Factoring 2 and the score
 envelope, which take pass 1's unfused step, decode like the reference
-too.  Word ids and `from_pass` must be equal.  Scores are held to atol 1e-2: the DNN scores agree to a few
-1e-6 here and a decode sums a few hundred of them."""
+too.  Word ids and `from_pass` must be equal.  Scores are held to atol
+1e-2: the DNN scores agree to a few 1e-6 here and a decode sums a few
+hundred of them."""
 
 import dataclasses
 import inspect

@@ -196,7 +196,6 @@ def assert_same_networks(a, b):
         assert getattr(a, name) == getattr(b, name), name
 
 
-
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_unfused_trellis_matches_reference(case):
     jeng, teng = build_engines(case)
