@@ -86,7 +86,35 @@ Phases, one line each, in order (any failure exits non-zero):
  13. gather: a topology with backward in-word arcs (pass 1's
      incoming-arc gather): no model in the repo has it at full width, so
      it is held card against CPU at the tests' size;
- 14. the kernels' JSON line (one entry per kernel and path), the card
+ 14. align: -walign -palign -salign on 16 generative flagship
+     utterances through Engine.decode_features (the slice's decode, then
+     a forced alignment of each result: search/align.py's Viterbi on the
+     card); every result aligned, the word segments tiling each
+     utterance in transcript order, word boundaries within 3 frames of
+     the generating ones; the alignment Viterbi held card against CPU on
+     the same outprob rows (backpointers equal, score within 1e-3); the
+     alignment's wall per utterance;
+ 15. stream: 4 seeded 10 s waveforms, each fed to StreamSession (no VAD,
+     16-frame blocks) in 100 ms chunks on the card and decoded by
+     recognize_batch on the card: words equal, scores within 0.5; where
+     the stream's outprob rows differ from the batch's; the ms of each
+     16-frame block (outprob plus the pass-1 chunk, the unfused step at
+     B = 1) beside the 160 ms of audio it carries, and the segment-end
+     delay (finalize, pass 2, assembly); scan_win held and timed at the
+     shapes the streams gave it;
+ 16. stream_vad: 3 noise bursts of 2 s between 1 s of near-silence fed
+     with the VAD on: 3 segments, each equal to recognize_batch on the
+     segment's samples; the native segmenter (built here from
+     julius_tpu_torch/adin/native/adin.cpp) against the Python one on
+     the same samples; on the cli task's GMM engine loaded with -gmm
+     -gmmnoise -powerthres, the GMM-VAD gate over a feature stream (2
+     segments) and power rejection;
+ 17. cli_live: on the cli task, recognize.main with -input fake:<wav>
+     (capture, VAD, the streaming decode: 3 `live segment` blocks), -48
+     on a 48 kHz file, -gmm verification of a speech file and a noise
+     file (one rejected), -walign -palign -salign; each run's kernels
+     held and timed at its shapes, as in 12;
+ 18. the kernels' JSON line (one entry per kernel and path), the card
      line, and the result line last.
 
 Weights and utterances are made from fixed seeds; nothing is read from
@@ -99,8 +127,10 @@ import dataclasses
 import inspect
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -768,12 +798,12 @@ def run_cli(recognize, argv, results):
     return buf.getvalue().splitlines(), wall, built
 
 
-def cli_phase(card):
+def cli_phase(card, task_dir):
     """The julius command line from model files: a GMM-HMM task of the
-    flagship's width written to a temporary directory, both kernels and
-    the GMM scorer on the engine loaded from those files, then three runs
-    of recognize.main.  Returns the kernels' entries for the JSON line."""
-    import tempfile
+    flagship's width written to `task_dir`, both kernels and the GMM
+    scorer on the engine loaded from those files, then five runs of
+    recognize.main.  Returns the kernels' entries for the JSON line and
+    the task's files."""
 
     from julius_tpu_torch import fusion
     from julius_tpu_torch.io.htk_param import read_htk_param
@@ -790,7 +820,7 @@ def cli_phase(card):
                                               write_grammar_task)
     from julius_tpu_torch.utils.cuda_timing import time_ms
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(task_dir) as tmp:
         t0 = time.perf_counter()
         truths, files = write_gmm_task(tmp, n_utts=N_UTTS)
         write_s = time.perf_counter() - t0
@@ -960,7 +990,7 @@ def cli_phase(card):
             raise RuntimeError(f"{label}: {runs[label]}")
     if runs["cli_gram"]["from_pass2"] != N_SIDE:
         raise RuntimeError(f"cli_gram: {runs['cli_gram']}")
-    return entries
+    return entries, files
 
 
 def kernel_entries(path, measured):
@@ -1239,6 +1269,505 @@ def gather_phase(card):
         raise RuntimeError("gather: the card differs from the CPU")
 
 
+ALIGN = dict(align_word=True, align_phoneme=True, align_state=True)
+N_STREAM, STREAM_S = 4, 10.0  # the stream phase's waveforms
+BLOCK = 16                    # frames a stream block
+CHUNK_SAMPLES = 1600          # 100 ms of 16 kHz audio a feed
+
+
+@contextlib.contextmanager
+def counted_astar(p2d):
+    """Sum the device A*'s rounds over every run_batch call in the block
+    (LAST_STATS keeps the last call's only).  Yields {"rounds": n}."""
+    total = {"rounds": 0}
+    real = p2d.run_batch
+
+    def run_batch(*a, **kw):
+        out = real(*a, **kw)
+        total["rounds"] += p2d.LAST_STATS.get("rounds", 0)
+        return out
+
+    p2d.run_batch = run_batch
+    try:
+        yield total
+    finally:
+        p2d.run_batch = real
+
+
+def align_phase(eng, protos, card):
+    """-walign -palign -salign through Engine.decode_features on 16
+    generative flagship utterances (the slice's decode, then a forced
+    alignment of each result on the card); the alignment Viterbi held
+    card against CPU on the same outprob rows.  Returns the kernels'
+    entries for the JSON line."""
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import align as al
+    from julius_tpu_torch.search import pass2_device as p2d
+    from julius_tpu_torch.search import pass2_rescan as p2r
+    from julius_tpu_torch.search import scan as scan_mod
+    from julius_tpu_torch.tools.synth import make_flagship_utts
+
+    truths, wins, lens, counts = make_flagship_utts(
+        eng.hmm, eng.voca, eng.lm, protos, N_UTTS, 120, 11, min_words=6,
+        max_words=12, seed=3, word_counts=True)
+    feats, lens_np = pad_windows(wins, lens)
+    T = feats.shape[1]
+    base = eng.search_cfg
+    eng.search_cfg = dataclasses.replace(base, **ALIGN)
+    walls = []
+
+    def timed_align(*a, _real=eng.align, **kw):
+        t0 = time.perf_counter()
+        out = _real(*a, **kw)       # ends with its host copy
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    eng.align = timed_align
+    try:
+        eng.decode_features(feats[:2], lens_np[:2])        # warm-up
+        torch.cuda.synchronize()
+        walls.clear()
+        with recorded_calls(pk, sk, p2d, scan_mod) as calls, \
+                counted_astar(p2d) as astar:
+            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            t0 = time.perf_counter()
+            res = eng.decode_features(feats, lens_np)
+            wall = time.perf_counter() - t0
+            launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+        chunks, rounds = p2r.CHUNKS, astar["rounds"]
+    finally:
+        eng.search_cfg = base
+        del eng.align
+    if launches != T or scan_launches != rounds + chunks \
+            or not scan_launches:
+        raise RuntimeError(f"align: {launches} pass1_step launches for {T} "
+                           f"frames, {scan_launches} scan_win for {rounds} "
+                           f"A* rounds + {chunks} chunks")
+    check_results(res, "align")
+    exact = exact_count(res, truths)
+    worst, n_checked = 0, 0
+    for r, truth, cnt, n in zip(res, truths, counts, lens_np):
+        a = r.alignment
+        if a is None or not (a.phones and a.states):
+            raise RuntimeError(f"align: a result without an alignment {r}")
+        if [w["word"] for w in a.words] != r.words:
+            raise RuntimeError(f"align: words {a.words} for {r.words}")
+        spans = [(w["begin"], w["end"]) for w in a.words]
+        if spans[0][0] != 0 or spans[-1][1] != n - 1 or any(
+                b[0] != e[1] + 1 for e, b in zip(spans, spans[1:])):
+            raise RuntimeError(f"align: segments {spans} do not tile "
+                               f"0..{n - 1}")
+        if r.words == truth:
+            ends = np.cumsum(cnt) - 1
+            worst = max(worst, max(abs(e[1] - int(g)) for e, g in
+                                   zip(spans[:-1], ends[:-1])))
+            n_checked += 1
+    # the alignment Viterbi on the card against the CPU on the same rows
+    vit_err, vit_same = 0.0, True
+    with torch.no_grad():
+        for b in range(N_SIDE):
+            chain = al.build_chain(eng.hmm, eng.voca, res[b].word_ids,
+                                   pseudo=eng.net.pseudo)
+            n = int(lens_np[b])
+            out = eng._outprob(feats[b:b + 1])[0, :n]
+            gs, gbp, gbest = al.viterbi_chain(
+                *al.chain_tensors(chain, DEVICE), out, n)
+            ws, wbp, wbest = al.viterbi_chain(
+                *al.chain_tensors(chain, "cpu"), out.cpu(), n)
+            vit_same &= bool(torch.equal(gbp.cpu(), wbp)
+                             and int(gbest) == int(wbest))
+            vit_err = max(vit_err, abs(float(gs) - float(ws)))
+    measured = path_kernels("align", calls, {"pass1_step": launches,
+                                             "scan_win": scan_launches},
+                            eng, card)
+    phase("align", utterances=N_UTTS, frames=T,
+          audio_s=float(lens_np.sum()) / 100.0, e2e_wall_s=wall,
+          align_wall_s=sum(walls),
+          align_ms_per_utterance=[w * 1e3 for w in walls],
+          align_ms_per_utterance_mean=sum(walls) * 1e3 / max(1, len(walls)),
+          exact_transcripts=f"{exact}/{N_UTTS}",
+          aligned=sum(r.alignment is not None for r in res),
+          boundaries_checked=n_checked, worst_boundary_frames=worst,
+          viterbi_card_vs_cpu_backpointers_equal=vit_same,
+          viterbi_card_vs_cpu_score_err=vit_err,
+          pass1_step_launches=launches, scan_win_launches=scan_launches,
+          astar_rounds=rounds, rescan_chunks=chunks, card=card)
+    if exact < N_UTTS - 1 or worst > 3 or not vit_same or vit_err > 1e-3:
+        raise RuntimeError(f"align: {exact}/{N_UTTS} exact, worst boundary "
+                           f"{worst} frames, Viterbi card vs CPU "
+                           f"{vit_same} / {vit_err}")
+    return kernel_entries("align", measured)
+
+
+def stream_phase(eng, card):
+    """4 seeded 10 s waveforms, each fed to StreamSession (no VAD,
+    16-frame blocks) in 100 ms chunks on the card and decoded by
+    recognize_batch on the card: the same words, scores within 0.5; the
+    ms a block and the segment-end delay; scan_win held and timed at the
+    shapes the streams gave it.  Returns the kernels' entries."""
+    from julius_tpu_torch.frontend import mfcc as fe
+    from julius_tpu_torch.frontend.stream import StreamingFrontend
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass1 as p1
+    from julius_tpu_torch.search import pass2_device as p2d
+    from julius_tpu_torch.search import pass2_rescan as p2r
+    from julius_tpu_torch.search import scan as scan_mod
+    from julius_tpu_torch.streaming import StreamSession
+
+    L = int(STREAM_S * 16000)
+    rng = np.random.default_rng(21)
+    waves = (2000.0 * rng.standard_normal((N_STREAM, L))).astype(np.float32)
+    lens = np.full(N_STREAM, L, np.int32)
+    t0 = time.perf_counter()
+    batch = eng.recognize_batch(waves, lens)
+    batch_s = time.perf_counter() - t0
+    with torch.no_grad():
+        _, nfr, batch_out = eng._decode_device(
+            torch.from_numpy(waves).to(DEVICE), torch.from_numpy(lens)
+            .to(DEVICE))
+    # the streaming front end against the batch front end
+    sfe = StreamingFrontend(eng.fe_cfg, device=DEVICE)
+    got = [sfe.process(waves[0, o:o + CHUNK_SAMPLES])
+           for o in range(0, L, CHUNK_SAMPLES)] + [sfe.finalize()]
+    got = np.concatenate(got)
+    with torch.no_grad():
+        want = fe.extract_features(torch.from_numpy(waves[:1]).to(DEVICE),
+                                   torch.from_numpy(lens[:1]).to(DEVICE),
+                                   eng.fe_tables)[0][0].cpu().numpy()
+    fe_err = float(np.abs(got - want[:got.shape[0]]).max()) \
+        if got.shape == want.shape else float("inf")
+
+    blocks, delays, caches, walls = [], [], [], []
+    marks = {}
+    real_finalize, real_p2 = p1.pass1_stream_finalize, eng._pass2_result
+
+    def finalize(*a, **kw):
+        marks["t0"] = time.perf_counter()
+        return real_finalize(*a, **kw)
+
+    def pass2(tr, T, out_ext=None):
+        caches.append(None if out_ext is None else out_ext[0].clone())
+        return real_p2(tr, T, out_ext=out_ext)
+
+    def one_stream(wave, timed):
+        sess = StreamSession(eng, use_vad=False, block_frames=BLOCK)
+        real_block = sess._run_block
+
+        def run_block(final):
+            n0, t0 = sess._nframes, time.perf_counter()
+            real_block(final)
+            if timed:
+                blocks.append((sess._nframes - n0,
+                               (time.perf_counter() - t0) * 1e3))
+
+        sess._run_block = run_block
+        out = []
+        t0 = time.perf_counter()
+        for o in range(0, len(wave), CHUNK_SAMPLES):
+            out.extend(sess.feed(wave[o:o + CHUNK_SAMPLES]))
+        out.extend(sess.close())
+        if timed:
+            t1 = time.perf_counter()
+            delays.append((t1 - marks["t0"]) * 1e3)
+            walls.append(t1 - t0)
+        return out
+
+    p1.pass1_stream_finalize = finalize
+    eng._pass2_result = pass2
+    try:
+        one_stream(waves[0, :32000], timed=False)           # warm-up
+        caches.clear()
+        torch.cuda.synchronize()
+        res = []
+        with recorded_calls(pk, sk, p2d, scan_mod) as calls, \
+                counted_astar(p2d) as astar:
+            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            for u in range(N_STREAM):
+                res.append(one_stream(waves[u], timed=True))
+            launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+        chunks, rounds = p2r.CHUNKS, astar["rounds"]
+    finally:
+        p1.pass1_stream_finalize = real_finalize
+        del eng._pass2_result
+    if any(len(r) != 1 for r in res):
+        raise RuntimeError(f"stream: {[len(r) for r in res]} results")
+    res = [r[0] for r in res]
+    check_results(res, "stream")
+    if launches or scan_launches != rounds + chunks or not scan_launches:
+        raise RuntimeError(f"stream: {launches} pass1_step and "
+                           f"{scan_launches} scan_win launches for {rounds} "
+                           f"A* rounds + {chunks} chunks")
+    # where the stream's outprob rows differ from the batch path's
+    rows = []
+    for u, cache in enumerate(caches):
+        n = int(nfr[u])
+        d = (cache[:n] - batch_out[u, :cache.shape[0]][:n]).abs().amax(-1)
+        rows.append(dict(frames_stream=int(cache.shape[0]), frames_batch=n,
+                         max_abs_err=float(d.max()),
+                         rows_over_1e_3=int((d > 1e-3).sum()),
+                         first_row_over_1e_3=int(torch.nonzero(d > 1e-3)[0])
+                         if (d > 1e-3).any() else -1))
+    same = sum(r.words == b.words and abs(r.score - b.score) <= 0.5
+               for r, b in zip(res, batch))
+    full = [ms for n, ms in blocks if n == BLOCK]
+    measured = path_kernels("stream", calls, {"pass1_step": launches,
+                                              "scan_win": scan_launches},
+                            eng, card)
+    phase("stream", waveforms=N_STREAM, seconds_each=STREAM_S,
+          block_frames=BLOCK, chunk_ms=CHUNK_SAMPLES / 16.0,
+          words_equal_to_batch=f"{same}/{N_STREAM}",
+          score_diff=[r.score - b.score for r, b in zip(res, batch)],
+          words=[len(r.words) for r in res],
+          from_pass2=sum(r.from_pass == 2 for r in res),
+          blocks=len(blocks), full_blocks=len(full),
+          ms_per_block_mean=sum(full) / len(full),
+          ms_per_block_median=float(np.median(full)),
+          ms_per_block_max=max(full), audio_ms_per_block=BLOCK * 10.0,
+          segment_end_delay_ms=delays, stream_wall_s=walls,
+          batch_wall_s=batch_s, outprob_rows=rows,
+          frontend_stream_vs_batch_max_abs_err=fe_err,
+          pass1_step_launches=launches,
+          pass1_step_note="0: the stream's pass 1 takes the unfused step, "
+                          "as the reference's stream runs XLA",
+          scan_win_launches=scan_launches, astar_rounds=rounds,
+          rescan_chunks=chunks, card=card)
+    if same != N_STREAM:
+        raise RuntimeError(f"stream: {same}/{N_STREAM} equal to the batch "
+                           "decode")
+    return kernel_entries("stream", measured)
+
+
+def live_inputs(task_dir, files):
+    """Inputs for the live phases beside the cli task: a waveform of 3
+    noise bursts of 2 s between 1 s of near-silence (16 kHz, live.wav), a
+    3 s 48 kHz tone in noise (in48.wav, listed in list48.txt), a -gmm
+    model set of two classes (voice: the task's feature statistics;
+    noise: far from them, gmmdefs) and HTK parameters of noise frames
+    (noise.mfc).  -> ({name: path}, the waveform)."""
+    import os
+
+    from julius_tpu_torch.io.htk_param import (HTKParam, read_htk_param,
+                                              write_htk_param)
+    from julius_tpu_torch.io.wav import write_wav
+    from julius_tpu_torch.tools.synth import write_class_gmm
+
+    sr = 16000
+    rng = np.random.default_rng(31)
+    parts = [30.0 * rng.standard_normal(sr)]
+    for _ in range(3):
+        parts += [3000.0 * rng.standard_normal(2 * sr),
+                  30.0 * rng.standard_normal(sr)]
+    wave = np.concatenate(parts).astype(np.float32)
+    out = {k: os.path.join(task_dir, v) for k, v in (
+        ("wav", "live.wav"), ("wav48", "in48.wav"), ("list48", "list48.txt"),
+        ("gmm", "gmmdefs"), ("noise", "noise.mfc"))}
+    write_wav(out["wav"], wave, sr)
+    t48 = np.arange(3 * 48000) / 48000
+    write_wav(out["wav48"], (6000.0 * np.sin(2 * np.pi * 440 * t48)
+                             + 500.0 * rng.standard_normal(t48.size))
+              .astype(np.float32), 48000)
+    with open(out["list48"], "w") as f:
+        f.write(out["wav48"] + "\n")
+    x = np.concatenate([read_htk_param(u).data for u in files["utts"]])
+    write_class_gmm(out["gmm"], {"voice": (x.mean(0), x.var(0) + 0.5),
+                                 "noise": (x.mean(0) + 30.0,
+                                           np.ones(x.shape[1]))})
+    noise = x.mean(0) + 30.0 + rng.standard_normal((80, x.shape[1]))
+    write_htk_param(out["noise"], HTKParam(
+        data=noise.astype(np.float32), samp_period=100000,
+        kind="MFCC_E_D_A"))
+    return out, wave
+
+
+def segment_summary(det, chunks):
+    """A segmenter's events on `chunks` -> ([(kind, samples of the
+    segment)]: start, then the segment's sample count at its end; each
+    finished segment's samples)."""
+    out, segs, cur = [], [], []
+    for c in chunks:
+        for e in det.feed(c):
+            if e["type"] == "samples":
+                cur.append(e["data"])
+            elif e["type"] == "start":
+                out.append(("start", 0))
+                cur = []
+            else:
+                segs.append(np.concatenate(cur))
+                out.append(("end", len(segs[-1])))
+    return out, segs
+
+
+def stream_vad_phase(eng, card, files, live):
+    """VAD-segmented decoding: a waveform of 3 noise bursts between
+    near-silence fed to StreamSession with the VAD on the flagship
+    engine (3 segments, each a valid result), the native segmenter's
+    events against the Python segmenter's on the same samples; then on
+    the cli task's GMM engine (loaded with -gmm -gmmnoise and
+    -powerthres) the GMM-VAD gate over a feature stream and power
+    rejection."""
+    from julius_tpu_torch import fusion
+    from julius_tpu_torch.adin import native_wrapper as nw
+    from julius_tpu_torch.frontend.stream import SpeechDetector, VADConfig
+    from julius_tpu_torch.io.htk_param import read_htk_param
+    from julius_tpu_torch.jconf import parse_jconf
+    from julius_tpu_torch.streaming import StreamSession
+
+    paths, wave = live
+    if not nw.native_available():
+        raise RuntimeError("stream_vad: the native adin library did not "
+                           "build")
+    cfg = VADConfig(sample_rate=16000)
+    chunks = [wave[o:o + CHUNK_SAMPLES]
+              for o in range(0, len(wave), CHUNK_SAMPLES)]
+    t0 = time.perf_counter()
+    py, segs = segment_summary(SpeechDetector(cfg), chunks)
+    py_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat, _ = segment_summary(nw.NativeSpeechDetector(cfg), chunks)
+    nat_s = time.perf_counter() - t0
+    events = []
+    ids = [eng.callbacks.add(name, lambda *a, _n=name: events.append(_n))
+           for name in ("event_speech_start", "event_speech_stop")]
+    try:
+        sess = StreamSession(eng, vad=cfg)
+        t0 = time.perf_counter()
+        res = []
+        for c in chunks:
+            res.extend(sess.feed(c))
+        res.extend(sess.close())
+        wall = time.perf_counter() - t0
+    finally:
+        for i in ids:
+            eng.callbacks.delete(i)
+    # each segment against recognize_batch on the segment's own samples
+    # (a noise segment may end without </s> and come from pass 1, as it
+    # would in the batch decode)
+    seg_lens = np.asarray([len(x) for x in segs], np.int32)
+    seg_wave = np.zeros((len(segs), max(seg_lens, default=1)), np.float32)
+    for i, x in enumerate(segs):
+        seg_wave[i, :len(x)] = x
+    batch = eng.recognize_batch(seg_wave, seg_lens) if segs else []
+    same = sum(r.words == b.words and abs(r.score - b.score) <= 0.5
+               for r, b in zip(res, batch))
+    for r in res:
+        if not (r.valid and np.isfinite(r.score) and r.words):
+            raise RuntimeError(f"bad stream_vad result {r}")
+
+    # the GMM-VAD gate and -powerthres on the cli task's GMM engine
+    utts = [read_htk_param(u).data for u in files["utts"][:2]]
+    thres = 1.0
+    argv = ["-h", files["am"], "-v", files["dict"], "-d", files["lm"],
+            "-input", "mfcfile", "-gmm", paths["gmm"], "-gmmnoise", "noise",
+            "-gmmup", "2.0", "-gmmdown", "-2.0", "-gmmmargin", "5",
+            "-powerthres", str(thres)]
+    geng = fusion.create_engines(parse_jconf(argv), device=DEVICE)[0]
+    noise = read_htk_param(paths["noise"]).data
+    frames = np.concatenate([noise[:40], utts[0], noise[40:], utts[1],
+                             noise[:30]]).astype(np.float32)
+    gsess = StreamSession(geng, use_vad=False, block_frames=BLOCK,
+                          gmm_vad=True, gmm_margin=5)
+    gres = []
+    for o in range(0, frames.shape[0], BLOCK):
+        gres.extend(gsess._feed_gmm_vad(frames[o:o + BLOCK]))
+    gres.extend(gsess.close())
+    # one utterance with its average log energy (MFCC_E: column 12) put
+    # above the threshold, the same one put below it
+    batch = np.stack([utts[0], utts[0]])
+    e = float(utts[0][:, 12].mean())
+    batch[0, :, 12] += thres + 1.0 - e
+    batch[1, :, 12] += thres - 1.0 - e
+    pres = geng.decode_features(batch, [len(utts[0])] * 2)
+    phase("stream_vad", seconds=len(wave) / 16000.0, segments=len(res),
+          events=events, results=[dict(words=len(r.words), score=r.score,
+                                       from_pass=r.from_pass) for r in res],
+          equal_to_batch_of_segment=f"{same}/{len(res)}",
+          segment_ranges=sess.segment_ranges, wall_s=wall,
+          python_segments=py, native_segments=nat,
+          native_equals_python=py == nat, python_segmenter_s=py_s,
+          native_segmenter_s=nat_s,
+          gmm_vad=dict(frames=int(frames.shape[0]), segments=len(gres),
+                       ranges=gsess.segment_ranges,
+                       valid=sum(r.valid and bool(r.words) for r in gres)),
+          powerthres=dict(thres=thres, reasons=[r.reject_reason
+                                                for r in pres]),
+          card=card)
+    if len(res) != 3 or py != nat or len(py) != 6 or same != 3 \
+            or events != ["event_speech_start", "event_speech_stop"] * 3:
+        raise RuntimeError(f"stream_vad: {len(res)} segments, native "
+                           f"{nat} against Python {py}")
+    if len(gres) != 2 or not all(r.valid and r.words for r in gres):
+        raise RuntimeError(f"stream_vad: GMM-VAD gave {len(gres)} segments")
+    if not pres[0].valid or pres[1].reject_reason != "low power":
+        raise RuntimeError(f"stream_vad: -powerthres {pres}")
+
+
+def cli_live_phase(card, files, live):
+    """The command line's live and rejection paths on the cli task:
+    -input fake:<wav> (capture, VAD, the streaming decode; `live segment
+    N` blocks), -48 on a 48 kHz file, -gmm verification on a speech file
+    and a noise file, -walign -palign -salign; the launch counts read
+    around each run and its kernels held and timed at its shapes.
+    Returns the kernels' entries."""
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass2_device as p2d
+    from julius_tpu_torch.search import pass2_rescan as p2r
+    from julius_tpu_torch.search import scan as scan_mod
+    from julius_tpu_torch.tools import recognize
+
+    paths, _ = live
+    models = ["-h", files["am"], "-v", files["dict"], "-d", files["lm"],
+              "-input", "mfcfile"]
+    u0, u1 = files["utts"][:2]
+    plan = (("cli_fake", ["-input", f"fake:{paths['wav']}"]),
+            ("cli_48", ["-input", "rawfile", "-filelist", paths["list48"],
+                        "-48"]),
+            ("cli_gmm", ["-gmm", paths["gmm"], "-gmmreject", "noise", u0,
+                         paths["noise"]]),
+            ("cli_align", ["-walign", "-palign", "-salign", u0, u1]))
+    runs, entries = {}, []
+    for label, extra in plan:
+        results = []
+        with recorded_calls(pk, sk, p2d, scan_mod) as calls, \
+                counted_astar(p2d) as astar:
+            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            lines, wall, built = run_cli(recognize, models + extra, results)
+            launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+        chunks, rounds = p2r.CHUNKS, astar["rounds"]
+        if scan_launches != rounds + chunks or not scan_launches \
+                or (launches == 0) != (label == "cli_fake"):
+            raise RuntimeError(f"{label}: {launches} pass1_step and "
+                               f"{scan_launches} scan_win launches for "
+                               f"{rounds} A* rounds + {chunks} chunks")
+        heads = [ln for ln in lines if ln.startswith("input: ")]
+        runs[label] = dict(
+            wall_s=wall, inputs=len(heads),
+            sentences=sum(ln.startswith("sentence1:") for ln in lines),
+            rejected=lines.count("<input rejected by decoder>"),
+            live_segments=sum("live segment" in h for h in heads),
+            alignment_blocks=sum(ln.startswith("=== ") for ln in lines),
+            results=len(results), kernel_launches=launches,
+            scan_win_launches=scan_launches, astar_rounds=rounds,
+            rescan_chunks=chunks)
+        entries += kernel_entries(label, path_kernels(
+            label, calls, {"pass1_step": launches,
+                           "scan_win": scan_launches}, built[0], card))
+        del calls, built
+    phase("cli_live", runs=runs, card=card)
+    want = {"cli_fake": dict(inputs=3, sentences=3, rejected=0,
+                             live_segments=3),
+            "cli_48": dict(inputs=1, sentences=1, rejected=0),
+            "cli_gmm": dict(inputs=2, sentences=1, rejected=1),
+            "cli_align": dict(inputs=2, sentences=2, rejected=0,
+                              alignment_blocks=6)}
+    for label, fields in want.items():
+        if any(runs[label][k] != v for k, v in fields.items()):
+            raise RuntimeError(f"{label}: {runs[label]}")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1509,13 +2038,24 @@ def main() -> int:
     kernels = waveform_phase(eng, card, dict(timings[64],
                                              max_abs_err=max_err))
     kernels += lvcsr_phase(card)
-    kernels += cli_phase(card)
-    # the grammar slice's paths after the earlier ones, so that those run
-    # in the same process state as before and compare with older runs
-    kernels += grammar_phase(eng, protos, card)
-    isolated_phase(eng, protos, card)
-    kernels += unfused_ngram_phase(eng, feats, lens_np, truths, card)
-    gather_phase(card)
+    task_dir = tempfile.mkdtemp(prefix="chip_smoke_task_")
+    try:
+        entries, task_files = cli_phase(card, task_dir)
+        kernels += entries
+        # the grammar slice's paths after the earlier ones, so that those
+        # run in the same process state as before and compare with older
+        # runs; then the alignment and streaming slice's
+        kernels += grammar_phase(eng, protos, card)
+        isolated_phase(eng, protos, card)
+        kernels += unfused_ngram_phase(eng, feats, lens_np, truths, card)
+        gather_phase(card)
+        kernels += align_phase(eng, protos, card)
+        kernels += stream_phase(eng, card)
+        live = live_inputs(task_dir, task_files)
+        stream_vad_phase(eng, card, task_files, live)
+        kernels += cli_live_phase(card, task_files, live)
+    finally:
+        shutil.rmtree(task_dir, ignore_errors=True)
 
     flagship = kernel_entries("flagship", {
         "pass1_step": dict(timings[N_UTTS], launches=launches,

@@ -5,16 +5,20 @@ imports).  Its layout mirrors the reference's so each module's
 counterpart is easy to find:
   io/, models/, config.py, jconf.py, grammar.py - host model formats,
              DFA grammars and the mkdfa compiler, options (copies)
-  frontend/ - the waveform front end
+  frontend/ - the waveform front end, its streaming version (MAP-CMN,
+             VADs) and the GMM verification / GMM-VAD front end
+  adin/    - the native audio-input segmenter, decimator and capture
+             (C++, adin/native/adin.cpp, built with g++)
   ops/     - DNN and GMM senone scoring (torch), the pass-1 beam-update
              kernel and the pass-2 word-scan kernel (hand-written CUDA,
              csrc/pass1_step.cu, csrc/scan_win.cu)
   search/  - flat decode network, device N-gram hash, pass-1 Viterbi
-             (kernel path and unfused step), pass 2 (device A*, host
-             re-scan, frozen N-gram and DFA searches), word graphs
+             (kernel path, unfused step, stream chunks), pass 2 (device
+             A*, host re-scan, frozen N-gram and DFA searches), word
+             graphs, forced alignment
   engine.py - Engine.decode_features / recognize_batch, the batched
-             decode entry points; fusion.py, tools/recognize.py the
-             command line
+             decode entry points; streaming.py StreamSession, the live
+             one; fusion.py, tools/recognize.py the command line
   cache.py  - the on-disk network cache
   convert.py - carries the reference's parameters and tables across
 

@@ -7,10 +7,14 @@ pseudo-phone-set columns of triphone networks (ops/gmm.py) -> pass 1
 (search/pass1.py: the ops/pass1_kernel.py beam-update kernel where the
 reference takes its fused kernel, its unfused step elsewhere) -> pass 2
 -> N-best, with the word graph, confusion network, MBR re-ranking and
-search-time confidence of search/graphout.py; decoding may also start
-from features or from outprobs.  Three LM modes: an N-gram, a DFA
-grammar (io/dfa.py; category pairs constrain pass 1, the automaton pass
-2) and isolated words (no cross-word entry, no pass 2).  Pass 2 is the
+search-time confidence of search/graphout.py, and forced word, phoneme
+and state alignments of the result (search/align.py, -walign / -palign
+/ -salign); decoding may also start from features or from outprobs.
+Input rejection by length, by average power (-powerthres) and by GMM
+verification (`gmm_frontend`, frontend/gmm_frontend.py) runs before
+pass 2.  Three LM modes: an N-gram, a DFA grammar (io/dfa.py; category
+pairs constrain pass 1, the automaton pass 2) and isolated words (no
+cross-word entry, no pass 2).  Pass 2 is the
 reference's default, the acoustic re-scan A* on the device
 (search/pass2_device.py, whose word scans run the ops/scan_kernel.py
 kernel) with its retry/spot-check net through the host-driven re-scan
@@ -19,7 +23,8 @@ kernel) with its retry/spot-check net through the host-driven re-scan
 `pass2_rescan=False` the frozen-score stack search (search/pass2.py);
 `strict_iwcd2` resolves word-head triphones against the previous word
 in both re-scans (search/iwcd2.py).  One Engine = one AM + one LM (for
-both passes) + one search config; it owns the device tables.
+both passes) + one search config; it owns the device tables.  Live
+input decodes through streaming.py's StreamSession over an Engine.
 
 Configurations outside the port raise NotImplementedError naming the
 ROADMAP.md item that brings them; nothing falls back silently.
@@ -37,6 +42,7 @@ import torch
 from julius_tpu_torch.cache import build_network_cached
 from julius_tpu_torch.config import AMConfig, FrontendConfig, SearchConfig
 from julius_tpu_torch.frontend import mfcc as fe
+from julius_tpu_torch.frontend.gmm_frontend import power_reject
 from julius_tpu_torch.io.arpa import NGramLM
 from julius_tpu_torch.io.dfa import DFAGrammar
 from julius_tpu_torch.io.dnn import DNNParams
@@ -47,6 +53,7 @@ from julius_tpu_torch.ops.gmm import (GMMScorerTables, aggregate_pseudo,
                                       build_gmm_tables, senone_scores)
 from julius_tpu_torch.ops.gms import GMSTables, build_gms, gms_senone_scores
 from julius_tpu_torch.search import graphout as go
+from julius_tpu_torch.search.align import Alignment, forced_align
 from julius_tpu_torch.search import pass1 as p1
 from julius_tpu_torch.search import pass2 as p2
 from julius_tpu_torch.search import pass2_device as p2d
@@ -73,6 +80,7 @@ class Result:
     am_score: float = 0.0
     lm_score: float = 0.0
     segments: List[dict] = field(default_factory=list)
+    alignment: Optional[Alignment] = None   # -walign/-palign/-salign
     cm: Optional[List[float]] = None      # per-word confidence
     nbest: List["Result"] = field(default_factory=list)
     graph: Optional[go.WordGraph] = None      # graph_out
@@ -193,9 +201,12 @@ class Engine:
         )
 
         self.callbacks = CallbackRegistry()
-        # input-rejection hooks (reference recogmain.c short/long)
+        # input-rejection hooks (reference recogmain.c:1106-1256, gmm.c
+        # rejection; set as attributes or by the fusion layer)
+        self.gmm_frontend = None          # frontend.gmm_frontend.GMMFrontend
         self.reject_short_frames: int = 0
         self.reject_long_frames: int = 0
+        self.power_thres: float = 0.0     # -powerthres (0 = off)
 
         # acoustic scorer: the DNN, else the GMM of the HMM set (with the
         # -gshmm selector model)
@@ -263,34 +274,9 @@ class Engine:
         else:
             self._pseudo = None
 
-    # input-rejection hooks the port does not have yet: setting one
-    # raises instead of being ignored
-    @property
-    def gmm_frontend(self):
-        return None
-
-    @gmm_frontend.setter
-    def gmm_frontend(self, value) -> None:
-        if value is not None:
-            raise unsupported("GMM input verification (-gmm)", "streaming")
-
-    @property
-    def power_thres(self) -> float:
-        return 0.0
-
-    @power_thres.setter
-    def power_thres(self, value: float) -> None:
-        if value:
-            raise unsupported("power rejection (-powerthres)", "streaming")
-
     def _cprob_arr(self) -> Optional[np.ndarray]:
         return (np.asarray(self.voca.cprob, dtype=np.float32)
                 if self.voca.cprob and any(self.voca.cprob) else None)
-
-    def _check_outputs(self) -> None:
-        sc = self.search_cfg
-        if sc.align_word or sc.align_phoneme or sc.align_state:
-            raise unsupported("forced alignment", "align")
 
     def _want_p2_graph(self) -> bool:
         """Configurations that collect the pass-2 word graph during the
@@ -436,13 +422,30 @@ class Engine:
         out_ext = self._outprob(feats)
         return self._pass1(out_ext, nfr), nfr, out_ext
 
-    def _reject(self, n: int) -> Optional[str]:
-        """Input rejection by length (reference recogmain.c)."""
+    def _reject(self, feats_b: Optional[np.ndarray], n: int) -> Optional[str]:
+        """Input rejection checks on one utterance's [T, D] base features
+        (None when there are none to check); returns a reason or None
+        (reference recogmain.c short/long rejection + gmm_valid_input)."""
         if self.reject_short_frames and n < self.reject_short_frames:
             return "too short"
         if self.reject_long_frames and n > self.reject_long_frames:
             return "too long"
+        if self.power_thres > 0.0 and feats_b is not None \
+                and self.fe_cfg.use_energy:
+            # absolute energy sits last in the static block (mfcc.py
+            # layout; reference POWER_REJECT avg_power, pass1.c:321);
+            # clamped for externally supplied feature widths
+            idx = min(self.fe_cfg.base_dim, feats_b.shape[-1]) - 1
+            if power_reject(feats_b[:n], idx, self.power_thres):
+                return "low power"
+        if self.gmm_frontend is not None and feats_b is not None:
+            g = self.gmm_frontend.verify(feats_b[:n])
+            if not g.accepted:
+                return f"GMM rejected ({g.best_name})"
         return None
+
+    def _want_rejection_features(self) -> bool:
+        return self.gmm_frontend is not None or self.power_thres > 0.0
 
     def _pass1(self, out_ext: torch.Tensor, n_frames) -> p1.Trellis:
         nfr = torch.as_tensor(n_frames, dtype=torch.int32,
@@ -454,15 +457,47 @@ class Engine:
         """Decode pre-extracted features [B, T, D] (numpy or torch) with
         [B] valid frame counts (reference mfcfile / vecnet feature input
         paths)."""
-        self._check_outputs()
         feats = torch.as_tensor(feats, dtype=torch.float32,
                                 device=self.device)
+        nfr = np.asarray(torch.as_tensor(n_frames).cpu())
+        # rejection hooks see the base features (mfcfile input passes
+        # through GMM verification in the reference too); DNN-spliced
+        # rows have the wrong width for the GMM's own models
+        feats_rej = None
+        if self._want_rejection_features() and self.dnn_scorer is None:
+            feats_rej = feats.cpu().numpy()
         with torch.no_grad():
             # out_ext doubles as the pass-2 outprob cache
             out_ext = self._outprob(feats)
             trellis = self._pass1(out_ext, n_frames)
-            return self._results(trellis, np.asarray(torch.as_tensor(
-                n_frames).cpu()), out_ext=out_ext)
+            results = self._results(trellis, nfr, feats_rej,
+                                    out_ext=out_ext)
+        self._maybe_align(results, feats, nfr)
+        return results
+
+    def _maybe_align(self, results: List[Result], feats,
+                     nfr: np.ndarray) -> None:
+        """Attach forced alignments when -walign/-palign/-salign are set
+        (reference do_alignment_all, word_align.c:547; the alignment
+        also refines word boundaries beyond the pass-1 Viterbi ones).
+        A failed alignment is logged and the result kept without one, as
+        the reference does."""
+        sc = self.search_cfg
+        if not (sc.align_word or sc.align_phoneme or sc.align_state):
+            return
+        for b, r in enumerate(results):
+            if r.valid and r.word_ids:
+                try:
+                    r.alignment = self.align(feats[b], int(nfr[b]),
+                                             r.word_ids)
+                except Exception as e:
+                    jlog(LogLevel.WARNING, f"alignment failed: {e}")
+
+    def align(self, feats, n_frames: int, word_ids: List[int]) -> Alignment:
+        """Forced alignment of one utterance's [T, D] scorer input
+        against a transcript (reference -walign/-palign/-salign,
+        word_align.c:547)."""
+        return forced_align(self, feats, n_frames, word_ids)
 
     def compute_outprob(self, feats) -> np.ndarray:
         """[B, T, D] features -> [B, T, S] senone score rows on the host
@@ -475,7 +510,6 @@ class Engine:
     def decode_outprob(self, rows, n_frames) -> List[Result]:
         """Decode directly from state output probabilities [B, T, S]
         (reference SP_OUTPROBFILE input / vecnet outprob_p mode)."""
-        self._check_outputs()
         rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
         with torch.no_grad():
             out_ext = self._extend(rows)
@@ -492,15 +526,26 @@ class Engine:
     def recognize_batch(self, wave, lengths) -> List[Result]:
         """Batched file-input recognition: [B, L] int16/float waveforms
         with [B] sample counts."""
-        self._check_outputs()
         wave = torch.as_tensor(wave, device=self.device).to(torch.float32)
         lengths = torch.as_tensor(lengths, device=self.device)
         with torch.no_grad():
             trellis, nfr, out_ext = self._decode_device(wave, lengths)
-            return self._results(trellis, nfr.cpu().numpy(),
-                                 out_ext=out_ext)
+            feats = None
+            if self._want_rejection_features():
+                # the rejection hooks see unspliced features without
+                # spectral subtraction, as the reference's do
+                feats = fe.extract_features(
+                    wave, lengths, self.fe_tables)[0].cpu().numpy()
+            nfr = nfr.cpu().numpy()
+            results = self._results(trellis, nfr, feats, out_ext=out_ext)
+            sc = self.search_cfg
+            if sc.align_word or sc.align_phoneme or sc.align_state:
+                self._maybe_align(results, self._features(wave, lengths)[0],
+                                  nfr)
+        return results
 
     def _results(self, trellis: p1.Trellis, nfr: np.ndarray,
+                 feats: Optional[np.ndarray] = None,
                  out_ext: Optional[torch.Tensor] = None) -> List[Result]:
         B = nfr.shape[0]
         host = p1.Trellis(*[a.cpu().numpy() for a in trellis])
@@ -515,7 +560,8 @@ class Engine:
             if n <= 0:
                 out[b] = Result(valid=False)
                 continue
-            reason = self._reject(n)
+            reason = self._reject(
+                feats[b] if feats is not None else None, n)
             if reason is not None:
                 out[b] = Result(valid=False, reject_reason=reason)
                 continue
@@ -816,7 +862,10 @@ class Engine:
         outs = [k for k, v in [("lattice", sc.graph_out),
                                ("confnet", sc.confnet_out),
                                ("cm", sc.compute_confidence),
-                               ("mbr", sc.mbr)] if v]
+                               ("mbr", sc.mbr),
+                               ("walign", sc.align_word),
+                               ("palign", sc.align_phoneme),
+                               ("salign", sc.align_state)] if v]
         L.append(f" outputs: n-best={sc.output_n}"
                  + (" + " + "/".join(outs) if outs else ""))
         return "\n".join(L)

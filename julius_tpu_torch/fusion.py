@@ -10,10 +10,11 @@ device `create_engines` is given.
 Three LM modes: an N-gram with its dictionary (-d / -nlr, -v), a DFA
 grammar (-gram prefix, -gramlist, or -dfa with -v; several grammars are
 merged into one automaton as the reference's multigram_build does) and
-an isolated-word list (-w).  Configurations the port does not decode yet
-raise NotImplementedError naming the ROADMAP.md queue-1 item that brings
-them: GMM input verification (-gmm) with streaming, a backward N-gram
-(-nrl) with the backward N-gram.
+an isolated-word list (-w).  A -gmm model set becomes every engine's GMM
+input verification and GMM-VAD front end (frontend/gmm_frontend.py,
+with -gmmreject, -gmmnoise, -gmmmargin, -gmmup, -gmmdown), and
+-powerthres every engine's power rejection.  A backward N-gram (-nrl)
+raises NotImplementedError naming its ROADMAP.md queue-1 item.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 from julius_tpu_torch.config import (AMConfig, EngineConfig, LMConfig,
                                      parse_feature_type)
 from julius_tpu_torch.engine import Engine, unsupported
+from julius_tpu_torch.frontend.gmm_frontend import GMMFrontend
 from julius_tpu_torch.io.arpa import load_arpa
 from julius_tpu_torch.io.binhmm import read_binhmm
 from julius_tpu_torch.io.bingram import read_bingram
@@ -196,8 +198,21 @@ def create_engines(cfg: EngineConfig, device="cuda") -> List[Engine]:
     """Build one Engine per -SR search block on `device` (multi-instance
     decoding, reference recog.h:24-37); AMs and LMs shared by blocks are
     loaded once."""
+    gmm_front = None
     if cfg.gmm_path:
-        raise unsupported("GMM input verification (-gmm)", "streaming")
+        # GMM verification / VAD front end (reference m_fusion.c loads
+        # reject.gmm_filename into its own HMM + MFCC instance,
+        # gmm_init gmm.c:429); shared by all search instances
+        gmm_hmm = (read_binhmm(cfg.gmm_path)[0] if _is_binhmm(cfg.gmm_path)
+                   else load_hmmdefs(cfg.gmm_path))
+        gmm_front = GMMFrontend(
+            gmm_hmm, reject_names=cfg.gmm_reject,
+            vad_noise_names=(cfg.gmm_noise_names or cfg.gmm_reject),
+            vad_margin=float(cfg.gmm_margin),
+            vad_up=cfg.gmm_up, vad_down=cfg.gmm_down, device=device)
+        jlog(LogLevel.STAT,
+             f"GMM frontend: {gmm_hmm.n_phones} models, "
+             f"reject={sorted(gmm_front.reject)}")
     am_cache, lm_cache = {}, {}
     engines = []
     for sr in cfg.searches:
@@ -220,6 +235,7 @@ def create_engines(cfg: EngineConfig, device="cuda") -> List[Engine]:
         if am_cfg.ssload_path:
             eng.set_noise_spectrum(load_noise_spectrum(am_cfg.ssload_path))
         # input rejection hooks (reference recogmain.c:1106-1256)
+        eng.gmm_frontend = gmm_front
         if cfg.reject_short_ms:
             eng.reject_short_frames = int(cfg.reject_short_ms / shift)
         if cfg.reject_long_ms:

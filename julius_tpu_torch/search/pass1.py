@@ -525,6 +525,68 @@ def pass1_batch(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
     return Trellis(*[torch.stack(f, dim=1) for f in zip(*rows_out)])
 
 
+class Pass1State(NamedTuple):
+    """An in-progress stream's pass-1 state: [B, N] node scores, LM
+    contexts and trellis pointers, and t, the absolute frame of the
+    segment those scores have reached."""
+
+    score: torch.Tensor
+    ctx: torch.Tensor
+    prev: torch.Tensor
+    t: int
+
+
+def pass1_stream_start(dev: DeviceNetwork, cfg: Pass1Config,
+                       out_row0: torch.Tensor) -> Pass1State:
+    """A stream's state after its first frame ([B, R] outprob rows),
+    `pass1_init` with empty payloads at t = 0."""
+    score = pass1_init(dev, cfg, out_row0)
+    ctx = torch.full(score.shape, -1, dtype=torch.int32, device=score.device)
+    return Pass1State(score=score, ctx=ctx, prev=ctx.clone(), t=0)
+
+
+def pass1_stream_chunk(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
+                       cfg: Pass1Config, state: Pass1State,
+                       out_chunk: torch.Tensor, n_valid: int):
+    """Advance an in-progress pass 1 of one utterance (B = 1) by a chunk
+    of frames (the on-the-fly pipeline of the reference,
+    realtime-1stpass.c proceed_one_frame; `julius_tpu`'s
+    pass1_stream_chunk): state carries across chunks; returns the new
+    state and the chunk's [C, M] trellis atoms, row i the word ends at
+    absolute frame state.t + i.  Rows from n_valid on are padding: the
+    state stays frozen there and their atoms repeat the last frame's.
+
+    Each frame takes the unfused step (`pass1_step`), as the reference's
+    stream does; a stream starts with `pass1_stream_start` on the first
+    row and passes the rest of its first chunk."""
+    score, ctx, prev, t = state
+    C = out_chunk.shape[0]
+    valid = torch.ones(1, dtype=torch.bool, device=score.device)
+    rows = []
+    for i in range(C):
+        if i > n_valid:
+            rows.append(rows[-1])
+            continue
+        atoms = _word_end_candidates(dev, ngram, cfg, score, ctx, prev)
+        rows.append(atoms)
+        if i < n_valid:
+            t += 1
+            score, ctx, prev = pass1_step(dev, ngram, cfg, score, ctx, prev,
+                                          atoms, out_chunk[i:i + 1], valid,
+                                          t)
+    atoms = Trellis(*[torch.cat(f, dim=0) for f in zip(*rows)])
+    return Pass1State(score, ctx, prev, t), atoms
+
+
+def pass1_stream_finalize(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
+                          cfg: Pass1Config, state: Pass1State) -> Trellis:
+    """The [M] word ends at the final frame of a finished stream segment
+    (the decode_end flush, pass1.c:457)."""
+    atoms = _word_end_candidates(dev, ngram, cfg, state.score, state.ctx,
+                                 state.prev)
+    return Trellis(*[a[0] for a in atoms])
+
+
 def backtrace(trellis, n_frames: int, tail_word: int = -1,
               final_mask: Optional[np.ndarray] = None):
     """Host-side pass-1 result backtrace (reference find_1pass_result

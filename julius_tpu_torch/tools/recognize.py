@@ -9,10 +9,15 @@ Port of `julius_tpu/tools/recognize.py` (reference `julius/main.c`,
         -d lm.bingram -input mfcfile -filelist list.txt
 
 Files are decoded on the card in batches of -batchsize (`main(argv,
-device="cpu")` runs on the CPU).  Live input (-input mic/alsa/pulseaudio/
-oss/fake:...) and -48 come with the streaming input, -plugindir and the
-model checks of -check with the remaining entry points (ROADMAP.md queue
-1); they raise NotImplementedError.
+device="cpu")` runs on the CPU); -48 decimates 48 kHz files to 16 kHz
+first (adin/native_wrapper.py NativeDecimator).  Live input (-input
+mic/alsa/pulseaudio/oss, or fake:<file> to replay a file through the
+same path) is captured, segmented by the VAD and decoded segment by
+segment through streaming.py's StreamSession, each printed as a `live
+segment N` block.  -walign/-palign/-salign print the forced alignments
+of each result.  -plugindir and the model checks of -check come with
+the remaining entry points (ROADMAP.md queue 1); they raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,13 +30,17 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from julius_tpu_torch.adin.native_wrapper import (NativeDecimator,
+                                                  make_capture)
 from julius_tpu_torch.engine import Result, unsupported
+from julius_tpu_torch.frontend.stream import vad_config_from
 from julius_tpu_torch.fusion import create_engines
 from julius_tpu_torch.io.htk_param import (HTKParam, read_htk_param,
                                           write_htk_param)
 from julius_tpu_torch.io.wav import read_audio, write_wav
 from julius_tpu_torch.jconf import parse_jconf
 from julius_tpu_torch.search.graphout import graph_to_text
+from julius_tpu_torch.streaming import StreamSession
 from julius_tpu_torch.utils.jlog import (DEFAULT as LOG_DEFAULT, LogLevel,
                                          jlog, set_log_level, set_log_output)
 
@@ -62,9 +71,24 @@ def format_result(r: Result, sr_name: str = "_default",
 
 
 def result_block(eng, r: Result, separate_score: bool = False) -> str:
-    """Full per-utterance output block: N-best + lattice + confusion
-    network (the CALLBACK_RESULT payload of output_stdout.c)."""
+    """Full per-utterance output block: N-best + alignments + lattice +
+    confusion network (the CALLBACK_RESULT payload of output_stdout.c)."""
     parts = [format_result(r, separate_score=separate_score)]
+    if r.alignment is not None:
+        al = r.alignment
+        if eng.search_cfg.align_word:
+            parts.append("=== word alignment ===")
+            parts.extend(f"[{w['begin']:4d} {w['end']:4d}] {w['word']}"
+                         for w in al.words)
+        if eng.search_cfg.align_phoneme:
+            parts.append("=== phoneme alignment ===")
+            parts.extend(f"[{p['begin']:4d} {p['end']:4d}] {p['phone']}"
+                         for p in al.phones)
+        if eng.search_cfg.align_state:
+            parts.append("=== state alignment ===")
+            parts.extend(
+                f"[{s['begin']:4d} {s['end']:4d}] {s['phone']}.s{s['state']}"
+                for s in al.states)
     if eng.search_cfg.graph_out and r.graph is not None:
         parts.append("--- begin wordgraph data ---")
         parts.append(graph_to_text(r.graph, eng.voca.names).rstrip("\n"))
@@ -172,12 +196,6 @@ def split_argv(argv: List[str]):
 
 def _check_supported(cfg) -> None:
     """Raise for the options whose paths the port does not have yet."""
-    source = cfg.input_source or ""
-    if source in LIVE_SOURCES or source.startswith("fake:"):
-        raise unsupported(f"live audio input (-input {source})",
-                          "streaming")
-    if cfg.ds48:
-        raise unsupported("48 kHz input decimation (-48)", "streaming")
     if cfg.plugin_dirs:
         raise unsupported("plugins (-plugindir)", "entry points")
     checks = [m for m in cfg.check_modes if m != "info"]
@@ -196,6 +214,12 @@ def _load_batch(paths: List[str], mfc_mode: bool, cfg, rate: int):
                           datas[0].shape[1]), dtype=np.float32)
     else:
         datas = [read_audio(p) for p in paths]
+        if cfg.ds48:
+            # -48: 48 kHz input decimated to 16 kHz (reference
+            # ds48to16.c; a Kaiser-windowed FIR here), one decimator
+            # through the batch as the reference runs it
+            dec = NativeDecimator(factor=3)
+            datas = [dec.feed(w) for w in datas]
         if cfg.level_coef != 1.0:
             datas = [w * cfg.level_coef for w in datas]
         if cfg.zmean:
@@ -234,6 +258,38 @@ def _write_outprob(eng, batch, lens, mfc_mode: bool, prefix: str,
         print(f"outprob written: {out}")
 
 
+def _live_input(cfg, eng) -> None:
+    """Live audio input (reference -input mic, m_adin.c device
+    selection): capture -> VAD segmentation -> streaming decode, each
+    finished segment printed as `live segment N`."""
+    sink = OutputSink(charconv=cfg.charconv, outfile=cfg.outfile)
+    rate = eng.fe_cfg.sample_rate
+    cap = make_capture(cfg.input_source, rate=rate)
+    sess = StreamSession(eng, vad=vad_config_from(cfg, rate),
+                         progout=cfg.progout)
+    jlog(LogLevel.STAT, "listening (Ctrl-C to stop)")
+    n_out = 0
+
+    def emit(results):
+        nonlocal n_out
+        for r in results:
+            sink.emit(f"\ninput: live segment {n_out}")
+            sink.emit(result_block(eng, r,
+                                   separate_score=cfg.separatescore))
+            n_out += 1
+
+    try:
+        while True:
+            chunk = cap.read(4000)
+            if chunk is None:
+                break
+            emit(sess.feed(chunk))
+    except KeyboardInterrupt:
+        pass
+    emit(sess.close())
+    cap.close()
+
+
 def main(argv=None, device="cuda") -> int:
     argv = argv if argv is not None else sys.argv[1:]
     opts, files = split_argv(argv)
@@ -253,6 +309,10 @@ def main(argv=None, device="cuda") -> int:
             print(engines[0].describe())
             if not files and cfg.input_source == "file":
                 return 0
+        source = cfg.input_source or ""
+        if source in LIVE_SOURCES or source.startswith("fake:"):
+            _live_input(cfg, engines[0])
+            return 0
         files = collect_inputs(cfg, files)
         if not files:
             jlog(LogLevel.ERROR, "no input files (give paths or -filelist)")

@@ -460,11 +460,13 @@ def _lm_sampler(lm, voca, rng, follow_p=0.85):
     return draw
 
 
-def _word_frames(hmm, voca, protos, seq, dim, context, rng):
+def _word_frames(hmm, voca, protos, seq, dim, context, rng, counts=None):
     """Spliced [T, dim * context] windows of a word sequence: senone path
-    via the HMM transitions, base frames = senone prototypes + noise."""
+    via the HMM transitions, base frames = senone prototypes + noise.
+    Each word's frame count is appended to `counts` when it is given."""
     senones = []
     for w in seq:
+        first = len(senones)
         for p in voca.phones[w]:
             pid = hmm.phone_index[p]
             ns = int(hmm.phone_ns[pid])
@@ -474,6 +476,8 @@ def _word_frames(hmm, voca, protos, seq, dim, context, rng):
                 senones.append(int(hmm.phone_states[pid, s]))
                 if rng.random() > math.exp(trans[s + 1, s + 1]):
                     s += 1
+        if counts is not None:
+            counts.append(len(senones) - first)
     base = protos[senones] \
         + 0.25 * rng.standard_normal((len(senones), dim)) \
         .astype(np.float32)
@@ -485,25 +489,30 @@ def _word_frames(hmm, voca, protos, seq, dim, context, rng):
 
 
 def make_flagship_utts(hmm, voca, lm, protos, n_utts, dim, context,
-                       min_words=4, max_words=9, seed=0):
+                       min_words=4, max_words=9, seed=0, word_counts=False):
     """Generative flagship utterances: word sequence -> senone path via
     the HMM transitions -> base frames = senone prototypes + noise ->
     spliced windows (what the decoders consume).  Truth is known by
-    construction.  Returns (truths, windows, lens)."""
+    construction.  Returns (truths, windows, lens), and with word_counts
+    each utterance's per-word frame counts last (the same draws)."""
     rng = np.random.default_rng(seed + 9)
     name2id = {n: i for i, n in enumerate(voca.names)}
     draw = _lm_sampler(lm, voca, rng)
-    truths, windows, lens = [], [], []
+    truths, windows, lens, counts = [], [], [], []
     for _ in range(n_utts):
         k = int(rng.integers(min_words, max_words + 1))
         seq = [name2id["<s>"]]
         for _i in range(k):
             seq.append(draw(seq[-1]))
         seq.append(name2id["</s>"])
-        win = _word_frames(hmm, voca, protos, seq, dim, context, rng)
+        counts.append([])
+        win = _word_frames(hmm, voca, protos, seq, dim, context, rng,
+                           counts[-1])
         truths.append([voca.names[w] for w in seq])
         windows.append(win)
         lens.append(win.shape[0])
+    if word_counts:
+        return truths, windows, lens, counts
     return truths, windows, lens
 
 
@@ -725,6 +734,26 @@ def write_gmm_task(out_dir: str, n_utts: int = 16, n_words: int = 5000,
         f.write("\n".join(utts) + "\n")
     files["utts"] = utts
     return truths, files
+
+
+def write_class_gmm(path: str, models, kind: str = "USER") -> None:
+    """An HTK text model set of one-state, one-Gaussian models, the
+    shape of the -gmm verification and GMM-VAD models (reference gmm.c
+    reads an HMM set whose models are classes such as speech and
+    noise): `models` maps each model name to its (mean, variance), each
+    [D]."""
+    dim = len(next(iter(models.values()))[0])
+    lines = [f"~o <VecSize> {dim} <{kind}> <DIAGC> <NULLD>"]
+    for name, (mean, var) in models.items():
+        lines += [f'~h "{name}"', "<BeginHMM>", "<NumStates> 3",
+                  "<State> 2", f"<Mean> {dim}",
+                  " " + " ".join(f"{x:.6f}" for x in mean),
+                  f"<Variance> {dim}",
+                  " " + " ".join(f"{x:.6f}" for x in var),
+                  "<TransP> 3", " 0.0 1.0 0.0", " 0.0 0.5 0.5",
+                  " 0.0 0.0 0.0", "<EndHMM>"]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 def flagship_engine(n_words: int = 5000, n_phones: int = 668,

@@ -19,6 +19,10 @@ tools/recognize.py) and the lattice/confnet/MBR outputs
   it (`tools.synth.write_grammar_task`): -gram, -dfa with -v, and -w;
 * graphout's functions give the same graph, text dump, confusion
   network, MBR order and edit distances on the same lattice;
+* live input through -input fake: (capture, VAD, the streaming
+  decode), -48, -gmm verification, -powerthres and the -walign /
+  -palign / -salign alignment lines print the same lines in both
+  packages;
 * options whose paths the port has not yet raise NotImplementedError
   naming their ROADMAP.md item, and the CLI needs CUDA unless the CPU
   is asked for.
@@ -270,15 +274,89 @@ def test_graphout_functions(lattice):
                 jgo.edit_distance(a.word_ids, b.word_ids, weights)
 
 
+@pytest.fixture(scope="module")
+def live_task(task):
+    """Inputs beside the GMM task for the live and rejection options: a
+    16 kHz WAV of two loud bursts between near-silence (-input fake:),
+    the same at 48 kHz listed in list48.txt (-48), a -gmm model set of
+    two classes (voice: the task's feature statistics; noise: far from
+    them) and an HTK parameter file of noise frames."""
+    from julius_tpu_torch.io.htk_param import HTKParam, write_htk_param
+    from julius_tpu_torch.io.wav import write_wav
+    from julius_tpu_torch.tools.synth import write_class_gmm
+
+    d, _, files = task
+    rng = np.random.default_rng(8)
+    quiet = [rng.standard_normal(n) * 30 for n in (8000, 12000, 9000)]
+    loud = [np.sin(2 * np.pi * f * np.arange(9000) / 16000) * 9000
+            + rng.standard_normal(9000) * 800 for f in (310.0, 520.0)]
+    wave = np.concatenate([quiet[0], loud[0], quiet[1], loud[1], quiet[2]])
+    write_wav(str(d / "live.wav"), wave.astype(np.float32), 16000)
+    t48 = np.arange(3 * 16000) / 48000
+    wave48 = 6000 * np.sin(2 * np.pi * 440 * t48) \
+        + rng.standard_normal(t48.size) * 500
+    write_wav(str(d / "in48.wav"), wave48.astype(np.float32), 48000)
+    (d / "list48.txt").write_text(f"{d}/in48.wav\n")
+    x = np.concatenate([read_htk_param(u).data for u in files["utts"]])
+    write_class_gmm(str(d / "gmmdefs"),
+                    {"voice": (x.mean(0), x.var(0) + 0.5),
+                     "noise": (x.mean(0) + 30.0, np.ones(x.shape[1]))})
+    noise = (x.mean(0) + 30.0 + rng.standard_normal((80, x.shape[1]))) \
+        .astype(np.float32)
+    write_htk_param(str(d / "noise.mfc"), HTKParam(
+        data=noise, samp_period=100000, kind="MFCC_E_D_A"))
+    return d, files
+
+
+LIVE_CASES = {
+    "fake_input": ["-input", "fake:{d}/live.wav", "-lv", "1500", "-zc",
+                   "20", "-headmargin", "100", "-tailmargin", "200"],
+    "ds48": ["-input", "rawfile", "-filelist", "{d}/list48.txt", "-48"],
+    "gmm": ["-gmm", "{d}/gmmdefs", "-gmmreject", "noise", "{u0}",
+            "{d}/noise.mfc", "{u1}"],
+    "powerthres_low": ["-powerthres", "-1000.0", "{u0}", "{u1}"],
+    "powerthres_high": ["-powerthres", "1000.0", "{u0}", "{u1}"],
+    "align": ["-walign", "-palign", "-salign", "{u0}", "{u1}"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIVE_CASES))
+def test_live_input_and_rejection_print_like_reference(live_task, case):
+    """-input fake: (capture, VAD segmentation, the streaming decode),
+    -48 (the native decimator), -gmm verification, -powerthres and
+    -walign -palign -salign: both packages print the same lines."""
+    d, files = live_task
+    argv = ["-C", str(d / "run.jconf")] + [
+        a.format(d=d, u0=files["utts"][0], u1=files["utts"][1])
+        for a in LIVE_CASES[case]]
+    got = run_main(trec.main, argv, device="cpu")
+    assert_same_lines(got, run_main(jrec.main, argv))
+    heads = [ln for ln in got if ln.startswith("input: ")]
+    sentences = [ln for ln in got if ln.startswith("sentence1: ")]
+    rejected = got.count("<input rejected by decoder>")
+    if case == "fake_input":
+        assert heads == ["input: live segment 0", "input: live segment 1"]
+        assert len(sentences) == 2
+    elif case == "ds48":
+        assert heads == [f"input: {d}/in48.wav"] and len(sentences) == 1
+    elif case == "gmm":
+        assert rejected == 1 and len(sentences) == 2
+        assert got[got.index(f"input: {d}/noise.mfc") + 1] == \
+            "<input rejected by decoder>"
+    elif case == "powerthres_high":
+        assert rejected == 2
+    elif case == "powerthres_low":
+        assert rejected == 0 and len(sentences) == 2
+    else:
+        for head in ("=== word alignment ===", "=== phoneme alignment ===",
+                     "=== state alignment ==="):
+            assert got.count(head) == 2
+
+
 UNPORTED = [
     (["-nrl", "{d}/back.arpa"], "backward N-gram"),
-    (["-gmm", "{d}/gmmdefs"], "streaming"),
-    (["-powerthres", "100.0"], "streaming"),
-    (["-input", "mic"], "streaming"),
-    (["-48"], "streaming"),
     (["-plugindir", "{d}"], "entry points"),
     (["-check", "wchmm"], "entry points"),
-    (["-walign"], "align"),
 ]
 
 

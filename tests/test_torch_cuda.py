@@ -5,8 +5,10 @@ tied-triphone configuration (pseudo-set outprobs, the strict-head scan,
 its decode), the waveform front end, the GMM scorer and the command
 line on GMM-HMM model files likewise; pass 1's unfused step (factoring
 2, the score envelope, isolated words, a topology with backward arcs)
-and a grammar decode on the card against the CPU; and the f32 products
-that stay full f32 when the caller turns TF32 on.
+and a grammar decode on the card against the CPU; the f32 products
+that stay full f32 when the caller turns TF32 on; a stream on the card
+against the batch decode, the alignment Viterbi on the card against the
+CPU, and the native audio-input library built into the package.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference package, so it also runs where
@@ -545,3 +547,76 @@ def test_grammar_decode_on_card_matches_cpu(engines):
             assert g.score == pytest.approx(w.score, abs=1e-2)
             assert rev.accepts_forward([int(wc[x]) for x in g.word_ids])
         assert [r.word_ids for r in got] == seqs
+
+
+def test_stream_on_card_matches_batch(engines):
+    """A stream with no VAD, fed in 100 ms chunks in 16-frame blocks on
+    the card: the words of recognize_batch on the card, the stream on
+    the CPU's words, and its pass 2 launches the scan kernel."""
+    from julius_tpu_torch.streaming import StreamSession
+    eng, cpu, _, _ = engines
+    wave = (np.random.default_rng(12).standard_normal(32000) * 2000) \
+        .astype(np.float32)
+    batch = eng.recognize_batch(wave[None], np.asarray([len(wave)]))[0]
+    got = {}
+    for e in (eng, cpu):
+        before = tsk.LAUNCHES
+        sess = StreamSession(e, use_vad=False, block_frames=16)
+        res = []
+        for ofs in range(0, len(wave), 1600):
+            res.extend(sess.feed(wave[ofs:ofs + 1600]))
+        res.extend(sess.close())
+        got[e.device.type] = res, tsk.LAUNCHES - before
+    (card, scans), (host, _) = got["cuda"], got["cpu"]
+    assert len(card) == 1 and scans > 0
+    assert card[0].words == batch.words == host[0].words
+    assert card[0].score == pytest.approx(batch.score, abs=0.5)
+    assert card[0].score == pytest.approx(host[0].score, abs=1e-2)
+
+
+def test_viterbi_chain_on_card_matches_cpu(engines):
+    """The alignment Viterbi on the card against the CPU on the same
+    outprob rows, and whole alignments of each utterance."""
+    from julius_tpu_torch.search import align as talign
+    eng, cpu, feats, lens = engines
+    res = eng.decode_features(feats, lens)
+    for b, r in enumerate(res):
+        chain = talign.build_chain(eng.hmm, eng.voca, r.word_ids,
+                                   pseudo=eng.net.pseudo)
+        out = eng._outprob(torch.from_numpy(feats[b:b + 1]).cuda())[0]
+        for n in (int(lens[b]), int(lens[b]) - 5):
+            gs, gbp, gbest = talign.viterbi_chain(
+                *talign.chain_tensors(chain, "cuda"), out, n)
+            ws, wbp, wbest = talign.viterbi_chain(
+                *talign.chain_tensors(chain, "cpu"), out.cpu(), n)
+            assert torch.equal(gbp.cpu(), wbp) and int(gbest) == int(wbest)
+            assert float(gs) == pytest.approx(float(ws), abs=1e-3)
+        got = eng.align(feats[b], int(lens[b]), r.word_ids)
+        want = cpu.align(feats[b], int(lens[b]), r.word_ids)
+        assert (got.words, got.phones, got.states) == \
+            (want.words, want.phones, want.states)
+
+
+def test_native_adin_builds_into_the_package(cuda):
+    """The native segmenter builds from the package's own source into
+    julius_tpu_torch/_build/ and segments like the Python one."""
+    from julius_tpu_torch.adin import native_wrapper as nw
+    from julius_tpu_torch.frontend import stream as tst
+    assert nw.native_available()
+    so = nw.library_path()
+    assert so.exists() and so.parent == nw.BUILD_DIR
+    assert so.parent.name == "_build" and \
+        so.parent.parent.name == "julius_tpu_torch"
+    cfg = tst.VADConfig(level=1000, zc_thres=30, head_margin_ms=50,
+                        tail_margin_ms=100)
+    tone = (8000 * np.sin(2 * np.pi * 300 * np.arange(16000) / 16000)) \
+        .astype(np.float32)
+    quiet = np.zeros(8000, np.float32)
+    kinds = []
+    for det in (nw.NativeSpeechDetector(cfg), tst.SpeechDetector(cfg)):
+        evs = []
+        for c in (quiet, tone, quiet, quiet):
+            evs.extend(e["type"] for e in det.feed(c)
+                       if e["type"] != "samples")
+        kinds.append(evs)
+    assert kinds[0] == kinds[1] == ["start", "end"]

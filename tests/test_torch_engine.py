@@ -145,13 +145,6 @@ def test_engine_needs_cuda_unless_cpu_is_asked(reference, monkeypatch):
 
 def test_configurations_outside_the_slice_raise(reference):
     eng = reference[0]
-    for search, item in ((dict(align_word=True), "align"),
-                         (dict(align_state=True), "align")):
-        teng = converted_engine(eng, **search)
-        with pytest.raises(NotImplementedError, match=item):
-            teng.decode_features(reference[3], reference[4])
-        with pytest.raises(NotImplementedError, match=item):
-            teng.recognize_batch(np.zeros((1, 1600), np.float32), [1600])
     with pytest.raises(NotImplementedError, match="backward N-gram"):
         Engine(eng.hmm, eng.voca, eng.lm, dnn=eng.dnn_params,
                lm_forward=eng.lm, device="cpu")

@@ -174,12 +174,42 @@ def test_recognize_batch_matches_reference(engines, noise):
     assert n_margin >= 2
 
 
-def test_rejection_hooks_raise(engines):
-    _, teng = engines
-    teng.power_thres = 0.0
-    teng.gmm_frontend = None
-    with pytest.raises(NotImplementedError, match="streaming"):
-        teng.power_thres = 2.0
-    with pytest.raises(NotImplementedError, match="streaming"):
-        teng.gmm_frontend = object()
-    assert teng.power_thres == 0.0 and teng.gmm_frontend is None
+@pytest.mark.parametrize("reject", ["speech", "other"])
+def test_rejection_hooks_match_reference(engines, reject):
+    """GMM verification (`gmm_frontend`) and power rejection
+    (`power_thres`) on the waveform path: the unspliced features of
+    each utterance go through both packages' GMM front ends, with the
+    same decision and reason."""
+    from julius_tpu.frontend.gmm_frontend import GMMFrontend as JGMM
+    from julius_tpu.io.htk_hmm import parse_hmmdefs_text as jparse_hmm
+    from julius_tpu_torch.frontend.gmm_frontend import GMMFrontend
+    from julius_tpu_torch.io.htk_hmm import parse_hmmdefs_text
+    from julius_tpu_torch.tools.synth import write_class_gmm
+    import tempfile
+
+    eng, teng = engines
+    wave, lens = waves(5, LENGTHS[:3])
+    feats, mask = tfe.extract_features(torch.from_numpy(wave),
+                                       torch.from_numpy(lens),
+                                       tfe.build_tables(teng.fe_cfg))
+    x = feats[mask].numpy()
+    classes = {"speech": (x.mean(0), x.var(0) + 1.0),
+               "other": (x.mean(0) + 50.0, np.ones(x.shape[1]))}
+    with tempfile.TemporaryDirectory() as d:
+        write_class_gmm(f"{d}/gmm", classes)
+        text = open(f"{d}/gmm").read()
+    teng.gmm_frontend = GMMFrontend(parse_hmmdefs_text(text),
+                                    reject_names=[reject], device="cpu")
+    eng.gmm_frontend = JGMM(jparse_hmm(text), reject_names=[reject])
+    teng.power_thres = eng.power_thres = 0.5
+    try:
+        got = teng.recognize_batch(wave, lens)
+        want = eng.recognize_batch(wave, lens)
+    finally:
+        teng.gmm_frontend = eng.gmm_frontend = None
+        teng.power_thres = eng.power_thres = 0.0
+    assert [(r.valid, r.reject_reason) for r in got] == \
+        [(r.valid, r.reject_reason) for r in want]
+    assert all(r.valid for r in got) == (reject == "other")
+    if reject == "speech":
+        assert {r.reject_reason for r in got} == {"GMM rejected (speech)"}
