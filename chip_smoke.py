@@ -114,7 +114,36 @@ Phases, one line each, in order (any failure exits non-zero):
      on a 48 kHz file, -gmm verification of a speech file and a noise
      file (one rejected), -walign -palign -salign; each run's kernels
      held and timed at its shapes, as in 12;
- 18. the kernels' JSON line (one entry per kernel and path), the card
+ 18. server: tools.serve.serve on the flagship engine on threads (the
+     module protocol and adinnet on ports the system chooses); a module
+     client's STATUS, VERSION, LISTPROCESS, PAUSE and RESUME held to the
+     reference's replies; the stream phase's 4 waveforms sent over
+     adinnet, one segment each, each <RECOGOUT> equal to that phase's
+     recognize_batch (or <RECOGFAIL/> where that result is invalid), the
+     delay from each segment end to its result; then tools.adintool
+     sends the three-burst waveform (-in file -out adinnet): one result
+     for each segment it sends, equal to recognize_batch on that
+     segment's samples; scan_win held and timed at the shapes each part
+     gave it;
+ 19. vecnet: the 16 utterances of phase 4 sent as feature vectors over
+     vecnet (VecnetClient to a VecnetServer on a thread), one segment
+     each, and decoded as one batch by decode_features (at least 15/16
+     exact, the words of the first decode), then their senone rows in
+     the outprob mode through decode_outprob (the same words); both
+     kernels held and timed at each decode's shapes;
+ 20. server_grammar: the cli task's grammar served by a ModuleServer:
+     GRAMINFO, CHANGEGRAM, ADDGRAM, DEACTIVATEGRAM, ACTIVATEGRAM,
+     SYNCGRAM, ADDWORD, DELGRAM, each reply the reference's message and
+     each rebuild of the full-width network on the card timed; the
+     switched engine decodes the 4 grammar files exactly, accepted by its
+     automaton;
+ 21. tools: tools.profile's stages on the flagship at B = 32 x 10 s, and
+     again under its trace option, with the share of the traced window
+     in which the card runs a kernel; recognize.main with -check
+     triphone and -plugindir (the plugin receives the printed sentence1
+     strings); wer.synthetic_eval(n_utts=8) on the card equal to the
+     CPU's;
+ 22. the kernels' JSON line (one entry per kernel and path), the card
      line, and the result line last.
 
 Weights and utterances are made from fixed seeds; nothing is read from
@@ -974,6 +1003,7 @@ def cli_phase(card, task_dir):
                                "scan_win": scan_launches}, built[0], card)
             del calls, built
             entries += kernel_entries(label, measured)
+    files.update(gram_task=gfiles, gram_truths=gram_truths)
     audio_s = float(lens_np.sum()) / 100.0
     phase("cli", audio_s=audio_s, xrt=audio_s / runs["cli"]["wall_s"],
           staged=walls, runs=runs, card=card)
@@ -1536,7 +1566,7 @@ def stream_phase(eng, card):
     if same != N_STREAM:
         raise RuntimeError(f"stream: {same}/{N_STREAM} equal to the batch "
                            "decode")
-    return kernel_entries("stream", measured)
+    return kernel_entries("stream", measured), (waves, batch)
 
 
 def live_inputs(task_dir, files):
@@ -1765,6 +1795,619 @@ def cli_live_phase(card, files, live):
     for label, fields in want.items():
         if any(runs[label][k] != v for k, v in fields.items()):
             raise RuntimeError(f"{label}: {runs[label]}")
+    return entries
+
+
+
+# ---- the server slice: the module protocol, adinnet, vecnet, grammar
+# changes over the socket, and the tools
+
+MODULE_TIMEOUT_S = 300        # a module client's wait for one reply
+
+
+class PortWatch:
+    """A log stream that picks serve()'s "module port X, adinnet port Y"
+    line out of the log."""
+
+    def __init__(self):
+        import queue
+        self.ports = queue.Queue()
+
+    def write(self, s):
+        m = re.search(r"module port (\d+), adinnet port (\d+)", s)
+        if m:
+            self.ports.put((int(m.group(1)), int(m.group(2))))
+        return len(s)
+
+    def flush(self):
+        pass
+
+
+def read_msg(f) -> str:
+    """One module message: the lines up to a line holding a single '.'."""
+    lines = []
+    while True:
+        line = f.readline()
+        if not line:
+            raise RuntimeError(f"module connection closed after {lines}")
+        if line.strip() == b".":
+            return b"\n".join(lines).decode()
+        lines.append(line.rstrip(b"\n"))
+
+
+def command(f, sock, text, want):
+    """Send a module command (with any body) and hold its reply to the
+    reference's message -> seconds to the reply."""
+    t0 = time.perf_counter()
+    sock.sendall(text.encode())
+    got = read_msg(f)
+    wall = time.perf_counter() - t0
+    if got != want:
+        raise RuntimeError(f"{text.splitlines()[0]}: {got!r}, the "
+                           f"reference's message is {want!r}")
+    return wall
+
+
+@contextlib.contextmanager
+def serving(engines):
+    """tools.serve.serve(engines) on a thread, its ports chosen by the
+    system, and a module client connected to it: yields (the client's
+    file, its socket, the adinnet port).  On leaving, waits for serve()
+    to return (its adinnet client must have closed), then sends DIE."""
+    import importlib
+    import socket
+    import threading
+
+    from julius_tpu_torch.tools.serve import serve
+
+    jlog = importlib.import_module("julius_tpu_torch.utils.jlog")
+    watch, box = PortWatch(), {}
+
+    def run():
+        try:
+            box["mod"] = serve(engines, module_port=0, adin_port=0)
+        except BaseException as e:
+            box["error"] = e
+            raise
+
+    t = threading.Thread(target=run, daemon=True)
+    jlog.set_log_output(watch)
+    try:
+        t.start()
+        mport, aport = watch.ports.get(timeout=MODULE_TIMEOUT_S)
+    finally:
+        jlog.set_log_output(jlog.DEFAULT)
+    sock = socket.create_connection(("127.0.0.1", mport))
+    sock.settimeout(MODULE_TIMEOUT_S)
+    f = sock.makefile("rb")
+    try:
+        yield f, sock, aport
+        t.join(timeout=MODULE_TIMEOUT_S)
+        if t.is_alive() or "error" in box:
+            raise RuntimeError(f"serve() did not end: {box.get('error')}")
+        sock.sendall(b"DIE\n")
+    finally:
+        f.close()
+        sock.close()
+        if "mod" in box:
+            box["mod"]._srv.close()
+
+
+def recogout_words(msg: str):
+    """The rank-1 words of a <RECOGOUT> message; None for <RECOGFAIL/>."""
+    if msg.startswith("<RECOGFAIL"):
+        return None
+    if not msg.startswith("<RECOGOUT>"):
+        raise RuntimeError(f"not a result message: {msg!r}")
+    return re.findall(r'CLASSID="([^"]*)"', msg.split("</SHYPO>")[0])
+
+
+def same_as_batch(msgs, batch) -> int:
+    """Results equal to the batch decode: the same rank-1 words, or a
+    <RECOGFAIL/> where the batch result is invalid."""
+    return sum((recogout_words(m) == b.words) if b.valid
+               else recogout_words(m) is None for m, b in zip(msgs, batch))
+
+
+def server_phase(eng, card, stream_in, live):
+    """`julius -module -input adinnet` on the card: tools.serve.serve on
+    the flagship engine, a module client's control commands held to the
+    reference's replies, the stream phase's 4 waveforms sent over
+    adinnet as 4 segments (each <RECOGOUT> held to that phase's
+    recognize_batch), then tools.adintool on the three-burst waveform
+    (one result for each segment it sends, each equal to recognize_batch
+    on that segment's samples).  scan_win held and timed at the shapes
+    each part gave it.  Returns the kernels' entries."""
+    import io
+
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass1 as p1
+    from julius_tpu_torch.search import pass2_device as p2d
+    from julius_tpu_torch.search import pass2_rescan as p2r
+    from julius_tpu_torch.search import scan as scan_mod
+    from julius_tpu_torch.server.adinnet import AdinnetClient
+    from julius_tpu_torch.tools import adintool
+
+    t_phase = time.perf_counter()
+    waves, batch = stream_in
+    control = (
+        ("STATUS\n", '<SYSINFO PROCESS="ACTIVE"/>'),
+        ("VERSION\n", '<ENGINEINFO TYPE="julius_tpu_torch" VERSION="r1" '
+                      'CONF="cuda"/>'),
+        ("LISTPROCESS\n", '<PROCESSLIST>\n  <PROCESS ID="0" '
+                          'NAME="_default" LMTYPE="ngram" STATUS="ACTIVE"/>'
+                          '\n</PROCESSLIST>'),
+        ("PAUSE\n", '<SYSINFO PROCESS="SLEEP"/>'),
+        ("RESUME\n", '<SYSINFO PROCESS="ACTIVE"/>'))
+    marks = []
+    real_finalize = p1.pass1_stream_finalize
+
+    def finalize(*a, **kw):
+        marks.append(time.perf_counter())
+        return real_finalize(*a, **kw)
+
+    runs, entries = {}, []
+    # the stream phase's waveforms, one segment each, over adinnet
+    msgs, sent_to_result, end_to_result = [], [], []
+    p1.pass1_stream_finalize = finalize
+    try:
+        with serving([eng]) as (f, sock, aport):
+            control_s = sum(command(f, sock, c, w) for c, w in control)
+            cli = AdinnetClient(port=aport)
+            with recorded_calls(pk, sk, p2d, scan_mod) as calls, \
+                    counted_astar(p2d) as astar:
+                pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+                t0 = time.perf_counter()
+                for w in waves:
+                    cli.send_samples(w)
+                    cli.send_segment_end()
+                    t_sent = time.perf_counter()
+                    msgs.append(read_msg(f))
+                    t_got = time.perf_counter()
+                    sent_to_result.append((t_got - t_sent) * 1e3)
+                    end_to_result.append((t_got - marks[-1]) * 1e3)
+                wall = time.perf_counter() - t0
+                launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+            cli.close()
+    finally:
+        p1.pass1_stream_finalize = real_finalize
+    chunks, rounds = p2r.CHUNKS, astar["rounds"]
+    if launches or scan_launches != rounds + chunks or not scan_launches:
+        raise RuntimeError(f"server: {launches} pass1_step and "
+                           f"{scan_launches} scan_win launches for {rounds} "
+                           f"A* rounds + {chunks} chunks")
+    same = same_as_batch(msgs, batch)
+    runs["server"] = dict(
+        segments=len(msgs), seconds_each=STREAM_S,
+        equal_to_recognize_batch=f"{same}/{len(batch)}",
+        recogfail=sum(m.startswith("<RECOGFAIL") for m in msgs),
+        segment_end_sent_to_result_ms=sent_to_result,
+        segment_end_delay_ms=end_to_result, wall_s=wall,
+        control_commands_s=control_s, pass1_step_launches=launches,
+        scan_win_launches=scan_launches, astar_rounds=rounds,
+        rescan_chunks=chunks)
+    entries += kernel_entries("server", path_kernels(
+        "server", calls, {"pass1_step": launches, "scan_win": scan_launches},
+        eng, card))
+    del calls
+    if same != len(batch):
+        raise RuntimeError(f"server: {same}/{len(batch)} results equal to "
+                           "recognize_batch")
+
+    # adintool feeding the server: the segments it sends are recorded
+    paths, _ = live
+    sent = []
+
+    class RecordingClient(AdinnetClient):
+        def send_samples(self, samples, chunk=4096):
+            sent.append(np.clip(np.asarray(samples), -32768, 32767)
+                        .astype(np.int16).astype(np.float32))
+            super().send_samples(samples, chunk)
+
+    out = io.StringIO()
+    with serving([eng]) as (f, sock, aport):
+        with recorded_calls(pk, sk, p2d, scan_mod) as calls, \
+                counted_astar(p2d) as astar:
+            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            real_client = adintool.AdinnetClient
+            adintool.AdinnetClient = RecordingClient
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    rc = adintool.main(["-in", "file", "-filename",
+                                        paths["wav"], "-out", "adinnet",
+                                        "-server", f"127.0.0.1:{aport}"],
+                                       device=DEVICE)
+            finally:
+                adintool.AdinnetClient = real_client
+            msgs = [read_msg(f) for _ in sent]
+            wall = time.perf_counter() - t0
+            launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+    chunks, rounds = p2r.CHUNKS, astar["rounds"]
+    said = out.getvalue().strip()
+    if rc != 0 or said != f"sent {len(sent)} segment(s) over adinnet" \
+            or len(sent) != 3:
+        raise RuntimeError(f"adintool: rc {rc}, {said!r}, {len(sent)} "
+                           "segments recorded (3 expected)")
+    if launches or scan_launches != rounds + chunks or not scan_launches:
+        raise RuntimeError(f"server_adintool: {launches} pass1_step and "
+                           f"{scan_launches} scan_win launches for {rounds} "
+                           f"A* rounds + {chunks} chunks")
+    lens = np.asarray([len(x) for x in sent], np.int32)
+    padded = np.zeros((len(sent), lens.max()), np.float32)
+    for u, x in enumerate(sent):
+        padded[u, :len(x)] = x
+    batch = eng.recognize_batch(padded, lens)
+    same = same_as_batch(msgs, batch)
+    runs["server_adintool"] = dict(
+        segments=len(sent), samples=lens.tolist(),
+        equal_to_recognize_batch=f"{same}/{len(sent)}",
+        recogfail=sum(m.startswith("<RECOGFAIL") for m in msgs),
+        wall_s=wall, pass1_step_launches=launches,
+        scan_win_launches=scan_launches, astar_rounds=rounds,
+        rescan_chunks=chunks)
+    entries += kernel_entries("server_adintool", path_kernels(
+        "server_adintool", calls, {"pass1_step": launches,
+                                   "scan_win": scan_launches}, eng, card))
+    phase("server", runs=runs, phase_s=time.perf_counter() - t_phase,
+          card=card)
+    if same != len(sent):
+        raise RuntimeError(f"server_adintool: {same}/{len(sent)} results "
+                           "equal to recognize_batch")
+    return entries
+
+
+def vecnet_transfer(rows, outprob):
+    """Each [T, D] array of `rows` sent as one segment by a VecnetClient
+    to a VecnetServer on a thread -> (the segments it received, its
+    configuration (veclen, fshift_ms, is_outprob), seconds)."""
+    import threading
+
+    from julius_tpu_torch.server.vecnet import VecnetClient, VecnetServer
+
+    srv = VecnetServer(port=0)
+    got = {"segments": []}
+
+    def run():
+        srv.accept()
+        got["conf"] = (srv.veclen, srv.fshift_ms, srv.is_outprob)
+        cur = []
+        for kind, v in srv.events():
+            if kind == "vector":
+                cur.append(v)
+            elif kind == "segment":
+                got["segments"].append(np.stack(cur))
+                cur = []
+            else:
+                break
+
+    t = threading.Thread(target=run, daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    cli = VecnetClient(veclen=rows[0].shape[1], port=srv.port,
+                       outprob=outprob)
+    for r in rows:
+        cli.send_frames(r)
+        cli.send_segment_end()
+    cli.send_stream_end()
+    cli.close()
+    t.join(timeout=MODULE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    srv.close()
+    if t.is_alive():
+        raise RuntimeError("vecnet: the server did not reach the stream end")
+    return got["segments"], got["conf"], wall
+
+
+def vecnet_phase(eng, card, feats, lens_np, truths, first):
+    """vecnet input: the 16 flagship utterances' feature rows that the
+    slice decoded first, one segment each, from a VecnetClient to a
+    VecnetServer on a thread, decoded as one batch by decode_features
+    (at least 15/16 exact, the words of the first decode); then the
+    utterances' senone rows (compute_outprob) sent in the outprob mode
+    and decoded by decode_outprob (the same words).  Both kernels held
+    and timed at the shapes each decode gave them.  Returns the
+    kernels' entries."""
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass2_device as p2d
+    from julius_tpu_torch.search import pass2_rescan as p2r
+    from julius_tpu_torch.search import scan as scan_mod
+
+    t_phase = time.perf_counter()
+    host = feats.cpu().numpy()
+    runs, entries = {}, []
+    with torch.no_grad():
+        rows_all = eng.compute_outprob(feats)
+    for label, outprob, array in (("vecnet", False, host),
+                                  ("vecnet_outprob", True, rows_all)):
+        rows = [array[u, :n] for u, n in enumerate(lens_np)]
+        segs, conf, send_s = vecnet_transfer(rows, outprob)
+        if conf != (array.shape[-1], 10, outprob) or len(segs) != N_UTTS \
+                or any(not np.array_equal(a, b) for a, b in zip(segs, rows)):
+            raise RuntimeError(f"{label}: configuration {conf}, "
+                               f"{len(segs)} segments, rows differ")
+        lens = np.asarray([x.shape[0] for x in segs], np.int32)
+        batch = np.zeros((N_UTTS, lens.max(), array.shape[-1]), np.float32)
+        for u, x in enumerate(segs):
+            batch[u, :len(x)] = x
+        decode = eng.decode_outprob if outprob else eng.decode_features
+        torch.cuda.synchronize()
+        with recorded_calls(pk, sk, p2d, scan_mod) as calls:
+            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            p2d.LAST_STATS.clear()
+            t0 = time.perf_counter()
+            res = decode(batch, lens)
+            decode_s = time.perf_counter() - t0
+            launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+        chunks, rounds = p2r.CHUNKS, p2d.LAST_STATS.get("rounds", 0)
+        if launches != lens.max() or scan_launches != rounds + chunks \
+                or not scan_launches:
+            raise RuntimeError(f"{label}: {launches} pass1_step launches "
+                               f"for {lens.max()} frames, {scan_launches} "
+                               f"scan_win for {rounds} rounds + {chunks}")
+        check_results(res, label)
+        exact = exact_count(res, truths)
+        equal = sum(r.word_ids == w.word_ids for r, w in zip(res, first))
+        runs[label] = dict(
+            veclen=conf[0], outprob=conf[2], utterances=N_UTTS,
+            frames=int(lens.sum()), send_s=send_s, decode_s=decode_s,
+            exact_transcripts=f"{exact}/{N_UTTS}",
+            equal_to_first_decode=f"{equal}/{N_UTTS}",
+            pass1_step_launches=launches, scan_win_launches=scan_launches,
+            astar_rounds=rounds, rescan_chunks=chunks)
+        entries += kernel_entries(label, path_kernels(
+            label, calls, {"pass1_step": launches,
+                           "scan_win": scan_launches}, eng, card))
+        del calls
+        if exact < N_UTTS - 1 or equal != N_UTTS:
+            raise RuntimeError(f"{label}: {runs[label]}")
+    phase("vecnet", runs=runs, phase_s=time.perf_counter() - t_phase,
+          card=card)
+    return entries
+
+
+def server_grammar_phase(card, files):
+    """Grammar changes over the module socket: the cli phase's GMM
+    grammar task (-h am.binhmm -gram gram, 5000 words) served by a
+    ModuleServer on a thread; GRAMINFO, CHANGEGRAM with the task's
+    gram.dfa / gram.dict, ADDGRAM of a second copy, DEACTIVATEGRAM,
+    ACTIVATEGRAM, SYNCGRAM, ADDWORD and DELGRAM, each reply held to the
+    reference's message, each rebuild (the full-width network on the
+    card, from the command loop's thread) timed; then the switched
+    engine decodes the 4 grammar utterances (exact, accepted by its
+    automaton).  Returns the kernels' entries."""
+    import socket
+    import threading
+
+    from julius_tpu_torch import fusion
+    from julius_tpu_torch.jconf import parse_jconf
+    from julius_tpu_torch.io.htk_param import read_htk_param
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass2_device as p2d
+    from julius_tpu_torch.search import pass2_rescan as p2r
+    from julius_tpu_torch.search import scan as scan_mod
+    from julius_tpu_torch.server.module import ModuleServer
+
+    t_phase = time.perf_counter()
+    gf, truths = files["gram_task"], files["gram_truths"]
+    t0 = time.perf_counter()
+    geng = fusion.create_engines(parse_jconf(["-h", files["am"], "-gram",
+                                              gf["gram"]]), device=DEVICE)[0]
+    build_s = time.perf_counter() - t0
+    if geng.lmtype != "grammar":
+        raise RuntimeError(f"server_grammar: lmtype {geng.lmtype}")
+    n_w, n_s = geng.voca.n_words, geng.dfa.n_states
+    with open(gf["dfa"]) as fh:
+        dfa_text = fh.read()
+    with open(gf["gram_dict"]) as fh:
+        dict_text = fh.read()
+    body = dfa_text + dict_text + "DICEND\n"
+    # a new word of an existing category whose phones are two words'
+    # reversed: no grammar utterance says it
+    v = geng.voca
+    new_word = (f"{v.names[2]}\t[added]\t"
+                + " ".join(v.phones[2][::-1] + v.phones[3][::-1]))
+    ready = '<GRAMMAR STATUS="READY"/>'
+    steps = (
+        ("graminfo", "GRAMINFO\n", f'<GRAMINFO>\n  #0: [active] {n_w} '
+         f'words, {n_s} states "startup"\n</GRAMINFO>', n_w),
+        ("changegram", f"CHANGEGRAM g1\n{body}",
+         '<GRAMMAR STATUS="RECEIVED" ID="1"/>', n_w),
+        ("addgram", f"ADDGRAM g2\n{body}",
+         '<GRAMMAR STATUS="RECEIVED" ID="2"/>', 2 * n_w),
+        ("deactivategram", "DEACTIVATEGRAM 2\n", ready, n_w),
+        ("activategram", "ACTIVATEGRAM 2\n", ready, 2 * n_w),
+        ("syncgram", "SYNCGRAM\n", ready, 2 * n_w),
+        ("addword", f"ADDWORD 1\n{new_word}\nDICEND\n",
+         '<GRAMMAR STATUS="WORDADDED" NUM="1"/>', 2 * n_w + 1),
+        ("delgram", "DELGRAM 2\n", ready, n_w + 1),
+        ("graminfo_after", "GRAMINFO\n", f'<GRAMINFO>\n  #1: [active] '
+         f'{n_w + 1} words, {n_s} states "g1"\n</GRAMINFO>', n_w + 1))
+    srv = ModuleServer([geng], port=0)
+    t = threading.Thread(target=lambda: (srv.accept(), srv.serve_forever()),
+                         daemon=True)
+    t.start()
+    sock = socket.create_connection(("127.0.0.1", srv.port))
+    sock.settimeout(MODULE_TIMEOUT_S)
+    f = sock.makefile("rb")
+    walls = {}
+    try:
+        for label, text, want, words in steps:
+            walls[label] = command(f, sock, text, want)
+            e = srv.engines[0]
+            on = e.dev_net.score_idx.device
+            if e.voca.n_words != words or e.device != geng.device \
+                    or on.type != torch.device(DEVICE).type:
+                raise RuntimeError(f"{label}: the engine has "
+                                   f"{e.voca.n_words} words on {on}")
+        eng = srv.engines[0]
+        frames = [read_htk_param(p).data for p in gf["gram_utts"]]
+        lens = np.asarray([x.shape[0] for x in frames], np.int32)
+        feats = np.zeros((len(frames), lens.max(), frames[0].shape[1]),
+                         np.float32)
+        for u, x in enumerate(frames):
+            feats[u, :len(x)] = x
+        torch.cuda.synchronize()
+        with recorded_calls(pk, sk, p2d, scan_mod) as calls:
+            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            t0 = time.perf_counter()
+            res = eng.decode_features(feats, lens)
+            decode_s = time.perf_counter() - t0
+            launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+        chunks = p2r.CHUNKS
+        sock.sendall(b"DIE\n")
+        t.join(timeout=MODULE_TIMEOUT_S)
+    finally:
+        f.close()
+        sock.close()
+        srv._srv.close()
+    if launches or scan_launches != chunks or not scan_launches:
+        raise RuntimeError(f"server_grammar: {launches} pass1_step and "
+                           f"{scan_launches} scan_win launches for {chunks} "
+                           "re-scan chunks")
+    check_results(res, "server_grammar", edges="texts")
+    exact = sum([t for t in r.texts if t] == w for r, w in zip(res, truths))
+    accepted = sum(eng.dfa.accepts_forward([int(eng.word_cat[w])
+                                            for w in r.word_ids])
+                   for r in res)
+    measured = path_kernels("server_grammar", calls, {
+        "pass1_step": launches, "scan_win": scan_launches}, eng, card)
+    phase("server_grammar", engine_build_s=build_s, words=n_w,
+          dfa_states=n_s, nodes=int(geng.dev_net.score_idx.shape[0]),
+          reply_s=walls, utterances=len(res),
+          exact_transcripts=f"{exact}/{len(res)}",
+          dfa_accepted=f"{accepted}/{len(res)}", decode_s=decode_s,
+          from_pass2=sum(r.from_pass == 2 for r in res),
+          scan_win_launches=scan_launches, rescan_chunks=chunks,
+          phase_s=time.perf_counter() - t_phase, card=card)
+    if exact != len(res) or accepted != len(res):
+        raise RuntimeError(f"server_grammar: {exact} exact, {accepted} "
+                           f"accepted of {len(res)}")
+    return kernel_entries("server_grammar", measured)
+
+
+def trace_busy(path):
+    """From a Chrome trace of torch.profiler: the window from its first
+    to its last event, and the share of it in which the card runs a
+    kernel (the union of the kernels' spans)."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "kernel")
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return dict(window_ms=(hi - lo) / 1e3, kernel_busy_ms=busy / 1e3,
+                busy_share=busy / (hi - lo), kernels=len(spans),
+                events=len(events))
+
+
+PLUGIN = """import json
+import pathlib
+
+OUT = pathlib.Path({out!r})
+BEST = []
+
+
+def result_best_str(s):
+    BEST.append(s)
+    OUT.write_text(json.dumps(BEST))
+"""
+
+
+def tools_phase(eng, card, files):
+    """The tools on the card: tools.profile's stages on the flagship at
+    B = 32 x 10 s (its default), then the same under its trace option,
+    and the share of the traced window in which the card runs a kernel;
+    recognize.main on the cli task with -check triphone and a
+    -plugindir whose plugin receives each best string (equal to the
+    printed sentence1 lines), its kernels held and timed at its shapes;
+    wer.synthetic_eval(n_utts=8) on the card equal to the CPU's.
+    Returns the kernels' entries."""
+    import os
+
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass2_device as p2d
+    from julius_tpu_torch.search import pass2_rescan as p2r
+    from julius_tpu_torch.search import scan as scan_mod
+    from julius_tpu_torch.tools import profile, recognize, wer
+
+    walls = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    wave = (rng.standard_normal((32, 160000)) * 2000).astype(np.float32)
+    lengths = np.full(32, 160000, np.int32)
+    stages = profile.profile_stages(eng, wave, lengths)
+    walls["profile_s"] = time.perf_counter() - t_phase
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        t0 = time.perf_counter()
+        traced = profile.trace_stages(eng, wave, lengths, tmp)
+        walls["trace_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        busy = trace_busy(os.path.join(tmp, profile.TRACE_FILE))
+        walls["trace_read_s"] = time.perf_counter() - t0
+        busy["trace_mb"] = os.path.getsize(
+            os.path.join(tmp, profile.TRACE_FILE)) / 2 ** 20
+
+        # -check triphone and a result-receiving plugin
+        pdir = os.path.join(tmp, "plugins")
+        os.mkdir(pdir)
+        best_path = os.path.join(tmp, "best.json")
+        with open(os.path.join(pdir, "recv.py"), "w") as fh:
+            fh.write(PLUGIN.format(out=best_path))
+        argv = ["-h", files["am"], "-v", files["dict"], "-d", files["lm"],
+                "-input", "mfcfile", "-batchsize", str(N_SIDE), "-check",
+                "triphone", "-plugindir", pdir] + files["utts"][:N_SIDE]
+        results = []
+        with recorded_calls(pk, sk, p2d, scan_mod) as calls:
+            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            p2d.LAST_STATS.clear()
+            lines, wall, built = run_cli(recognize, argv, results)
+            launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+        with open(best_path) as fh:
+            best = json.load(fh)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_results(results, "cli_plugin")
+    printed = [ln.split(": ", 1)[1] for ln in lines
+               if ln.startswith("sentence1: ")]
+    check = json.loads(lines[0].split(": ", 1)[1]) \
+        if lines and lines[0].startswith("-check triphone: ") else None
+    entries = kernel_entries("cli_plugin", path_kernels(
+        "cli_plugin", calls, {"pass1_step": launches,
+                              "scan_win": scan_launches}, built[0], card))
+    del calls, built
+
+    t0 = time.perf_counter()
+    on_card = wer.synthetic_eval(n_utts=8, device=DEVICE)
+    card_s = time.perf_counter() - t0
+    on_cpu = wer.synthetic_eval(n_utts=8, device="cpu")
+    phase("tools", profile_stages=stages, profile_traced_stages=traced,
+          profile_trace=busy, batch=32, seconds_each=10.0,
+          cli_plugin=dict(wall_s=wall, files=N_SIDE, check_triphone=check,
+                          plugin_best_equal_to_sentence1=best == printed,
+                          pass1_step_launches=launches,
+                          scan_win_launches=scan_launches),
+          wer_card=str(on_card), wer_cpu=str(on_cpu), wer_card_s=card_s,
+          walls=walls, phase_s=time.perf_counter() - t_phase, card=card)
+    if best != printed or len(best) != N_SIDE or check is None \
+            or check["missing"]:
+        raise RuntimeError(f"cli_plugin: plugin {best}, printed {printed}, "
+                           f"-check {check}")
+    if vars(on_card) != vars(on_cpu):
+        raise RuntimeError(f"synthetic_eval: card {on_card}, CPU {on_cpu}")
+    if not all(np.isfinite(v) and v > 0 for v in stages.values()):
+        raise RuntimeError(f"profile_stages: {stages}")
     return entries
 
 
@@ -2050,10 +2693,17 @@ def main() -> int:
         kernels += unfused_ngram_phase(eng, feats, lens_np, truths, card)
         gather_phase(card)
         kernels += align_phase(eng, protos, card)
-        kernels += stream_phase(eng, card)
+        entries, stream_in = stream_phase(eng, card)
+        kernels += entries
         live = live_inputs(task_dir, task_files)
         stream_vad_phase(eng, card, task_files, live)
         kernels += cli_live_phase(card, task_files, live)
+        # the server slice's paths, last, so that the earlier phases run
+        # as in older versions of the script
+        kernels += server_phase(eng, card, stream_in, live)
+        kernels += vecnet_phase(eng, card, feats, lens_np, truths, res)
+        kernels += server_grammar_phase(card, task_files)
+        kernels += tools_phase(eng, card, task_files)
     finally:
         shutil.rmtree(task_dir, ignore_errors=True)
 

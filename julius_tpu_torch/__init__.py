@@ -19,6 +19,14 @@ counterpart is easy to find:
   engine.py - Engine.decode_features / recognize_batch, the batched
              decode entry points; streaming.py StreamSession, the live
              one; fusion.py, tools/recognize.py the command line
+             (plugins.py: -plugindir)
+  server/  - the module control/result protocol, adinnet audio input
+             and vecnet feature input; tools/serve.py runs the server,
+             tools/jcontrol.py and tools/adintool.py are its clients
+  tools/   - besides those: model checks (checkmodel.py), the stage
+             profiler (profile.py), model and grammar tools
+             (modeltools.py), WER scoring (wer.py), the trellis
+             visualizer (visualize.py) and the synthetic models (synth.py)
   cache.py  - the on-disk network cache
   convert.py - carries the reference's parameters and tables across
 

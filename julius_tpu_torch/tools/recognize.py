@@ -15,9 +15,9 @@ mic/alsa/pulseaudio/oss, or fake:<file> to replay a file through the
 same path) is captured, segmented by the VAD and decoded segment by
 segment through streaming.py's StreamSession, each printed as a `live
 segment N` block.  -walign/-palign/-salign print the forced alignments
-of each result.  -plugindir and the model checks of -check come with
-the remaining entry points (ROADMAP.md queue 1); they raise
-NotImplementedError.
+of each result.  -plugindir loads Python plugins (plugins.py: startup,
+result receivers, feature and audio post-processing); -check runs the
+model checks of tools/checkmodel.py on the first engine.
 """
 
 from __future__ import annotations
@@ -32,15 +32,17 @@ import torch
 
 from julius_tpu_torch.adin.native_wrapper import (NativeDecimator,
                                                   make_capture)
-from julius_tpu_torch.engine import Result, unsupported
+from julius_tpu_torch.engine import Result
 from julius_tpu_torch.frontend.stream import vad_config_from
 from julius_tpu_torch.fusion import create_engines
 from julius_tpu_torch.io.htk_param import (HTKParam, read_htk_param,
                                           write_htk_param)
 from julius_tpu_torch.io.wav import read_audio, write_wav
 from julius_tpu_torch.jconf import parse_jconf
+from julius_tpu_torch.plugins import PluginManager
 from julius_tpu_torch.search.graphout import graph_to_text
 from julius_tpu_torch.streaming import StreamSession
+from julius_tpu_torch.tools.checkmodel import check_engine
 from julius_tpu_torch.utils.jlog import (DEFAULT as LOG_DEFAULT, LogLevel,
                                          jlog, set_log_level, set_log_output)
 
@@ -194,22 +196,16 @@ def split_argv(argv: List[str]):
     return opts, files
 
 
-def _check_supported(cfg) -> None:
-    """Raise for the options whose paths the port does not have yet."""
-    if cfg.plugin_dirs:
-        raise unsupported("plugins (-plugindir)", "entry points")
-    checks = [m for m in cfg.check_modes if m != "info"]
-    if checks:
-        raise unsupported(f"model checks (-check {' '.join(checks)})",
-                          "entry points")
-
-
-def _load_batch(paths: List[str], mfc_mode: bool, cfg, rate: int):
+def _load_batch(paths: List[str], mfc_mode: bool, cfg, rate: int,
+                plugins: Optional[PluginManager] = None):
     """Input files -> ([B, T, D] features or [B, L] waveforms, [B]
-    lengths), zero-padded, on the host."""
+    lengths), zero-padded, on the host; the plugins' fvin / adin
+    post-processing applied to each input."""
     if mfc_mode:
         # feature-file input (reference -input mfcfile, m_adin.c)
         datas = [read_htk_param(p).data for p in paths]
+        if plugins is not None:
+            datas = [plugins.fvin_postprocess(d) for d in datas]
         batch = np.zeros((len(datas), max(d.shape[0] for d in datas),
                           datas[0].shape[1]), dtype=np.float32)
     else:
@@ -225,6 +221,8 @@ def _load_batch(paths: List[str], mfc_mode: bool, cfg, rate: int):
         if cfg.zmean:
             # -zmean: whole-utterance DC offset removal (zmean.c)
             datas = [w - float(np.mean(w)) for w in datas]
+        if plugins is not None:
+            datas = [plugins.adin_postprocess(w) for w in datas]
         batch = np.zeros((len(datas), max(len(w) for w in datas)),
                          dtype=np.float32)
         if cfg.record_dir:
@@ -294,7 +292,6 @@ def main(argv=None, device="cuda") -> int:
     argv = argv if argv is not None else sys.argv[1:]
     opts, files = split_argv(argv)
     cfg = parse_jconf(opts)
-    _check_supported(cfg)
     log_fh = None
     if cfg.logfile:
         log_fh = open(cfg.logfile, "w", encoding="utf-8")
@@ -303,12 +300,26 @@ def main(argv=None, device="cuda") -> int:
         set_log_level(LogLevel.WARNING)
     try:
         engines = create_engines(cfg, device=device)
-        if "info" in cfg.check_modes:
-            # -version/-setting: the engine information dump (reference
-            # m_info.c print_engine_info)
-            print(engines[0].describe())
+        if cfg.check_modes:
+            # -version/-setting/-check: engine info dump + model checkers
+            # (reference m_info.c print_engine_info, hmm_check.c,
+            # wchmm_check.c)
+            for mode in cfg.check_modes:
+                if mode == "info":
+                    print(engines[0].describe())
+                else:
+                    try:
+                        check_engine(engines[0], mode)
+                    except Exception as e:
+                        jlog(LogLevel.WARNING, f"-check {mode}: {e}")
             if not files and cfg.input_source == "file":
                 return 0
+        plugins = None
+        if cfg.plugin_dirs:
+            plugins = PluginManager()
+            for d in cfg.plugin_dirs:
+                plugins.load_dir(d)
+            plugins.startup(engines)
         source = cfg.input_source or ""
         if source in LIVE_SOURCES or source.startswith("fake:"):
             _live_input(cfg, engines[0])
@@ -323,7 +334,7 @@ def main(argv=None, device="cuda") -> int:
         rate = engines[0].fe_cfg.sample_rate
         for ofs in range(0, len(files), B):
             chunk = files[ofs: ofs + B]
-            batch, lens = _load_batch(chunk, mfc_mode, cfg, rate)
+            batch, lens = _load_batch(chunk, mfc_mode, cfg, rate, plugins)
             for eng in engines:
                 if mfc_mode:
                     results = eng.decode_features(batch, lens)

@@ -355,8 +355,6 @@ def test_live_input_and_rejection_print_like_reference(live_task, case):
 
 UNPORTED = [
     (["-nrl", "{d}/back.arpa"], "backward N-gram"),
-    (["-plugindir", "{d}"], "entry points"),
-    (["-check", "wchmm"], "entry points"),
 ]
 
 

@@ -620,3 +620,166 @@ def test_native_adin_builds_into_the_package(cuda):
                        if e["type"] != "samples")
         kinds.append(evs)
     assert kinds[0] == kinds[1] == ["start", "end"]
+
+
+class _PortWatch:
+    """A log stream that picks serve()'s "module port X, adinnet port Y"
+    line out of the log."""
+
+    def __init__(self):
+        import queue
+        self.ports = queue.Queue()
+
+    def write(self, s):
+        import re
+        m = re.search(r"module port (\d+), adinnet port (\d+)", s)
+        if m:
+            self.ports.put((int(m.group(1)), int(m.group(2))))
+        return len(s)
+
+    def flush(self):
+        pass
+
+
+def _read_msg(f):
+    """One module message (lines until a single '.')."""
+    lines = []
+    while True:
+        line = f.readline()
+        if not line:
+            return None
+        if line.strip() == b".":
+            return b"\n".join(lines).decode()
+        lines.append(line.rstrip(b"\n"))
+
+
+def test_server_entry_points_need_cuda_unless_cpu_is_asked(
+        cuda, tmp_path, monkeypatch):
+    """serve.main and adintool.main raise without CUDA; adintool runs on
+    the CPU when asked."""
+    import contextlib
+    import io
+
+    from fixtures import make_arpa_text, make_dict_text, make_hmmdefs_text
+    from julius_tpu_torch.io.wav import write_wav
+    from julius_tpu_torch.tools import adintool, serve
+    (tmp_path / "am.hmm").write_text(make_hmmdefs_text(dim=26))
+    (tmp_path / "words.dict").write_text(make_dict_text())
+    (tmp_path / "lm.arpa").write_text(make_arpa_text())
+    rng = np.random.default_rng(2)
+    wave = np.concatenate([rng.standard_normal(8000) * 30,
+                           rng.standard_normal(16000) * 3000,
+                           rng.standard_normal(8000) * 30])
+    write_wav(str(tmp_path / "in.wav"), wave.astype(np.float32), 16000)
+    tool = ["-in", "file", "-filename", str(tmp_path / "in.wav"), "-out",
+            "file", "-filename-out", str(tmp_path / "seg")]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["-h", str(tmp_path / "am.hmm"), "-v",
+                    str(tmp_path / "words.dict"), "-d",
+                    str(tmp_path / "lm.arpa")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        adintool.main(tool)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        assert adintool.main(tool, device="cpu") == 0
+    assert out.getvalue().startswith("wrote ")
+
+
+def test_server_on_card_answers_an_adinnet_segment(engines):
+    """serve() on the card engine: one noise segment over adinnet gives
+    a <RECOGOUT> with the words of recognize_batch on the same samples,
+    and the segment's pass 2 launches the scan kernel."""
+    import importlib
+    import socket
+    import threading
+
+    from julius_tpu_torch.server.adinnet import AdinnetClient
+    from julius_tpu_torch.tools.serve import serve
+    jlog = importlib.import_module("julius_tpu_torch.utils.jlog")
+    eng = engines[0]
+    wave = (np.random.default_rng(13).standard_normal(24000) * 2000) \
+        .astype(np.float32)
+    batch = eng.recognize_batch(wave[None], np.asarray([len(wave)]))[0]
+    watch, box = _PortWatch(), {}
+    jlog.set_log_output(watch)
+    t = threading.Thread(target=lambda: box.update(mod=serve(
+        [eng], module_port=0, adin_port=0)), daemon=True)
+    try:
+        t.start()
+        mport, aport = watch.ports.get(timeout=60)
+    finally:
+        jlog.set_log_output(jlog.DEFAULT)
+    ctl = socket.create_connection(("127.0.0.1", mport))
+    f = ctl.makefile("rb")
+    cli = AdinnetClient(port=aport)
+    before = tsk.LAUNCHES
+    cli.send_samples(wave)
+    cli.send_segment_end()
+    msg = _read_msg(f)
+    cli.close()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    ctl.sendall(b"DIE\n")
+    f.close()
+    ctl.close()
+    box["mod"]._srv.close()
+    assert tsk.LAUNCHES > before
+    first = msg.split("</SHYPO>")[0]
+    import re
+    assert re.findall(r'CLASSID="([^"]*)"', first) == batch.words
+
+
+def test_changegram_rebuild_keeps_the_engine_device(engines):
+    """CHANGEGRAM builds the new grammar engine from the command loop's
+    thread on the old engine's card; it decodes there like the same
+    engine built on the CPU."""
+    import io
+    import socket
+    import threading
+
+    from julius_tpu_torch import grammar
+    from julius_tpu_torch.engine import Engine
+    from julius_tpu_torch.server.module import ModuleServer
+    eng, cpu, _, _ = engines
+    gtext, vtext = synth.make_grammar(eng.voca, n_cats=8)
+    rev, fwd, voca, wc, _ = grammar.compile_grammar(gtext, vtext)
+    wc = np.asarray(wc, np.int32)
+    start = Engine(eng.hmm, voca, dfa=rev, word_cat=wc, frontend=eng.fe_cfg,
+                   search=eng.search_cfg, device=eng.device)
+    dfa_text, dict_text = io.StringIO(), io.StringIO()
+    grammar.write_dfa(rev, dfa_text)
+    grammar.write_dict(voca, dict_text)
+    srv = ModuleServer([start], port=0)
+    t = threading.Thread(target=lambda: (srv.accept(), srv.serve_forever()),
+                         daemon=True)
+    t.start()
+    sock = socket.create_connection(("127.0.0.1", srv.port))
+    f = sock.makefile("rb")
+    sock.sendall(("CHANGEGRAM g\n" + dfa_text.getvalue()
+                  + dict_text.getvalue() + "DICEND\n").encode())
+    msg = _read_msg(f)
+    new = srv.engines[0]
+    sock.sendall(b"DIE\n")
+    t.join(timeout=60)
+    assert not t.is_alive()
+    f.close()
+    sock.close()
+    srv._srv.close()
+    assert msg == '<GRAMMAR STATUS="RECEIVED" ID="1"/>'
+    assert new is not start and new.device == start.device
+    assert new.dev_net.score_idx.is_cuda
+    assert new.dev_net.score_idx.device == start.dev_net.score_idx.device
+    # the rebuilt engine (GMM-scored: the rebuild passes no DNN) decodes
+    # on the card like the same grammar engine on the CPU
+    from fixtures import sample_states_and_frames
+    seq = synth.grammar_sentences(fwd, wc, 1, seed=3)[0]
+    pids = [eng.hmm.phone_index[p] for w in seq for p in voca.phones[w]]
+    x, _ = sample_states_and_frames(eng.hmm, pids,
+                                    np.random.default_rng(3))
+    ref = Engine(cpu.hmm, new.voca, dfa=new.dfa, word_cat=new.word_cat,
+                 frontend=cpu.fe_cfg, search=cpu.search_cfg, device="cpu")
+    n = np.asarray([x.shape[0]])
+    got = new.decode_features(x[None], n)[0]
+    want = ref.decode_features(x[None], n)[0]
+    assert got.word_ids == want.word_ids
+    assert got.score == pytest.approx(want.score, abs=1e-2)
