@@ -143,7 +143,30 @@ Phases, one line each, in order (any failure exits non-zero):
      triphone and -plugindir (the plugin receives the printed sentence1
      strings); wer.synthetic_eval(n_utts=8) on the card equal to the
      CPU's;
- 22. the kernels' JSON line (one entry per kernel and path), the card
+ 22. backward: the flagship with its 2-gram's bigrams flipped into a
+     backward (RL) model for pass 2 and the 2-gram as the forward model
+     for pass 1 decodes the 16 utterances of phase 4 (pass1_step a
+     frame, the frozen backward search on the host, no scan): all from
+     pass 2, and 4 of them equal to the port's CPU decode of the card's
+     outprob rows; recognize.main with -nlr + -nrl ARPA files on 4 cli
+     files; register_user_lm with the 2-gram as a Python function on 4
+     utterances (the host re-scan: scan_win launches equal its chunks);
+ 23. full_scan: ChainCache rows of 256 flagship words (bit-equal to the
+     device tables'), scan_words over the 16 x 509 outprob batch and one
+     scan_words_store round (with sentence starts, dropped rows and
+     out-of-range anchors), each one scan_win launch at W = T, held
+     exactly against the plain version and timed at W = T;
+ 24. parallel: on meshes that repeat the card, sharded_pass1 at S = 1,
+     2, 4 on one flagship utterance (the shards equal to one shard, the
+     words to the truth and to the single-device pass 1's),
+     parallel_decode_fn with dp = 2 on 16 x 3 s against the engine's
+     own unfused pass 1, and the DNN split over tp = 2 by shard_engine
+     against the unsplit one;
+ 25. refexport: the reference-binary tools' exports at full width
+     (refbaseline.export_model, refparity.export_flagship) read back by
+     the port's readers, then 4 generative utterances as spliced
+     feature files decoded by recognize.main on the exported files;
+ 26. the kernels' JSON line (one entry per kernel and path), the card
      line, and the result line last.
 
 Weights and utterances are made from fixed seeds; nothing is read from
@@ -1003,7 +1026,7 @@ def cli_phase(card, task_dir):
                                "scan_win": scan_launches}, built[0], card)
             del calls, built
             entries += kernel_entries(label, measured)
-    files.update(gram_task=gfiles, gram_truths=gram_truths)
+    files.update(gram_task=gfiles, gram_truths=gram_truths, truths=truths)
     audio_s = float(lens_np.sum()) / 100.0
     phase("cli", audio_s=audio_s, xrt=audio_s / runs["cli"]["wall_s"],
           staged=walls, runs=runs, card=card)
@@ -2411,6 +2434,555 @@ def tools_phase(eng, card, files):
     return entries
 
 
+def backward_phase(eng, feats, lens_np, truths, res, card, files):
+    """A backward (RL) N-gram for pass 2.  The flagship engine with the
+    flagship 2-gram flipped into a backward model (tools.synth
+    backward_ngram) as `lm` and the flagship 2-gram as `lm_forward`
+    decodes the slice's 16 utterances (pass 1 on the forward 2-gram
+    through the beam-update kernel, pass 2 the frozen backward stack
+    search on the host); then the port's CPU decode of 4 of them from
+    the card's outprob rows; recognize.main with -nlr + -nrl ARPA files
+    on the cli task's 4 files; and register_user_lm with a Python
+    2-gram on 4 flagship utterances (the host re-scan, whose chunks
+    launch scan_win).  Returns the kernels' entries."""
+    import os
+
+    from julius_tpu_torch.engine import Engine
+    from julius_tpu_torch.io.arpa import write_arpa
+    from julius_tpu_torch.io.bingram import read_bingram
+    from julius_tpu_torch.io.htk_param import read_htk_param
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass1 as p1
+    from julius_tpu_torch.search import pass2_device as p2d
+    from julius_tpu_torch.search import pass2_rescan as p2r
+    from julius_tpu_torch.search import scan as scan_mod
+    from julius_tpu_torch.tools import recognize
+    from julius_tpu_torch.tools.synth import backward_ngram
+
+    t_phase = time.perf_counter()
+    kw = dict(dnn=eng.dnn_params, frontend=eng.fe_cfg,
+              search=eng.search_cfg)
+    bwd = backward_ngram(eng.lm)
+    t0 = time.perf_counter()
+    beng = Engine(eng.hmm, eng.voca, bwd, lm_forward=eng.lm, device=DEVICE,
+                  **kw)
+    build_s = time.perf_counter() - t0
+    if beng.lm_p1 is not eng.lm or beng._rescan_ok() \
+            or not p1.fused_ok(beng.dev_net, beng.p1_cfg):
+        raise RuntimeError("backward: the engine does not pair the "
+                           "forward 2-gram with the frozen backward search")
+    T = feats.shape[1]
+    beng.decode_features(feats[:2], lens_np[:2])        # warm-up
+    torch.cuda.synchronize()
+    with recorded_calls(pk, sk, p2d, scan_mod) as calls:
+        pk.LAUNCHES = sk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        bres = beng.decode_features(feats, lens_np)
+        wall = time.perf_counter() - t0
+        launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+    if launches != T or scan_launches != 0:
+        raise RuntimeError(f"backward: {launches} pass1_step launches for "
+                           f"{T} frames, {scan_launches} scan_win")
+    check_results(bres, "backward")
+    exact = exact_count(bres, truths)
+    from_pass2 = sum(r.from_pass == 2 for r in bres)
+    # the same decode staged: DNN, pass 1, the backward host search
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out_ext = beng._outprob(feats)
+    torch.cuda.synchronize()
+    dnn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr = beng._pass1(out_ext, lens_np)
+    torch.cuda.synchronize()
+    p1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        staged = beng._results(tr, lens_np, out_ext=out_ext)
+    search_s = time.perf_counter() - t0
+    if [r.word_ids for r in staged] != [r.word_ids for r in bres]:
+        raise RuntimeError("backward: staged decode differs")
+    measured = path_kernels("backward", calls, {"pass1_step": launches,
+                                                "scan_win": scan_launches},
+                            beng, card)
+    entries = kernel_entries("backward", measured)
+
+    # the port's own CPU decode of 4 of them, on the card's outprob rows
+    t0 = time.perf_counter()
+    cpu = Engine(eng.hmm, eng.voca, bwd, lm_forward=eng.lm, device="cpu",
+                 **kw)
+    side = slice(0, N_SIDE)
+    cres = cpu.decode_outprob(out_ext[side].cpu(), lens_np[side])
+    cpu_s = time.perf_counter() - t0
+    cpu_same = [r.word_ids for r in cres] == [r.word_ids for r in
+                                              bres[side]]
+    cpu_err = max(abs(a.score - b.score) for a, b in zip(cres, bres[side]))
+    del cpu
+
+    # the command line with -nlr + -nrl ARPA files on the cli task
+    runs = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nrl_")
+    try:
+        t0 = time.perf_counter()
+        fwd = read_bingram(files["lm"])
+        fwd_path = os.path.join(tmp, "fwd.arpa")
+        back_path = os.path.join(tmp, "back.arpa")
+        write_arpa(fwd, fwd_path)
+        write_arpa(backward_ngram(fwd), back_path)
+        arpa_s = time.perf_counter() - t0
+        inputs = files["utts"][:N_SIDE]
+        argv = ["-h", files["am"], "-v", files["dict"], "-nlr", fwd_path,
+                "-nrl", back_path, "-input", "mfcfile", "-batchsize",
+                str(N_SIDE)] + inputs
+        results = []
+        with recorded_calls(pk, sk, p2d, scan_mod) as calls:
+            pk.LAUNCHES = sk.LAUNCHES = 0
+            lines, cli_wall, built = run_cli(recognize, argv, results)
+            cli_launches, cli_scan = pk.LAUNCHES, sk.LAUNCHES
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t_run = max(read_htk_param(f).data.shape[0] for f in inputs)
+    if cli_launches != t_run or cli_scan != 0:
+        raise RuntimeError(f"cli_nrl: {cli_launches} pass1_step launches for "
+                           f"{t_run} frames, {cli_scan} scan_win")
+    check_results(results, "cli_nrl")
+    got = [ln.split(": ", 1)[1] if ": " in ln else ""
+           for ln in lines if ln.startswith("sentence1:")]
+    want = [" ".join(w for w in t if w not in ("<s>", "</s>"))
+            for t in files["truths"][:N_SIDE]]
+    runs["cli_nrl"] = dict(
+        files=N_SIDE, wall_s=cli_wall, arpa_write_s=arpa_s,
+        exact_transcripts=f"{sum(g == w for g, w in zip(got, want))}/"
+                          f"{N_SIDE}",
+        from_pass2=sum(r.from_pass == 2 for r in results),
+        pass1_step_launches=cli_launches, scan_win_launches=cli_scan)
+    entries += kernel_entries("cli_nrl", path_kernels(
+        "cli_nrl", calls, {"pass1_step": cli_launches,
+                           "scan_win": cli_scan}, built[0], card))
+    del calls, built
+
+    # an application LM for pass 2 (register_user_lm): the flagship
+    # 2-gram as a Python function of dictionary ids
+    m = eng._wid2lm
+    lm = eng.lm
+
+    def user_lm(ctx, w):
+        return lm.logprob(tuple(int(m[c]) for c in ctx[-1:]), int(m[w]))
+
+    beng.register_user_lm(user_lm)
+    if not beng._rescan_ok() or beng._device_astar_ok():
+        raise RuntimeError("user LM: pass 2 is not the host re-scan")
+    with recorded_calls(pk, sk, p2d, scan_mod) as calls:
+        pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+        t0 = time.perf_counter()
+        ures = beng.decode_features(feats[side], lens_np[side])
+        user_wall = time.perf_counter() - t0
+        u_launches, u_scan, u_chunks = pk.LAUNCHES, sk.LAUNCHES, p2r.CHUNKS
+    if u_launches != T or u_scan != u_chunks or u_scan == 0:
+        raise RuntimeError(f"user LM: {u_launches} pass1_step launches for "
+                           f"{T} frames, {u_scan} scan_win for {u_chunks} "
+                           "re-scan chunks")
+    check_results(ures, "user_lm")
+    user_same = [r.word_ids for r in ures] == [r.word_ids for r in
+                                               res[side]]
+    runs["user_lm"] = dict(utterances=N_SIDE, wall_s=user_wall,
+                           pass1_step_launches=u_launches,
+                           scan_win_launches=u_scan, rescan_chunks=u_chunks,
+                           words_equal_to_forward_decode=user_same,
+                           from_pass2=sum(r.from_pass == 2 for r in ures))
+    entries += kernel_entries("user_lm", path_kernels(
+        "user_lm", calls, {"pass1_step": u_launches, "scan_win": u_scan},
+        beng, card))
+    del calls
+    audio_s = float(lens_np.sum()) / 100.0
+    phase("backward", utterances=N_UTTS, frames=T, audio_s=audio_s,
+          engine_build_s=build_s, e2e_wall_s=wall, xrt=audio_s / wall,
+          dnn_wall_s=dnn_s, pass1_wall_s=p1_s,
+          backward_search_wall_s=search_s,
+          exact_transcripts=f"{exact}/{N_UTTS}", from_pass2=from_pass2,
+          pass1_step_launches=launches, scan_win_launches=scan_launches,
+          cpu_decode=dict(utterances=N_SIDE, word_ids_equal=cpu_same,
+                          max_score_err=cpu_err, wall_s=cpu_s),
+          runs=runs, phase_s=time.perf_counter() - t_phase, card=card)
+    if from_pass2 != N_UTTS or not cpu_same or cpu_err > 1e-2 \
+            or not user_same or runs["cli_nrl"]["from_pass2"] != N_SIDE:
+        raise RuntimeError(f"backward: {from_pass2}/{N_UTTS} from pass 2, "
+                           f"CPU words equal {cpu_same} ({cpu_err}), "
+                           f"user LM words equal {user_same}, {runs}")
+    return entries
+
+
+def full_scan_phase(eng, feats, card):
+    """The full-utterance word scan: ChainCache rows of 256 flagship words
+    (every sixteenth a pad), bit-equal to the device tables' rows;
+    scan_words over the whole batch (W = T) and one scan_words_store
+    round, each one launch of scan_win, held exactly against the plain
+    version (and two chains against the numpy oracle); then the kernel
+    timed at W = T beside its bound.  Returns the kernels' entries."""
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import scan as scan_mod
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(17)
+    V, K = eng.voca.n_words, 256
+    wids = rng.integers(0, V, K)
+    wids[::16] = -1
+    t0 = time.perf_counter()
+    rows = eng.chain_cache.rows(wids.tolist())
+    rows_s = time.perf_counter() - t0
+    tabs = eng.device_chains
+    trow = torch.as_tensor(np.where(wids >= 0, wids, V), device=DEVICE)
+    names = ("loc", "ent", "ext", "sidx")
+    if not all(np.array_equal(r, getattr(tabs, n)[trow].cpu().numpy())
+               for r, n in zip(rows, names)):
+        raise RuntimeError("full_scan: ChainCache rows differ from "
+                           "DeviceChainTables'")
+    with torch.no_grad():
+        out_ext = eng._outprob(feats)
+    B, T, R = out_ext.shape
+    N, K1 = tabs.nmax, tabs.kl + 1
+    seed = (-200.0 - 100.0 * rng.random((K, T))).astype(np.float32)
+    seed[rng.random((K, T)) < 0.6] = LOG_ZERO
+    seed[:, 5:20] = LOG_ZERO
+    bidx = rng.integers(0, B, K).astype(np.int32)
+    args = [torch.from_numpy(a).to(DEVICE)
+            for a in (*rows, seed, bidx)] + [out_ext]
+    # one scan_words_store round: sentence starts, pad chains whose
+    # out_row lies past the store, and anchors out of range
+    CAP, A = K + 16, 8
+    g0 = (-300.0 - 100.0 * rng.random((CAP, T))).astype(np.float32)
+    g0[rng.random((CAP, T)) < 0.5] = LOG_ZERO
+    b0 = rng.integers(0, T, (CAP, T)).astype(np.int32)
+    parents = rng.integers(0, CAP, K).astype(np.int32)
+    parents[:32] = -1
+    out_rows = rng.permutation(CAP)[:K].astype(np.int32)
+    out_rows[-4:] = CAP
+    anchors = rng.integers(0, T, (K, A)).astype(np.int32)
+    anchors[0, 0], anchors[1, 1] = T + 5, -1
+    lm_adds = (-20.0 * rng.random(K)).astype(np.float32)
+    sargs = [torch.from_numpy(a).to(DEVICE) for a in (
+        np.where(wids >= 0, wids, V), parents, lm_adds, bidx, out_rows,
+        anchors)]
+
+    def store_round():
+        gs = torch.tensor(g0, device=DEVICE)       # a fresh copy a round
+        bs = torch.tensor(b0, device=DEVICE)
+        return scan_mod.scan_words_store(
+            gs, bs, tabs.loc, tabs.ent, tabs.ext, tabs.sidx, *sargs,
+            out_ext, scan_beam=eng.search_cfg.scan_beam)
+
+    torch.cuda.synchronize()
+    sk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    g, beg = scan_mod.scan_words(*args)
+    torch.cuda.synchronize()
+    words_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = store_round()
+    torch.cuda.synchronize()
+    store_s = time.perf_counter() - t0
+    launches = sk.LAUNCHES
+    if launches != 2:
+        raise RuntimeError(f"full_scan: {launches} scan_win launches for "
+                           "one scan_words and one scan_words_store")
+    real = scan_mod.scan_core_win
+    scan_mod.scan_core_win = sk.scan_core_win_plain
+    try:
+        t0 = time.perf_counter()
+        wg, wbeg = scan_mod.scan_words(*args)
+        want = store_round()
+        plain_s = time.perf_counter() - t0
+    finally:
+        scan_mod.scan_core_win = real
+    err = float((g - wg).abs().max())
+    same = torch.equal(beg, wbeg) and torch.equal(got[1], want[1]) \
+        and torch.equal(got[3], want[3])
+    for i in (0, 2, 4):
+        d = (got[i] - want[i]).abs()
+        same &= bool(torch.equal(got[i].isnan(), want[i].isnan()))
+        err = max(err, float(torch.nan_to_num(d, nan=0.0).max()))
+    live = 0
+    oracle_err = 0.0
+    for k in (1, 2):
+        gr, br = scan_mod.scan_words_ref(
+            rows[0][k], rows[1][k], rows[2][k], rows[3][k], seed[k],
+            out_ext[bidx[k]].cpu().numpy())
+        fin = gr > LOG_ZERO / 2
+        live += int(fin.sum())
+        oracle_err = max(oracle_err, float(np.abs(
+            g[k].cpu().numpy()[fin] - gr[fin]).max(initial=0.0)))
+        same &= bool(np.array_equal(beg[k].cpu().numpy()[fin], br[fin]))
+    targs = dict(loc=args[0], ent=args[1], ext=args[2], sidx=args[3],
+                 seed=args[4], out_ext=out_ext, bidx=args[5],
+                 t0=torch.zeros(K, dtype=torch.int32, device=DEVICE))
+    t = time_scan(sk, targs, K, T, N, K1, n_plain=3)
+    phase("full_scan", chains=K, frames=T, batch=B, nodes=N,
+          arc_span_k=K1 - 1, chain_cache_rows_s=rows_s,
+          scan_words_wall_s=words_s, scan_words_store_wall_s=store_s,
+          plain_wall_s=plain_s, scan_win_launches=launches,
+          max_abs_err=err, integers_equal=same, oracle_max_err=oracle_err,
+          oracle_live_frames=live, **t, bytes=scan_bytes(K, T, N, K1),
+          us_per_frame=t["ms"] * 1e3 / T,
+          phase_s=time.perf_counter() - t_phase, card=card)
+    if err != 0.0 or not same or oracle_err > 1e-3 or not live:
+        raise RuntimeError(f"full_scan: kernel vs plain {err}, integers "
+                           f"equal {same}, oracle {oracle_err}")
+    return kernel_entries("full_scan", {"scan_win": dict(
+        launches=launches, max_abs_err=err, **t)})
+
+
+def parallel_phase(eng, feats, lens_np, truths, card):
+    """parallel/ on the one card, as meshes that repeat it: sharded_pass1
+    with S = 2 and 4 on one flagship utterance, against one shard (the
+    same trellis) and the single-device unfused pass 1 (the same words);
+    parallel_decode_fn with dp = 2 on 16 waveforms against the engine's
+    own front end, DNN and unfused pass 1 (the same trellis); the DNN
+    split over tp = 2 by shard_engine against the unsplit DNN (within
+    the bf16 rule's atol 2e-2).  Every path here runs pass 1's unfused
+    step, as the reference's does, so pass1_step is launched no time."""
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.parallel import mesh as pm
+    from julius_tpu_torch.parallel import sharded_pass1 as sp
+    from julius_tpu_torch.search import pass1 as p1
+
+    t_phase = time.perf_counter()
+    n0 = int(lens_np[0])
+    with torch.no_grad():
+        out1 = eng._outprob(feats[:1])[0, :n0]
+    pk.LAUNCHES = 0
+    single = p1.pass1_batch(eng.dev_net, eng.ngram_dev, eng.p1_cfg,
+                            out1[None], torch.tensor([n0]), use_kernel=False)
+    single = p1.Trellis(*[a[0] for a in single])
+
+    def words(tr):
+        r = p1.backtrace(p1.Trellis(*[a.cpu().numpy() for a in tr]), n0,
+                         eng.net.tail_word)
+        return [eng.voca.names[w] for w in r["words"]] if r else None
+
+    sharded, ref = {}, None
+    for S in (1, 2, 4):
+        mesh = pm.make_mesh(devices=[DEVICE] * S, tp=S)
+        snet = sp.partition_network(eng.net, eng.dev_net, S)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = sp.sharded_pass1(mesh, snet, eng.ngram_dev, eng.p1_cfg, out1,
+                              n0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if ref is None:
+            ref = tr
+        sharded[S] = dict(
+            ms_per_frame=wall * 1e3 / n0,
+            equal_to_one_shard=all(torch.equal(a, b)
+                                   for a, b in zip(tr, ref)),
+            frames_differing_from_single_device=int(
+                (tr.word != single.word).any(dim=1).sum()),
+            words_equal_truth=words(tr) == truths[0])
+    single_words = words(single)
+
+    # dp = 2: 16 waveforms of 3 s split over two rows of the card
+    rng = np.random.default_rng(5)
+    wave = (rng.standard_normal((N_UTTS, 48000)) * 2000).astype(np.float32)
+    lengths = np.full(N_UTTS, 48000, np.int32)
+    lengths[1::3] = 40000
+    fn = pm.parallel_decode_fn(eng, pm.make_mesh(devices=[DEVICE] * 2,
+                                                 tp=1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr, nfr = fn(wave, lengths)
+    torch.cuda.synchronize()
+    dp_s = time.perf_counter() - t0
+    with torch.no_grad():
+        fw, mask = eng._features(torch.from_numpy(wave).to(DEVICE),
+                                 torch.from_numpy(lengths).to(DEVICE))
+        n = mask.to(torch.int32).sum(dim=-1)
+        own = p1.pass1_batch(eng.dev_net, eng.ngram_dev, eng.p1_cfg,
+                             eng._outprob(fw), n, use_kernel=False)
+    dp_same = torch.equal(nfr, n) and all(torch.equal(a, b)
+                                          for a, b in zip(tr, own))
+
+    # tp = 2: the DNN split over a 1 x 2 mesh of the card
+    pm.shard_engine(eng, pm.make_mesh(devices=[DEVICE] * 2, tp=2))
+    rep = eng.mesh_replicas[0]
+    with torch.no_grad():
+        split = rep._outprob(feats[:N_SIDE])
+        whole = eng._outprob(feats[:N_SIDE])
+    tp_err = float((split - whole).abs().max())
+    n_layers = len(eng.dnn_scorer.weights)
+    budget = (n_layers + 1 + 1) // 2 + 1
+    collectives = rep.dnn_scorer.collectives
+    launches = pk.LAUNCHES
+    phase("parallel", device_count=torch.cuda.device_count(),
+          sharded=sharded, utterance_frames=n0,
+          single_device_words_equal_truth=single_words == truths[0],
+          dp2=dict(utterances=N_UTTS, frames=int(tr.word.shape[1]),
+                   wall_s=dp_s, trellis_equal_to_engine=dp_same),
+          tp2=dict(dnn_max_err=tp_err, collectives=collectives,
+                   collective_budget=budget, hidden_layers=n_layers),
+          pass1_step_launches=launches,
+          phase_s=time.perf_counter() - t_phase, card=card)
+    if not all(v["equal_to_one_shard"] and v["words_equal_truth"]
+               for v in sharded.values()) \
+            or single_words != truths[0] or not dp_same \
+            or tp_err > 2e-2 or collectives > budget or launches:
+        raise RuntimeError(f"parallel: sharded {sharded}, dp2 {dp_same}, "
+                           f"tp2 {tp_err} / {collectives}, "
+                           f"{launches} pass1_step launches")
+
+
+#: the flagship's published widths, as the reference-binary tools export them
+REF_SIZE = dict(n_words=5000, n_phones=668, hidden=2048, n_layers=5)
+
+
+def refexport_phase(card):
+    """The reference-binary tools' exports at flagship scale into a
+    temporary directory: refbaseline.export_model (binhmm, dictionary,
+    ARPA, dnnconf, npy) and refparity.export_flagship (ascii hmmdefs with
+    SIDs, dictionary, ARPA, dnn.conf, npy), each read back through the
+    port's readers against the in-memory model (binary tables bit-equal,
+    text at their printed digits); then 4 generative utterances written
+    as the spliced feature files the reference reads are decoded by the
+    port's command line from the exported files (-input mfcfile) against
+    the truths the export knows.  No reference binary is run.  Returns
+    the kernels' entries."""
+    import os
+
+    from julius_tpu_torch.io.arpa import load_arpa
+    from julius_tpu_torch.io.binhmm import read_binhmm
+    from julius_tpu_torch.io.dnn import load_dnn, parse_dnnconf
+    from julius_tpu_torch.io.htk_dict import load_htkdict
+    from julius_tpu_torch.io.htk_hmm import load_hmmdefs
+    from julius_tpu_torch.io.htk_param import HTKParam, write_htk_param
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass2_device as p2d
+    from julius_tpu_torch.search import pass2_rescan as p2r
+    from julius_tpu_torch.search import scan as scan_mod
+    from julius_tpu_torch.tools import recognize, refbaseline, refparity
+    from julius_tpu_torch.tools.synth import (make_dnn, make_flagship_utts,
+                                              make_hmmset, make_ngram,
+                                              make_vocabulary)
+
+    def at_digits(read, value, digits):
+        return float(np.max(np.abs(np.asarray(read, np.float64)
+                                   - np.asarray(value, np.float64)),
+                            initial=0.0)) <= 0.5 * 10.0 ** -digits + 1e-6
+
+    walls, checks = {}, {}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ref_")
+    try:
+        base = os.path.join(tmp, "base")
+        os.mkdir(base)
+        t0 = time.perf_counter()
+        paths = refbaseline.export_model(base, **REF_SIZE)
+        walls["export_model_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hmm = make_hmmset(n_phones=REF_SIZE["n_phones"], dim=120, seed=0)
+        voca = make_vocabulary(hmm, n_words=REF_SIZE["n_words"], seed=1)
+        lm = make_ngram(voca, seed=2)
+        dnn = make_dnn(dim_in=1320, hidden=REF_SIZE["hidden"],
+                       n_layers=REF_SIZE["n_layers"], n_out=hmm.n_states,
+                       seed=3)
+        rhmm, para = read_binhmm(paths["hmm"])
+        checks["binhmm_bit_equal"] = all(
+            np.array_equal(getattr(rhmm, f), getattr(hmm, f))
+            for f in ("means", "ivars", "gconst", "state_mix", "state_lw",
+                      "phone_states", "phone_ns", "phone_trans"))
+        rvoca = load_htkdict(paths["dict"])
+        checks["dict_equal"] = (rvoca.names == voca.names
+                                and rvoca.phones == voca.phones)
+        rlm = load_arpa(paths["lm"])
+        checks["arpa_at_6_digits"] = all(
+            set(rlm.ngrams[k]) == set(lm.ngrams[k]) and at_digits(
+                [rlm.ngrams[k][t] for t in lm.ngrams[k]],
+                list(lm.ngrams[k].values()), 6) for k in (0, 1))
+        rdnn = load_dnn(parse_dnnconf(paths["dnnconf"]), base)
+        # the reader turns a layer back to [in][out] only when it is not
+        # square: a square hidden layer comes back transposed, as the
+        # reference's reader reads it
+        checks["npy_bit_equal"] = all(
+            np.array_equal(a, b.T if b.shape[0] == b.shape[1] else b)
+            for a, b in zip(rdnn.weights + [rdnn.output_w],
+                            dnn.weights + [dnn.output_w])) and all(
+            np.array_equal(a, b) for a, b in zip(
+                rdnn.biases + [rdnn.output_b], dnn.biases + [dnn.output_b]))
+        # the prior is printed with 9 significant digits
+        checks["prior_log10_within_1e-6"] = bool(np.allclose(
+            rdnn.log_prior, dnn.log_prior, rtol=0, atol=1e-6))
+        walls["read_back_s"] = time.perf_counter() - t0
+
+        par = os.path.join(tmp, "parity")
+        t0 = time.perf_counter()
+        hmm2, voca2, lm2, dnn2, protos = refparity.export_flagship(
+            par, dim=120, context=11, **REF_SIZE)
+        walls["export_flagship_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rh = load_hmmdefs(os.path.join(par, "hmmdefs"))
+        # each read state's Gaussian against its <SID>'s in memory
+        rg = rh.state_mix[:, 0]
+        g = hmm2.state_mix[rh.state_sid, 0]
+        checks["hmmdefs_at_4_digits"] = (
+            sorted(rh.state_sid.tolist()) == list(range(hmm2.n_states))
+            and at_digits(rh.means[rg], hmm2.means[g], 4)
+            and at_digits(1.0 / rh.ivars[rg], 1.0 / hmm2.ivars[g], 4))
+        rlm2 = load_arpa(os.path.join(par, "lm.arpa"))
+        checks["lm_arpa_at_4_digits"] = all(
+            set(rlm2.ngrams[k]) == set(lm2.ngrams[k]) and at_digits(
+                [rlm2.ngrams[k][t][0] for t in lm2.ngrams[k]],
+                [v[0] for v in lm2.ngrams[k].values()], 4) for k in (0, 1))
+        rdnn2 = load_dnn(parse_dnnconf(os.path.join(par, "dnn.conf")), par)
+        checks["dnn_conf_npy_bit_equal"] = all(
+            np.array_equal(a, b.T if b.shape[0] == b.shape[1] else b)
+            for a, b in zip(rdnn2.weights + [rdnn2.output_w],
+                            dnn2.weights + [dnn2.output_w]))
+        walls["read_back_flagship_s"] = time.perf_counter() - t0
+
+        truths, wins, _ = make_flagship_utts(
+            hmm2, voca2, lm2, protos, N_SIDE, 120, 11, min_words=6,
+            max_words=12, seed=9)
+        inputs = []
+        for u, w in enumerate(wins):
+            inputs.append(os.path.join(par, f"utt{u:03d}.mfc"))
+            write_htk_param(inputs[-1], HTKParam(data=w, samp_period=100000,
+                                                 kind="USER"))
+        lmp = ["8.0", "-2.0"]
+        argv = ["-h", os.path.join(par, "hmmdefs"),
+                "-v", os.path.join(par, "words.dict"),
+                "-nlr", os.path.join(par, "lm.arpa"),
+                "-dnnconf", os.path.join(par, "dnn.conf"),
+                "-input", "mfcfile", "-lmp", *lmp, "-lmp2", *lmp, "-b", "0",
+                "-batchsize", str(N_SIDE)] + inputs
+        results = []
+        with recorded_calls(pk, sk, p2d, scan_mod) as calls:
+            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            p2d.LAST_STATS.clear()
+            lines, wall, built = run_cli(recognize, argv, results)
+            launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+        walls["cli_s"] = wall
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_results(results, "refexport_cli")
+    got = [ln.split(": ", 1)[1] if ": " in ln else ""
+           for ln in lines if ln.startswith("sentence1:")]
+    want = [" ".join(w for w in t if w not in ("<s>", "</s>"))
+            for t in truths]
+    exact = sum(a == b for a, b in zip(got, want))
+    entries = kernel_entries("refexport_cli", path_kernels(
+        "refexport_cli", calls, {"pass1_step": launches,
+                                 "scan_win": scan_launches}, built[0], card))
+    phase("refexport", walls=walls, checks=checks, files=N_SIDE,
+          exact_transcripts=f"{exact}/{N_SIDE}",
+          from_pass2=sum(r.from_pass == 2 for r in results),
+          pass1_step_launches=launches, scan_win_launches=scan_launches,
+          phase_s=time.perf_counter() - t_phase, card=card)
+    if not all(checks.values()) or len(got) != N_SIDE:
+        raise RuntimeError(f"refexport: {checks}, {len(got)} sentences")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2704,6 +3276,12 @@ def main() -> int:
         kernels += vecnet_phase(eng, card, feats, lens_np, truths, res)
         kernels += server_grammar_phase(card, task_files)
         kernels += tools_phase(eng, card, task_files)
+        # the last modules' paths, after every earlier phase
+        kernels += backward_phase(eng, feats, lens_np, truths, res, card,
+                                  task_files)
+        kernels += full_scan_phase(eng, feats, card)
+        parallel_phase(eng, feats, lens_np, truths, card)
+        kernels += refexport_phase(card)
     finally:
         shutil.rmtree(task_dir, ignore_errors=True)
 

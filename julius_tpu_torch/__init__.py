@@ -26,7 +26,12 @@ counterpart is easy to find:
   tools/   - besides those: model checks (checkmodel.py), the stage
              profiler (profile.py), model and grammar tools
              (modeltools.py), WER scoring (wer.py), the trellis
-             visualizer (visualize.py) and the synthetic models (synth.py)
+             visualizer (visualize.py), the synthetic models (synth.py)
+             and the julius 4.6 binary's exports and parity runs
+             (refbaseline.py, refparity.py)
+  parallel/ - a dp x tp mesh of torch devices in one process: the
+             batch split over dp, the DNN over tp (mesh.py), pass 1 over
+             word-aligned network shards (sharded_pass1.py)
   cache.py  - the on-disk network cache
   convert.py - carries the reference's parameters and tables across
 

@@ -22,12 +22,13 @@ kernel) with its retry/spot-check net through the host-driven re-scan
 `pass2_device=False` takes the host-driven re-scan alone, and
 `pass2_rescan=False` the frozen-score stack search (search/pass2.py);
 `strict_iwcd2` resolves word-head triphones against the previous word
-in both re-scans (search/iwcd2.py).  One Engine = one AM + one LM (for
-both passes) + one search config; it owns the device tables.  Live
+in both re-scans (search/iwcd2.py).  A backward (RL) N-gram drives pass
+2 through the frozen backward stack search (`pass2_search_backward`)
+while pass 1 runs its forward 2-gram (`lm_forward`, or the pair inside
+an RL bingram); `register_user_lm` replaces the pass-2 LM with an
+application function.  One Engine = one AM + one LM (pass 2) with its
+pass-1 view + one search config; it owns the device tables.  Live
 input decodes through streaming.py's StreamSession over an Engine.
-
-Configurations outside the port raise NotImplementedError naming the
-ROADMAP.md item that brings them; nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -43,12 +44,12 @@ from julius_tpu_torch.cache import build_network_cached
 from julius_tpu_torch.config import AMConfig, FrontendConfig, SearchConfig
 from julius_tpu_torch.frontend import mfcc as fe
 from julius_tpu_torch.frontend.gmm_frontend import power_reject
-from julius_tpu_torch.io.arpa import NGramLM
+from julius_tpu_torch.io.arpa import NGramLM, forward_view
 from julius_tpu_torch.io.dfa import DFAGrammar
 from julius_tpu_torch.io.dnn import DNNParams
 from julius_tpu_torch.io.htk_dict import Vocabulary
 from julius_tpu_torch.models.hmm import HMMSet
-from julius_tpu_torch.ops.dnn import DNNScorer, build_dnn_scorer, dnn_scores
+from julius_tpu_torch.ops.dnn import DNNScorer, build_dnn_scorer
 from julius_tpu_torch.ops.gmm import (GMMScorerTables, aggregate_pseudo,
                                       build_gmm_tables, senone_scores)
 from julius_tpu_torch.ops.gms import GMSTables, build_gms, gms_senone_scores
@@ -60,7 +61,7 @@ from julius_tpu_torch.search import pass2_device as p2d
 from julius_tpu_torch.search import pass2_rescan as p2r
 from julius_tpu_torch.search.iwcd2 import StrictIWCDTables, build_rc_tables
 from julius_tpu_torch.search.network import DecodeNetwork, build_network
-from julius_tpu_torch.search.scan import DeviceChainTables
+from julius_tpu_torch.search.scan import ChainCache, DeviceChainTables
 from julius_tpu_torch.search.ngram_device import (DeviceNgram,
                                                   build_device_ngram)
 from julius_tpu_torch.utils.callback import CallbackRegistry
@@ -90,11 +91,6 @@ class Result:
     reject_reason: Optional[str] = None
 
 
-def unsupported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the torch port yet: ROADMAP.md queue 1, {item}")
-
-
 class Engine:
     """One recognition instance (DNN or GMM AM + N-gram, DFA grammar or
     word list + search)."""
@@ -121,11 +117,6 @@ class Engine:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if lm is not None and getattr(lm, "direction", "LR") == "RL":
-            raise unsupported("a backward (RL) N-gram", "backward N-gram")
-        if lm_forward is not None:
-            raise unsupported("a separate forward 2-gram for pass 1 "
-                              "(lm_forward)", "backward N-gram")
         if dfa is not None and word_cat is None:
             raise ValueError("a DFA grammar needs word_cat, the category "
                              "of each dictionary word")
@@ -135,7 +126,11 @@ class Engine:
         self.am_cfg = am_cfg or AMConfig()
         self.hmm = hmm
         self.voca = voca
-        self.lm = lm
+        self.lm = lm            # pass-2 LM (forward or backward/RL)
+        # pass 1 always runs a forward 2-gram: the reference pairs one
+        # with the backward N-gram (m_fusion.c initialize_ngram)
+        self.lm_p1 = (forward_view(lm, lm_forward)
+                      if lm is not None and lm.direction == "RL" else lm)
         self.dfa = dfa
         self.word_cat = word_cat
         self.lmtype = lmtype
@@ -146,7 +141,10 @@ class Engine:
         sc = self.search_cfg
 
         self._resolve_silwords()
-        self._wid2lm = self._map_vocab_to_lm(lm)
+        self._wid2lm = self._map_vocab_to_lm(self.lm_p1)
+        # pass 2 may use another id space (separate -nlr / -nrl ARPAs)
+        self._wid2lm_p2 = (self._wid2lm if self.lm is self.lm_p1
+                           else self._map_vocab_to_lm(self.lm))
 
         use_tri = hmm.names_are_triphone and not self.am_cfg.force_mono
         net_kwargs = dict(use_triphone=use_tri, iwsp=iwsp, sp_name=sp_name,
@@ -155,7 +153,8 @@ class Engine:
             build_network_cached(hmm, voca, **net_kwargs) if use_cache
             else build_network(hmm, voca, **net_kwargs))
         self.ngram_dev: Optional[DeviceNgram] = (
-            build_device_ngram(lm, self.device) if lm is not None else None)
+            build_device_ngram(self.lm_p1, self.device)
+            if self.lm_p1 is not None else None)
         self.final_mask: Optional[np.ndarray] = None
         cpair = cat_init = cat_final = None
         if dfa is not None:
@@ -227,6 +226,7 @@ class Engine:
                                      self.device)
         self._setup_pseudo_arrays()
         self._device_chains = None  # lazy search.scan.DeviceChainTables
+        self._chain_cache = None    # lazy search.scan.ChainCache
         self._iwcd2_tables = None   # lazy search.iwcd2.StrictIWCDTables
         self._rescan_warned = False
         self._p2d_best_in = None    # cached pass2_device._best_lm_in
@@ -287,16 +287,20 @@ class Engine:
 
     def _rescan_ok(self) -> bool:
         """True when pass 2 should re-derive acoustics with scan_word
-        (reference search_bestfirst_v1.c:589): N-gram and grammar modes.
-        AMs whose in-word topology is not left-to-right (backward arcs,
-        which the shift-structured chain scan cannot express) fall back
-        to the frozen-score search instead of raising mid-decode."""
+        (reference search_bestfirst_v1.c:589): N-gram and grammar modes;
+        a backward (RL) N-gram keeps the frozen-score search.  AMs whose
+        in-word topology is not left-to-right (backward arcs, which the
+        shift-structured chain scan cannot express) fall back to the
+        frozen-score search instead of raising mid-decode."""
         if not self.search_cfg.pass2_rescan:
             return False
         if self.lmtype == "grammar":
             if self.dfa is None:
                 return False
-        elif self.lmtype != "ngram":
+        elif self.lmtype == "ngram":
+            if self.lm is not None and self.lm.direction == "RL":
+                return False
+        else:
             return False
         try:
             self.device_chains
@@ -326,6 +330,14 @@ class Engine:
         return self._device_chains
 
     @property
+    def chain_cache(self) -> ChainCache:
+        """Per-word chain tables on the host, built lazily word by word
+        (search.scan.ChainCache, for the full-utterance scan)."""
+        if self._chain_cache is None:
+            self._chain_cache = ChainCache(self.net)
+        return self._chain_cache
+
+    @property
     def iwcd2_tables(self) -> Optional[StrictIWCDTables]:
         """Strict inter-word CD head tables for the re-scans
         (search/iwcd2.py), built on first use when
@@ -340,15 +352,16 @@ class Engine:
 
     def _device_astar_ok(self) -> bool:
         """True when the second pass can run fully on the device
-        (search/pass2_device.py): a forward N-gram of order <= 2, no
-        transparent-word LM context skipping, at most NB_SLOTS
-        sentences, and no during-search graph collection.  Everything
+        (search/pass2_device.py): a forward N-gram of order <= 2 shared
+        with pass 1, no transparent-word LM context skipping, at most
+        NB_SLOTS sentences, and no during-search graph collection.  Everything
         else keeps the host-driven re-scan (pass2_rescan.py), which
         implements the full semantics."""
         sc = self.search_cfg
         if not sc.pass2_device or self.lmtype != "ngram":
             return False
-        if self.lm is None or self.ngram_dev is None:
+        if self.lm is None or self.lm is not self.lm_p1 \
+                or self.ngram_dev is None:
             return False
         if getattr(self.lm, "order", 99) > 2:
             return False
@@ -365,7 +378,7 @@ class Engine:
             return p2r.DfaStrategy(self.dfa, self.word_cat, self.search_cfg)
         transparent = np.asarray(self.voca.transparent, dtype=bool) \
             if self.voca.transparent else None
-        return p2r.NgramStrategy(self.lm, self._wid2lm, self.search_cfg,
+        return p2r.NgramStrategy(self.lm, self._wid2lm_p2, self.search_cfg,
                                  self.net.tail_word, transparent,
                                  self._cprob_arr())
 
@@ -379,7 +392,7 @@ class Engine:
     def _senones(self, feats: torch.Tensor) -> torch.Tensor:
         """[B, T, D] features -> [B, T, S] senone score rows."""
         if self.dnn_scorer is not None:
-            out = dnn_scores(self.dnn_scorer, feats)     # [B, T, n_out]
+            out = self.dnn_scorer(feats)                 # [B, T, n_out]
             return out.index_select(-1, self._state_sid)
         am = self.am_cfg
         topk = am.gprune_num if am.gprune == "topk" else 0
@@ -610,7 +623,7 @@ class Engine:
                 self._rescan_strategy(), self.device_chains.loc.shape[0])
         t0 = time.perf_counter()
         nbest_lists = p2d.run_batch(
-            lattices, self.device_chains, self.ngram_dev, self._wid2lm,
+            lattices, self.device_chains, self.ngram_dev, self._wid2lm_p2,
             self._cprob_arr(), out_ext, self._rescan_strategy(), sc,
             best_in=self._p2d_best_in, iwcd2=self.iwcd2_tables)
         t1 = time.perf_counter()
@@ -700,7 +713,7 @@ class Engine:
                 and self._device_astar_ok():
             nbest = p2d.run_batch(
                 [lattice], self.device_chains, self.ngram_dev,
-                self._wid2lm, self._cprob_arr(), out_ext,
+                self._wid2lm_p2, self._cprob_arr(), out_ext,
                 self._rescan_strategy(), sc, iwcd2=self.iwcd2_tables)[0]
             comparable = (sc.lm_weight == sc.lm_weight2
                           and sc.lm_penalty == sc.lm_penalty2
@@ -738,9 +751,14 @@ class Engine:
         else:
             transparent = np.asarray(self.voca.transparent, dtype=bool) \
                 if self.voca.transparent else None
-            nbest = p2.pass2_search(lattice, self.lm, self._wid2lm, sc,
-                                    self.net.tail_word, transparent,
-                                    self._cprob_arr())
+            if self.lm is not None and self.lm.direction == "RL":
+                nbest = p2.pass2_search_backward(
+                    lattice, self.lm, self._wid2lm_p2, sc,
+                    self.net.tail_word, self.net.head_word, transparent)
+            else:
+                nbest = p2.pass2_search(lattice, self.lm, self._wid2lm_p2,
+                                        sc, self.net.tail_word, transparent,
+                                        self._cprob_arr())
         if not nbest:
             return None
         return self._assemble_pass2(nbest, lattice, gwords=gwords)
@@ -869,3 +887,25 @@ class Engine:
         L.append(f" outputs: n-best={sc.output_n}"
                  + (" + " + "/".join(outs) if outs else ""))
         return "\n".join(L)
+
+    def register_user_lm(self, fn, order: int = 2) -> None:
+        """Install an application-provided LM for pass-2 rescoring
+        (reference j_regist_user_lm_func, jfunc.c / LM_NGRAM_USER).
+
+        ``fn(context_word_ids, word_id) -> log10 prob`` receives
+        *dictionary* word ids (most recent context last).  Pass-1
+        factoring scores still come from the loaded N-gram: as in the
+        reference, pass 1 only approximates and pass 2 decides."""
+
+        class _UserLM:
+            direction = "LR"
+
+            def __init__(self, f, k):
+                self.order = k
+                self._f = f
+
+            def logprob(self, ctx, w):
+                return float(self._f(tuple(int(c) for c in ctx), int(w)))
+
+        self.lm = _UserLM(fn, order)
+        self._wid2lm_p2 = np.arange(self.voca.n_words, dtype=np.int64)

@@ -14,7 +14,8 @@ an isolated-word list (-w).  A -gmm model set becomes every engine's GMM
 input verification and GMM-VAD front end (frontend/gmm_frontend.py,
 with -gmmreject, -gmmnoise, -gmmmargin, -gmmup, -gmmdown), and
 -powerthres every engine's power rejection.  A backward N-gram (-nrl)
-raises NotImplementedError naming its ROADMAP.md queue-1 item.
+drives pass 2, with the forward 2-gram of -nlr (or of an RL bingram's
+pair) for pass 1.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import numpy as np
 
 from julius_tpu_torch.config import (AMConfig, EngineConfig, LMConfig,
                                      parse_feature_type)
-from julius_tpu_torch.engine import Engine, unsupported
+from julius_tpu_torch.engine import Engine
 from julius_tpu_torch.frontend.gmm_frontend import GMMFrontend
 from julius_tpu_torch.io.arpa import load_arpa
 from julius_tpu_torch.io.binhmm import read_binhmm
@@ -113,23 +114,27 @@ def _apply_dict_extras(voca, lm: LMConfig) -> None:
 
 def load_lm(lm: LMConfig):
     """Load the LM block's dictionary and language model.  Returns
-    (lmtype, voca, ngram, dfa, word_cat): the N-gram (None for a
-    dictionary without -d/-nlr) in ngram mode, the automaton and each
-    word's category in grammar mode, neither in word mode."""
+    (lmtype, voca, ngram, dfa, word_cat, forward): the N-gram (None for
+    a dictionary without -d/-nlr/-nrl) in ngram mode, with the forward
+    2-gram of an -nlr + -nrl pair as `forward` (the backward model is
+    then `ngram`), the automaton and each word's category in grammar
+    mode, neither in word mode."""
     if lm.lmtype == "ngram":
-        if lm.ngram_backward_path:
-            raise unsupported("a backward (RL) N-gram (-nrl)",
-                              "backward N-gram")
         if not lm.dict_path:
             raise ValueError(f"LM '{lm.name}': ngram mode needs -v dict")
         voca = load_htkdict(lm.dict_path)
         _apply_dict_extras(voca, lm)
-        ngram = None
+        ngram = fwd = None
         if lm.ngram_path:
             ngram = (read_bingram(lm.ngram_path)
                      if _is_bingram(lm.ngram_path)
                      else load_arpa(lm.ngram_path))
-        return "ngram", voca, ngram, None, None
+        if lm.ngram_backward_path:
+            # -nlr + -nrl pair: the backward model drives pass 2, the
+            # forward 2-gram pass 1 (reference initialize_ngram)
+            fwd = ngram
+            ngram = load_arpa(lm.ngram_backward_path, direction="RL")
+        return "ngram", voca, ngram, None, None, fwd
     if lm.lmtype == "grammar":
         if lm.gram_prefix:
             dfa, voca, word_cat = load_grammar(lm.gram_prefix)
@@ -152,11 +157,12 @@ def load_lm(lm: LMConfig):
             raise ValueError(
                 f"LM '{lm.name}': grammar mode needs -gram/-gramlist or "
                 "-dfa + -v")
-        return "grammar", voca, None, dfa, word_cat
+        return "grammar", voca, None, dfa, word_cat, None
     if lm.lmtype == "word":
         if not lm.wordlist_path:
             raise ValueError(f"LM '{lm.name}': word mode needs -w list")
-        return "word", load_wordlist(lm.wordlist_path), None, None, None
+        return "word", load_wordlist(lm.wordlist_path), None, None, None, \
+            None
     raise ValueError(f"unknown lmtype {lm.lmtype}")
 
 
@@ -223,11 +229,12 @@ def create_engines(cfg: EngineConfig, device="cuda") -> List[Engine]:
         hmm, dnn, gshmm = am_cache[id(am_cfg)]
         if id(lm_cfg) not in lm_cache:
             lm_cache[id(lm_cfg)] = load_lm(lm_cfg)
-        lmtype, voca, ngram, dfa, word_cat = lm_cache[id(lm_cfg)]
+        lmtype, voca, ngram, dfa, word_cat, lm_fwd = lm_cache[id(lm_cfg)]
         eng = Engine(hmm, voca, lm=ngram, dnn=dnn,
                      frontend=am_cfg.frontend, search=sr, am_cfg=am_cfg,
                      dfa=dfa, word_cat=word_cat, lmtype=lmtype,
-                     iwsp=lm_cfg.enable_iwsp, gshmm=gshmm, device=device)
+                     iwsp=lm_cfg.enable_iwsp, lm_forward=lm_fwd,
+                     gshmm=gshmm, device=device)
         shift = am_cfg.frontend.shift_ms or 10.0
         if am_cfg.sscalc:
             am_cfg.frontend.sscalc_frames = max(

@@ -222,3 +222,37 @@ def write_arpa(lm: NGramLM, path: str) -> None:
                 else:
                     f.write(f"{p:.6f}\t{ws}\n")
         f.write("\n\\end\\\n")
+
+
+def forward_view(lm: NGramLM,
+                 forward: Optional["NGramLM"] = None) -> "NGramLM":
+    """A forward 2-gram view for pass-1 from an RL model pair.
+
+    The reference pairs a forward 2-gram with the backward N-gram
+    (mkbingram -nlr/-nrl; ngram2.h bo_wt_1/p_2).  Given the explicit
+    forward model, returns it; given an RL model read from a bingram
+    pair (with .forward_bigram / .forward_bo_uni attached by
+    io.bingram), synthesizes a forward 2-gram over the same word ids."""
+    if lm.direction == "LR":
+        return lm
+    if forward is not None:
+        return forward
+    fwd_bi = getattr(lm, "forward_bigram", None)
+    if fwd_bi is None:
+        raise ValueError(
+            "backward N-gram needs a forward 2-gram for pass 1 "
+            "(give -nlr, or use a bingram containing the pair)")
+    uni = dict(lm.ngrams[0])
+    bo1 = getattr(lm, "forward_bo_uni", None)
+    if bo1 is not None:
+        uni = {t: (p, float(bo1[t[0]]) if t[0] < len(bo1) else 0.0)
+               for t, (p, _b) in uni.items()}
+    return NGramLM(
+        order=2,
+        words=lm.words,
+        word_index=lm.word_index,
+        ngrams=[uni, {t: (p, 0.0) for t, p in fwd_bi.items()}],
+        direction="LR",
+        bos_id=lm.bos_id, eos_id=lm.eos_id, unk_id=lm.unk_id,
+        unk_num=lm.unk_num,
+    )

@@ -4,10 +4,16 @@ Reference: libsent/src/anlz/rdparam.c:198 (read), wrsamp.c (write),
 paramtypes.c (param-kind codes).  Binary format: 12-byte header
 (nSamples int32, sampPeriod int32 [100ns], sampSize int16 [bytes],
 parmKind int16) big-endian, followed by float32 vectors (big-endian).
+
+A copy of `julius_tpu/io/htk_param.py` but for one deliberate
+difference: a big-endian file of vectors wider than 5000 bytes that
+holds exactly its vectors is read as such (julius_tpu's reader takes it
+for little-endian and raises).
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from dataclasses import dataclass
 from typing import Tuple
@@ -56,13 +62,19 @@ class HTKParam:
 
 
 def read_htk_param(path: str) -> HTKParam:
+    file_size = os.path.getsize(path)
     with open(path, "rb") as f:
         hdr = f.read(12)
         n, period, size, kind = struct.unpack(">iihh", hdr)
         little_endian = False
         # heuristically detect little-endian files (reference rdparam.c
-        # retries with byte swap when the header is implausible)
-        if n <= 0 or size <= 0 or size > 5000:
+        # retries with byte swap when the header is implausible).  A
+        # big-endian header of a vector wider than 5000 bytes (the
+        # reference's DNN input rows: 1320 floats are 5280) is taken
+        # when the file holds exactly its n vectors, where
+        # julius_tpu's reader would swap it and fail
+        wide_ok = 12 + n * size == file_size
+        if n <= 0 or size <= 0 or (size > 5000 and not wide_ok):
             n, period, size, kind = struct.unpack("<iihh", hdr)
             little_endian = True
             if n <= 0 or size <= 0:

@@ -479,18 +479,19 @@ def pass1_step(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
 
 def pass1_batch(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
                 cfg: Pass1Config, out_ext: torch.Tensor,
-                n_frames: torch.Tensor) -> Trellis:
+                n_frames: torch.Tensor, use_kernel: bool = True) -> Trellis:
     """[B, T, R] extended outprob rows + [B] valid frame counts ->
     Trellis of [B, T, M] tensors (atom row t holds word-ends at frame
     t).  Reference: get_back_trellis pass1.c:616.  Each frame launches
     the beam-update kernel where `fused_ok` holds, else runs
-    `pass1_step`."""
+    `pass1_step`; use_kernel=False runs `pass1_step` everywhere (the
+    reference's `use_pallas=False`, which its mesh decode sets)."""
     B, T, _ = out_ext.shape
     M = cfg.n_atoms
     device = out_ext.device
     n_frames = n_frames.to(device=device, dtype=torch.int32)
     out_ext = out_ext.to(torch.float32).contiguous()
-    fused = fused_ok(dev, cfg)
+    fused = use_kernel and fused_ok(dev, cfg)
     if fused:
         etot = entry_total(dev)
         loc = dev.loc_lp.contiguous()

@@ -21,10 +21,12 @@ Word boundaries are fixed to pass-1 Viterbi boundaries (the reference
 re-derives them in scan_word; a device-batched boundary refinement is the
 planned next step — see SURVEY.md §7 step 6).
 
-This is a copy of `julius_tpu/search/pass2.py`'s forward frozen-score
-searches, the N-gram one and the DFA grammar one (with `TrellisLattice`,
-`NBestResult` and `confidence_scores`); the backward-LM search comes
-with the ROADMAP item that needs it.
+This is a copy of `julius_tpu/search/pass2.py`'s frozen-score searches:
+the forward N-gram one, the backward one for an RL model
+(`pass2_search_backward`, growing sentence suffixes from the end with
+the backward N-gram) and the DFA grammar one (with `TrellisLattice`,
+`NBestResult` and `confidence_scores`).  The reference's unused
+`_suffix_table` is left out.
 """
 
 from __future__ import annotations
@@ -219,6 +221,116 @@ def pass2_search(
     return results
 
 
+def pass2_search_backward(
+    lattice: TrellisLattice,
+    lm: Optional[NGramLM],
+    wid2lm: Optional[np.ndarray],
+    cfg: SearchConfig,
+    tail_word: int,
+    head_word: int,
+    transparent: Optional[np.ndarray] = None,
+) -> List[NBestResult]:
+    """Backward stack decoding with a BACKWARD (RL) N-gram — the exact
+    shape of the reference's pass 2 (search_bestfirst_main.c:1234
+    wchmm_fbs growing hypotheses from the sentence end with the -nrl
+    model).  Hypotheses are sentence suffixes; extending with an earlier
+    word v scores P_bwd(v | following words), i.e. lm.logprob with the
+    following words as context (nearest last, reversed-text
+    convention)."""
+    T, M = lattice.T, lattice.M
+    if T == 0:
+        return []
+    lw2, pen2 = cfg.lm_weight2, cfg.lm_penalty2
+
+    def lm_logprob(following: Tuple[int, ...], w: int) -> float:
+        if lm is None or wid2lm is None:
+            return 0.0
+        wl = int(wid2lm[w])
+        if wl < 0:
+            return -99.0
+        # context ordered oldest-first in reversed text = farthest
+        # following word first
+        ctx = []
+        need = lm.order - 1
+        for f in following[:need][::-1]:
+            if wid2lm[f] >= 0:
+                ctx.append(int(wid2lm[f]))
+        return lm.logprob(tuple(ctx), wl)
+
+    def suffix_ctx(words: Tuple[int, ...]) -> Tuple[int, ...]:
+        """Nearest following words first, transparent skipped."""
+        out = []
+        need = (lm.order - 1) if lm is not None else 1
+        for w in words:
+            if transparent is not None and transparent[w]:
+                continue
+            out.append(w)
+            if len(out) >= need:
+                break
+        return tuple(out)
+
+    best_total = float(np.max(np.where(lattice.word >= 0, lattice.score,
+                                       -np.inf)))
+    if not np.isfinite(best_total):
+        return []
+
+    stack: List[Hypo] = []
+    # initial: tail-word atoms at the final frame; the suffix LM score
+    # P_bwd(</s>) is its unigram
+    for (t, m) in lattice.by_end(T - 1):
+        w = int(lattice.word[t, m])
+        if w != tail_word:
+            continue
+        am = lattice.am_of(t, m)
+        lms = lw2 * lm_logprob((), w) + pen2
+        rest = _prefix_estimate(lattice, int(lattice.begin[t, m]))
+        heapq.heappush(stack, Hypo(
+            score=am + lms + rest, atom=lattice.atom_id(t, m),
+            words=(w,), lm_score=lms, am_score=am,
+            bounds=((int(lattice.begin[t, m]), t),)))
+
+    results: List[NBestResult] = []
+    seen: Dict[Tuple[int, Tuple[int, ...]], int] = {}
+    n_pop = 0
+    while stack and len(results) < cfg.nbest and n_pop < cfg.max_hypo_pop:
+        h = heapq.heappop(stack)
+        n_pop += 1
+        t, m = divmod(h.atom, M)
+        key = (h.atom, suffix_ctx(h.words))
+        cnt = seen.get(key, 0)
+        if cnt >= cfg.nbest:
+            continue
+        seen[key] = cnt + 1
+        b = int(lattice.begin[t, m])
+        exact = h.score - _prefix_estimate(lattice, b)
+        if b == 0:
+            results.append(NBestResult(
+                word_ids=list(reversed(h.words)),
+                score=exact,
+                am_score=h.am_score, lm_score=h.lm_score,
+                bounds=list(reversed(h.bounds))))
+            continue
+        for (pt, pm) in lattice.by_end(b - 1):
+            v = int(lattice.word[pt, pm])
+            am = lattice.am_of(pt, pm)
+            lms = lw2 * lm_logprob(suffix_ctx(h.words), v) + pen2
+            nsc = exact + am + lms
+            rest = _prefix_estimate(lattice, int(lattice.begin[pt, pm]))
+            if len(stack) >= cfg.stack_size * 4:
+                stack.sort()
+                del stack[cfg.stack_size:]
+                heapq.heapify(stack)
+            heapq.heappush(stack, Hypo(
+                score=nsc + rest,
+                atom=lattice.atom_id(pt, pm),
+                words=h.words + (v,),
+                lm_score=h.lm_score + lms,
+                am_score=h.am_score + am,
+                bounds=h.bounds + ((int(lattice.begin[pt, pm]), pt),)))
+    results.sort(key=lambda r: -r.score)
+    return results
+
+
 def _final_best(lattice: TrellisLattice) -> float:
     """Best pass-1 cumulative score over FINAL-FRAME atoms (complete
     paths — a max over ALL atoms picks an early-frame atom whenever
@@ -227,6 +339,19 @@ def _final_best(lattice: TrellisLattice) -> float:
     valid = lattice.word[lattice.T - 1] >= 0
     if not valid.any():
         return float("-inf")
+    return float(np.max(np.where(valid, row, -np.inf)))
+
+
+def _prefix_estimate(lattice: TrellisLattice, begin: int) -> float:
+    """Pass-1 estimate of the best path covering frames 0..begin-1
+    (the reference uses pass-1 backscores the same way): best atom score
+    ending at begin-1."""
+    if begin <= 0:
+        return 0.0
+    row = lattice.score[begin - 1]
+    valid = lattice.word[begin - 1] >= 0
+    if not valid.any():
+        return 0.0
     return float(np.max(np.where(valid, row, -np.inf)))
 
 

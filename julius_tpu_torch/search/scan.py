@@ -14,17 +14,21 @@ so in-word arcs have local span (dst - src <= KL) and the per-frame
 update is KL+1 shifted adds.  Whole-vocabulary chain tables live on the
 engine's device (`DeviceChainTables`); one scan advances K chains over a
 W-frame window each, in one launch of the hand-written kernel
-(ops/scan_kernel.py, csrc/scan_win.cu).
+(ops/scan_kernel.py, csrc/scan_win.cu).  The full-utterance forms
+(`scan_words`, `scan_words_store`, over host `ChainCache` rows) are the
+same launch with every window at frame 0 and W = T.
 
-Indexing rules: JAX clamps out-of-range gather indices and drops
-out-of-range scatter writes (`mode="drop"`), where torch raises on the
-CPU and faults on the card.  Every index here is clamped or redirected
-explicitly to give JAX's result (see `scan_words_store_win`).
+Indexing rules: JAX clamps out-of-range gather indices, drops
+out-of-range scatter writes and fills out-of-range `take_along_axis`
+reads (NaN, or the integer minimum), and wraps negative indices once,
+where torch raises on the CPU and faults on the card.  Every index here
+is clamped, redirected or masked explicitly to give JAX's result (see
+`scan_words_store_win`, `scan_words_store`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +60,84 @@ def bucket_w(span: int, T: int) -> int:
         if span <= b:
             return min(b, T)
     return T
+
+
+class ChainCache:
+    """Per-word chain tables sliced from the flat decode network, on the
+    host.
+
+    Lazy per word: large vocabularies only pay for words that actually
+    appear in a trellis.  All tables are padded to the vocabulary's
+    longest word (`nmax` nodes) so one scan covers any mix; a word's
+    rows equal its `DeviceChainTables` rows."""
+
+    def __init__(self, net: DecodeNetwork):
+        self.net = net
+        ofs = net.word_node_ofs
+        self.nmax = int(np.max(np.diff(ofs))) if len(ofs) > 1 else 1
+        # in-word arc span bound (the flat network has no cross-word
+        # arcs, so this is exactly pass 1's local_k)
+        N, Din = net.in_src.shape
+        valid = net.in_lp > NEG_HALF
+        span = (np.arange(N, dtype=np.int64)[:, None]
+                - net.in_src.astype(np.int64))
+        if valid.any():
+            smax, smin = int(span[valid].max()), int(span[valid].min())
+        else:
+            smax = smin = 0
+        if smin < 0:
+            raise ValueError("decode network has backward in-word arcs; "
+                             "scan_word requires a left-to-right lexicon")
+        self.kl = smax
+        self._rows: Dict[int, Tuple[np.ndarray, ...]] = {}
+
+    def _build(self, w: int):
+        net = self.net
+        n0 = int(net.word_node_ofs[w])
+        n1 = int(net.word_node_ofs[w + 1])
+        nw = n1 - n0
+        nm, kl = self.nmax, self.kl
+        loc = np.full((kl + 1, nm), LOG_ZERO, dtype=np.float32)
+        src = net.in_src[n0:n1].astype(np.int64) - n0
+        lp = net.in_lp[n0:n1]
+        dst = np.arange(nw, dtype=np.int64)[:, None]
+        ok = lp > NEG_HALF
+        ii, dd = np.nonzero(ok)
+        np.maximum.at(loc, ((dst - src)[ii, dd], ii), lp[ii, dd])
+        ent = np.full(nm, LOG_ZERO, dtype=np.float32)
+        ent[:nw] = net.entry_lp[n0:n1]
+        ext = np.full(nm, LOG_ZERO, dtype=np.float32)
+        ext[:nw] = net.exit_lp[n0:n1]
+        sidx = np.zeros(nm, dtype=np.int32)
+        sidx[:nw] = net.score_idx[n0:n1]
+        return loc, ent, ext, sidx
+
+    def rows(self, word_ids) -> Tuple[np.ndarray, ...]:
+        """Stack chain tables for a list of word ids (pad id -1 = dead
+        chain that scores LOG_ZERO everywhere): (loc [K, KL+1, nmax],
+        ent, ext [K, nmax] f32, sidx [K, nmax] i32)."""
+        locs, ents, exts, sidxs = [], [], [], []
+        dead = None
+        for w in word_ids:
+            if w < 0:
+                if dead is None:
+                    dead = (np.full((self.kl + 1, self.nmax), LOG_ZERO,
+                                    np.float32),
+                            np.full(self.nmax, LOG_ZERO, np.float32),
+                            np.full(self.nmax, LOG_ZERO, np.float32),
+                            np.zeros(self.nmax, np.int32))
+                r = dead
+            else:
+                r = self._rows.get(w)
+                if r is None:
+                    r = self._build(w)
+                    self._rows[w] = r
+            locs.append(r[0])
+            ents.append(r[1])
+            exts.append(r[2])
+            sidxs.append(r[3])
+        return (np.stack(locs), np.stack(ents), np.stack(exts),
+                np.stack(sidxs))
 
 
 #: DeviceChainTables tensor fields, with their dtypes (convert.py reads
@@ -133,6 +215,119 @@ def head_substituted_sidx(sidx: torch.Tensor, wids: torch.Tensor,
     jj = torch.arange(H, device=sidx.device)[None, :]
     over = torch.where(jj < head_ns[wids][:, None], over, sidx[:, :H])
     return torch.cat([over, sidx[:, H:]], dim=1).contiguous()
+
+
+def _full_scan(loc, ent, ext, sidx, seed, bidx, out_ext):
+    """One launch of the windowed scan with every window the whole
+    utterance (t0 = 0, W = T): (g, beg, sv) [K, T]."""
+    K = seed.shape[0]
+    t0 = torch.zeros(K, dtype=torch.int32, device=seed.device)
+    return scan_core_win(
+        loc.to(torch.float32).contiguous(), ent.to(torch.float32).contiguous(),
+        ext.to(torch.float32).contiguous(), sidx.to(torch.int32).contiguous(),
+        seed.to(torch.float32).contiguous(),
+        out_ext.to(torch.float32).contiguous(),
+        bidx.to(torch.int32).contiguous(), t0)
+
+
+def scan_words(loc: torch.Tensor, ent: torch.Tensor, ext: torch.Tensor,
+               sidx: torch.Tensor, seed: torch.Tensor, bidx: torch.Tensor,
+               out_ext: torch.Tensor):
+    """Advance K word chains over the whole utterance in one scan.
+
+    loc   [K, KL+1, N]  shifted in-word arc scores (ln)
+    ent   [K, N]        word-entry ln p (LOG_ZERO on non-entry nodes)
+    ext   [K, N]        word-exit ln p
+    sidx  [K, N]        columns of the extended outprob table
+    seed  [K, T]        score available for *entering* at frame t
+                        (prev hypothesis score at t-1, LM already added)
+    bidx  [K]           utterance index of each chain into out_ext
+    out_ext [B, T, R]   whole-batch outprob cache
+
+    Returns (g [K, T], beg [K, T] int32): g[k, t] = best score with the
+    word ending exactly at frame t; beg[k, t] = the entry frame of that
+    best path (the refined word-begin boundary).  One launch of the
+    scan kernel on the card (ops/scan_kernel.py), its plain version on
+    the CPU."""
+    g, beg, _ = _full_scan(loc, ent, ext, sidx, seed, bidx, out_ext)
+    return g, beg
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] as a JAX gather reads it: a negative index wraps once, then
+    every index is clamped into range."""
+    n = x.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    return x[idx]
+
+
+def _take_along_fill(x: torch.Tensor, idx: torch.Tensor, fill):
+    """jnp.take_along_axis(x, idx, axis=1): a negative index wraps once;
+    an index still out of range reads `fill`."""
+    n = x.shape[1]
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    return torch.where(ok, x.gather(1, idx.clamp(0, n - 1)),
+                       torch.full_like(x[:, :1], fill))
+
+
+def scan_words_store(g_store: torch.Tensor, beg_store: torch.Tensor,
+                     loc_all: torch.Tensor, ent_all: torch.Tensor,
+                     ext_all: torch.Tensor, sidx_all: torch.Tensor,
+                     wids: torch.Tensor, parents: torch.Tensor,
+                     lm_adds: torch.Tensor, bidx: torch.Tensor,
+                     out_rows: torch.Tensor, anchors: torch.Tensor,
+                     out_ext: torch.Tensor, scan_beam: float = 0.0):
+    """Device-resident A* round over the whole utterance: seeds come from
+    stored parent g rows, results go back into the store, and only the
+    anchor-frame scores come back.
+
+    g_store / beg_store [CAP, T]; loc_all ... sidx_all whole-vocabulary
+    chain tables (`DeviceChainTables` fields); wids / parents / lm_adds /
+    bidx / out_rows [K]; anchors [K, A] frame indices; out_ext [B, T, R].
+    parents < 0 = the word starts the sentence (seed = lm_add at frame
+    0).  Returns (g_store', beg_store', ganch, banch, sanch), the stores
+    written in place and returned, the last three [K, A] at the anchor
+    frames: g values, refined word-begin frames, and the seed carried
+    from the winning entry (ganch - sanch = the word's local AM + LM
+    score, for pass-2 graph words).
+
+    Out-of-range indices behave as in JAX: an out_row outside the store
+    (after one negative wrap) drops its write, an anchor outside [0, T)
+    reads NaN (banch: the int32 minimum), a word id or parent past the
+    table reads the last row."""
+    T = g_store.shape[1]
+    wids = wids.long()
+    loc = _take_rows(loc_all, wids)                   # [K, KL+1, N]
+    ent = _take_rows(ent_all, wids)
+    ext = _take_rows(ext_all, wids)
+    sidx = _take_rows(sidx_all, wids)
+    parents = parents.long()
+    pg = _take_rows(g_store, parents.clamp(min=0))    # [K, T]
+    K = wids.shape[0]
+    ext_seed = torch.cat(
+        [pg.new_full((K, 1), LOG_ZERO), pg[:, :-1]], dim=1) \
+        + lm_adds[:, None]
+    if scan_beam > 0.0:
+        m = ext_seed.amax(dim=1, keepdim=True)
+        ext_seed = torch.where(
+            (m > NEG_HALF) & (ext_seed < m - scan_beam),
+            LOG_ZERO, ext_seed)
+    init_seed = torch.full_like(ext_seed, LOG_ZERO)
+    init_seed[:, 0] = lm_adds
+    seed = torch.where(parents[:, None] >= 0, ext_seed, init_seed)
+    g, beg, sv = _full_scan(loc, ent, ext, sidx, seed, bidx, out_ext)
+    cap = g_store.shape[0]
+    rows = out_rows.long()
+    rows = torch.where(rows < 0, rows + cap, rows)
+    keep = (rows >= 0) & (rows < cap)
+    g_store[rows[keep]] = g[keep]
+    beg_store[rows[keep]] = beg[keep]
+    anchors = anchors.long()
+    ganch = _take_along_fill(g, anchors, float("nan"))
+    banch = _take_along_fill(beg, anchors, torch.iinfo(torch.int32).min)
+    sanch = _take_along_fill(sv, anchors, float("nan"))
+    return g_store, beg_store, ganch, banch, sanch
 
 
 def scan_words_store_win(g_store: torch.Tensor, beg_store: torch.Tensor,

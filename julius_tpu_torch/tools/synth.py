@@ -13,7 +13,8 @@ model, dictionary, N-gram and feature files the command line reads;
 command grammar, `grammar_sentences` samples word sequences the grammar
 accepts, `make_word_utts` turns given word sequences into generative
 utterances, and `write_grammar_task` writes a grammar and an
-isolated-word list beside a `write_gmm_task` task.
+isolated-word list beside a `write_gmm_task` task.  `backward_ngram`
+turns a 2-gram into the backward (RL) model of a -nlr / -nrl pair.
 """
 
 from __future__ import annotations
@@ -109,6 +110,18 @@ def make_ngram(voca: Vocabulary, n_bigrams_per_word: int = 12,
         ngrams=[uni, bi],
         bos_id=0, eos_id=1,
     )
+
+
+def backward_ngram(lm: NGramLM) -> NGramLM:
+    """The 2-gram `lm` as a backward (RL) model: the same unigrams, each
+    bigram (v, w) turned into (w, v) with its probability (as if trained
+    on reversed sentences; adequate for decode-machinery checks), BOS
+    and EOS swapped as the reference does for RL models
+    (ngram2.h:169)."""
+    return dataclasses.replace(
+        lm, ngrams=[dict(lm.ngrams[0]),
+                    {(b, a): p for (a, b), p in lm.ngrams[1].items()}],
+        direction="RL", bos_id=lm.eos_id, eos_id=lm.bos_id)
 
 
 def make_dnn(dim_in: int = 1320, hidden: int = 2048, n_layers: int = 5,

@@ -23,8 +23,8 @@ tools/recognize.py) and the lattice/confnet/MBR outputs
   decode), -48, -gmm verification, -powerthres and the -walign /
   -palign / -salign alignment lines print the same lines in both
   packages;
-* options whose paths the port has not yet raise NotImplementedError
-  naming their ROADMAP.md item, and the CLI needs CUDA unless the CPU
+* an option set that cannot decode (-nrl with no forward 2-gram)
+  raises as the reference's does, and the CLI needs CUDA unless the CPU
   is asked for.
 """
 
@@ -45,10 +45,13 @@ from julius_tpu.search import graphout as jgo
 from julius_tpu.search import pass2 as jp2
 from julius_tpu.tools import recognize as jrec
 from julius_tpu_torch import fusion as tfusion
+from julius_tpu_torch.io import arpa as tarpa
+from julius_tpu_torch.io.bingram import read_bingram
 from julius_tpu_torch.jconf import parse_jconf as tparse
 from julius_tpu_torch.search import graphout as tgo
 from julius_tpu_torch.tools import recognize as trec
-from julius_tpu_torch.tools.synth import write_gmm_task, write_grammar_task
+from julius_tpu_torch.tools.synth import (backward_ngram, write_gmm_task,
+                                          write_grammar_task)
 
 import torch_fixtures  # noqa: F401  (one intra-op thread a worker)
 
@@ -354,18 +357,26 @@ def test_live_input_and_rejection_print_like_reference(live_task, case):
 
 
 UNPORTED = [
-    (["-nrl", "{d}/back.arpa"], "backward N-gram"),
+    (["-nrl", "{d}/back.arpa"], "backward N-gram needs a forward 2-gram"),
 ]
 
 
 @pytest.mark.parametrize("extra,item", UNPORTED,
                          ids=[e[0] for e, _ in UNPORTED])
 def test_unported_options_raise(task, extra, item):
+    """Every option of the reference's command line has its path in the
+    port; the ones that cannot decode raise as the reference's do: a
+    backward N-gram (-nrl) with no forward 2-gram for pass 1 (neither
+    -nlr nor -d) is a ValueError in both packages.  (-nrl beside one
+    decodes: tests/test_torch_backward_lm.py.)"""
     d, _, files = task
-    argv = ["-C", str(d / "run.jconf"), files["utts"][0]] + [
-        a.format(d=d) for a in extra]
-    with pytest.raises(NotImplementedError, match=item):
-        run_main(trec.main, argv, device="cpu")
+    tarpa.write_arpa(backward_ngram(read_bingram(files["lm"])),
+                     str(d / "back.arpa"))
+    argv = ["-h", files["am"], "-v", files["dict"], "-input", "mfcfile",
+            files["utts"][0]] + [a.format(d=d) for a in extra]
+    for main, kw in ((trec.main, dict(device="cpu")), (jrec.main, {})):
+        with pytest.raises(ValueError, match=item):
+            run_main(main, argv, **kw)
 
 
 def test_cli_needs_cuda_unless_cpu_is_asked(task, monkeypatch):

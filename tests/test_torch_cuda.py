@@ -8,7 +8,11 @@ line on GMM-HMM model files likewise; pass 1's unfused step (factoring
 and a grammar decode on the card against the CPU; the f32 products
 that stay full f32 when the caller turns TF32 on; a stream on the card
 against the batch decode, the alignment Viterbi on the card against the
-CPU, and the native audio-input library built into the package.
+CPU, and the native audio-input library built into the package; a
+backward N-gram pair and an application LM decoding on the card like
+the CPU, the full-utterance scan on the card equal to its plain version
+(and its limits raising), and parallel/ on a mesh that repeats the
+card.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference package, so it also runs where
@@ -783,3 +787,132 @@ def test_changegram_rebuild_keeps_the_engine_device(engines):
     want = ref.decode_features(x[None], n)[0]
     assert got.word_ids == want.word_ids
     assert got.score == pytest.approx(want.score, abs=1e-2)
+
+
+# ---- the backward N-gram, the full-utterance scan and parallel/
+
+
+def pair_engines(cpu, lm, **kw):
+    """The small flagship's model with `lm` on the card and on the CPU."""
+    from julius_tpu_torch.engine import Engine
+    args = dict(dnn=cpu.dnn_params, frontend=cpu.fe_cfg,
+                search=cpu.search_cfg, **kw)
+    return (Engine(cpu.hmm, cpu.voca, lm, device="cuda", **args),
+            Engine(cpu.hmm, cpu.voca, lm, device="cpu", **args))
+
+
+def test_backward_pair_on_card_matches_cpu(engines):
+    """Pass 1 on the forward 2-gram launches the beam-update kernel a
+    frame; the frozen backward search launches no scan."""
+    _, cpu, feats, lens = engines
+    card, host = pair_engines(cpu, synth.backward_ngram(cpu.lm),
+                              lm_forward=cpu.lm)
+    before = tpk.LAUNCHES, tsk.LAUNCHES
+    got = card.decode_features(feats, lens)
+    assert tpk.LAUNCHES - before[0] == feats.shape[1]
+    assert tsk.LAUNCHES == before[1]
+    want = host.decode_features(feats, lens)
+    assert [r.word_ids for r in got] == [r.word_ids for r in want]
+    assert all(r.from_pass == 2 for r in got)
+    for g, w in zip(got, want):
+        assert g.score == pytest.approx(w.score, abs=1e-2)
+
+
+def test_user_lm_on_card_matches_cpu(engines):
+    _, cpu, feats, lens = engines
+    card, host = pair_engines(cpu, cpu.lm)
+    for e in (card, host):
+        e.register_user_lm(lambda ctx, w: cpu.lm.logprob(tuple(ctx[-1:]), w))
+    before = tsk.LAUNCHES
+    got = card.decode_features(feats, lens)
+    assert tsk.LAUNCHES > before
+    want = host.decode_features(feats, lens)
+    assert [r.word_ids for r in got] == [r.word_ids for r in want]
+
+
+def test_full_scan_on_card_matches_plain(engines):
+    from julius_tpu_torch.search import scan as tscan
+    eng, cpu, feats, lens = engines
+    rng = np.random.default_rng(3)
+    wids = rng.integers(-1, eng.voca.n_words, 40)
+    rows = eng.chain_cache.rows(wids.tolist())
+    with torch.no_grad():
+        out = eng._outprob(torch.from_numpy(feats).cuda())
+    B, T, _ = out.shape
+    seed = rng.integers(-60, -20, (40, T)).astype(np.float32)
+    seed[rng.random((40, T)) < 0.6] = -1e10
+    bidx = rng.integers(0, B, 40).astype(np.int32)
+    host = [torch.from_numpy(a) for a in (*rows, seed, bidx)]
+    before = tsk.LAUNCHES
+    g, beg = tscan.scan_words(*[a.cuda() for a in host], out)
+    assert tsk.LAUNCHES == before + 1
+    wg, wbeg = tscan.scan_words(*host, out.cpu())
+    assert torch.equal(g.cpu(), wg) and torch.equal(beg.cpu(), wbeg)
+    tabs, ctabs = eng.device_chains, cpu.device_chains
+    cap = 48
+    g0 = rng.integers(-90, -30, (cap, T)).astype(np.float32)
+    b0 = rng.integers(0, T, (cap, T)).astype(np.int32)
+    ints = [np.where(wids >= 0, wids, -1), rng.integers(-1, cap, 40),
+            rng.integers(-20, 0, 40).astype(np.float32), bidx,
+            rng.permutation(cap + 4)[:40], rng.integers(-2, T + 3, (40, 6))]
+    got = tscan.scan_words_store(
+        torch.tensor(g0, device="cuda"), torch.tensor(b0, device="cuda"),
+        tabs.loc, tabs.ent, tabs.ext, tabs.sidx,
+        *[torch.tensor(a, device="cuda") for a in ints], out)
+    want = tscan.scan_words_store(
+        torch.tensor(g0), torch.tensor(b0), ctabs.loc, ctabs.ent, ctabs.ext,
+        ctabs.sidx, *[torch.tensor(a) for a in ints], out.cpu())
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().nan_to_num(), b.nan_to_num())
+
+
+def test_scan_kernel_limits_raise(cuda):
+    """Chains the kernel cannot hold raise instead of being cut."""
+    from julius_tpu_torch.search import scan as tscan
+    f, i = torch.float32, torch.int32
+    out = torch.zeros(1, 8, 4, device=cuda)
+    for K1, N in ((tsk.MAX_K1 + 1, 4), (2, tsk.MAX_NODES + 1)):
+        loc = torch.zeros(2, K1, N, device=cuda)
+        node = torch.zeros(2, N, device=cuda)
+        with pytest.raises(ValueError, match="shifts|nodes"):
+            tscan.scan_words(loc, node, node, node.to(i),
+                             torch.zeros(2, 8, dtype=f, device=cuda),
+                             torch.zeros(2, dtype=i, device=cuda), out)
+
+
+def test_parallel_on_card_matches_one_device(engines):
+    from julius_tpu_torch.parallel import mesh as pm
+    from julius_tpu_torch.parallel import sharded_pass1 as sp
+    eng, cpu, feats, lens = engines
+    n = int(lens[0])
+    with torch.no_grad():
+        out = eng._outprob(torch.from_numpy(feats[:1]).cuda())[0, :n]
+    trs = {}
+    for S, dev, e in ((1, "cuda", eng), (2, "cuda", eng), (2, "cpu", cpu)):
+        trs[S, dev] = sp.sharded_pass1(
+            pm.make_mesh(devices=[dev] * S, tp=S),
+            sp.partition_network(e.net, e.dev_net, S), e.ngram_dev,
+            e.p1_cfg, out.to(dev), n)
+    for key in ((2, "cuda"), (2, "cpu")):
+        for a, b in zip(trs[key], trs[1, "cuda"]):
+            assert torch.equal(a.cpu(), b.cpu())
+    rng = np.random.default_rng(4)
+    wave = (rng.standard_normal((4, 16000)) * 1000).astype(np.float32)
+    lengths = np.asarray([16000, 12000, 16000, 9000], np.int32)
+    before = tpk.LAUNCHES
+    tr, nfr = pm.parallel_decode_fn(
+        eng, pm.make_mesh(devices=["cuda"] * 2))(wave, lengths)
+    assert tpk.LAUNCHES == before
+    with torch.no_grad():
+        fw, mask = eng._features(torch.from_numpy(wave).cuda(),
+                                 torch.from_numpy(lengths).cuda())
+        own = tp1.pass1_batch(eng.dev_net, eng.ngram_dev, eng.p1_cfg,
+                              eng._outprob(fw), mask.sum(-1),
+                              use_kernel=False)
+    for a, b in zip(tr, own):
+        assert torch.equal(a, b)
+    pm.shard_engine(eng, pm.make_mesh(devices=["cuda"] * 2, tp=2))
+    x = torch.from_numpy(feats[:2]).cuda()
+    with torch.no_grad():
+        err = (eng.mesh_replicas[0]._outprob(x) - eng._outprob(x)).abs()
+    assert float(err.max()) <= 2e-2

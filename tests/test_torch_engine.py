@@ -144,10 +144,19 @@ def test_engine_needs_cuda_unless_cpu_is_asked(reference, monkeypatch):
 
 
 def test_configurations_outside_the_slice_raise(reference):
+    """The port has every configuration of the reference now: the one
+    left that raises, a backward (RL) N-gram with no forward 2-gram for
+    pass 1, raises the reference's ValueError; a forward LM with an
+    lm_forward beside it builds, and pass 1 runs the LM itself."""
     eng = reference[0]
-    with pytest.raises(NotImplementedError, match="backward N-gram"):
-        Engine(eng.hmm, eng.voca, eng.lm, dnn=eng.dnn_params,
-               lm_forward=eng.lm, device="cpu")
+    rl = tsynth.backward_ngram(eng.lm)
+    for E in (JaxEngine, lambda *a, **k: Engine(*a, **k, device="cpu")):
+        with pytest.raises(ValueError, match="needs a forward 2-gram"):
+            E(eng.hmm, eng.voca, rl, dnn=eng.dnn_params)
+    teng = Engine(eng.hmm, eng.voca, eng.lm, dnn=eng.dnn_params,
+                  lm_forward=rl, device="cpu")
+    assert teng.lm is teng.lm_p1 is eng.lm
+    assert teng._wid2lm_p2 is teng._wid2lm
 
 
 def test_engine_takes_the_reference_arguments_in_order():
