@@ -197,6 +197,7 @@ N_LVCSR = 32                  # bench.py's lvcsr_20k batch
 N_RC = 8                      # lvcsr utterances for head_rc_dynamic
 N_CATS = 40                   # word categories of the grammar phase
 N_WAVE, WAVE_S = 64, 10.0     # bench.py's waveform batch and length
+STEP_BATCHES = (64, 32, N_UTTS, 4, 2, 1)   # pass1_step's kernel phase
 DEVICE = "cuda"
 LOG_ZERO = -1e10
 
@@ -213,11 +214,18 @@ def card_line() -> str:
     return out[torch.cuda.current_device()] if out else ""
 
 
-def step_inputs(dev, etot, B, R, seed, ties):
+def step_inputs(dev, etot, B, R, seed, ties, padded=False):
     """One frame's beam-update arguments at the network's shapes.
     ties=True: integer-valued scores and arc/entry tables, so shifted
-    candidates and entries tie exactly; else the network's own tables."""
+    candidates and entries tie exactly; else the network's own tables.
+    padded=True: the node axis as pass1_batch gives it to the kernel
+    (`search.pass1.kernel_tables`: padded to a multiple of 4)."""
+    from julius_tpu_torch.search.pass1 import kernel_tables
     g = torch.Generator(device=DEVICE).manual_seed(seed)
+    sidx = dev.score_idx
+    if padded:
+        loc_k, etot, sidx = kernel_tables(dev)
+        dev = types.SimpleNamespace(loc_lp=loc_k)
     N, K1 = dev.loc_lp.shape[1], dev.loc_lp.shape[0]
 
     def rnd(*shape):
@@ -246,7 +254,7 @@ def step_inputs(dev, etot, B, R, seed, ties):
         score=score, ctx=rint(-1, 5000, B, N).int(),
         prev=rint(-1, 100000, B, N).int(), loc_lp=loc.contiguous(),
         entry_total=et.contiguous(), row=-10.0 * rnd(B, R),
-        score_idx=dev.score_idx, ent_s=ent, ectx_s=rint(-1, 5000, B).int(),
+        score_idx=sidx, ent_s=ent, ectx_s=rint(-1, 5000, B).int(),
         eprev_s=rint(-1, 100000, B).int(), frame_valid=fv)
 
 
@@ -418,6 +426,20 @@ def time_step(pk, args, B, N, K1, R):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def step_ways(pk, args, flush):
+    """pass1_step's time two more ways: (b) chain_ms, a chain of 60
+    launches each fed the previous one's outputs as pass 1 feeds them,
+    one event pair around it; (c) cold_ms, the median of 30 launches each
+    after `flush` (an l2_flush: L2 overwritten, outside the events)."""
+    from julius_tpu_torch.utils.cuda_timing import chain_ms, time_ms
+    return dict(
+        chain_ms=chain_ms(
+            lambda s: pk.fused_step(**dict(args, score=s[0], ctx=s[1],
+                                           prev=s[2])),
+            (args["score"], args["ctx"], args["prev"])),
+        cold_ms=time_ms(lambda: pk.fused_step(**args), n=30, before=flush))
+
+
 def time_scan(sk, args, K, W, N, K1, n_plain=50):
     """scan_win's device time, its plain version's and its bound."""
     from julius_tpu_torch.utils.cuda_timing import time_ms
@@ -452,7 +474,7 @@ def lvcsr_phase(card):
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.search import pass2_rescan as p2r
     from julius_tpu_torch.tools.synth import lvcsr_engine, make_lvcsr_utts
-    from julius_tpu_torch.utils.cuda_timing import time_ms
+    from julius_tpu_torch.utils.cuda_timing import l2_flush, time_ms
 
     t0 = time.perf_counter()
     eng, protos = lvcsr_engine(n_words=20000, hidden=2048, n_layers=5,
@@ -484,8 +506,10 @@ def lvcsr_phase(card):
     etot = p1.entry_total(dev)
     step_err = 0.0
     for ties in (True, False):
-        args = step_inputs(dev, etot, N_LVCSR, R, seed=21 + ties, ties=ties)
-        step_err = max(step_err, compare_step(pk, args)[0])
+        for padded in (True, False):
+            args = step_inputs(dev, etot, N_LVCSR, R, seed=21 + ties,
+                               ties=ties, padded=padded)
+            step_err = max(step_err, compare_step(pk, args)[0])
     K_A, W_A = N_LVCSR * p2d.POPS, min(p2d.SCAN_WIN, T)
     scan_err = 0.0
     for ties in (True, False):
@@ -496,10 +520,16 @@ def lvcsr_phase(card):
           pass1_step_max_abs_err=step_err, scan_win_max_abs_err=scan_err,
           pass1_step_shape=[N_LVCSR, N, K1 - 1, R],
           scan_win_shape=[K_A, W_A, tabs.nmax, tabs.kl, R])
-    args = step_inputs(dev, etot, N_LVCSR, R, seed=25, ties=False)
-    step_t = time_step(pk, args, N_LVCSR, N, K1, R)
+    args = step_inputs(dev, etot, N_LVCSR, R, seed=25, ties=False,
+                       padded=True)
+    Np = args["score"].shape[1]
+    step_t = time_step(pk, args, N_LVCSR, Np, K1, R)
+    ways = step_ways(pk, args, l2_flush(DEVICE))
     phase("kernel_time", path="lvcsr", kernel="pass1_step", batch=N_LVCSR,
-          nodes=N, columns=R, **step_t, library_ms=None, card=card)
+          nodes=Np, columns=R, **step_t, **ways,
+          cold_share_of_bound=step_t["bound_ms"] / ways["cold_ms"],
+          plan=pk._plan(args["score"].device, N_LVCSR, Np, K1)._asdict(),
+          library_ms=None, card=card)
     args = scan_inputs(tabs, K_A, W_A, T, R, N_LVCSR, 27, False, heads=heads)
     scan_t = time_scan(sk, args, K_A, W_A, tabs.nmax, tabs.kl + 1)
     phase("kernel_time", path="lvcsr", kernel="scan_win", chains=K_A,
@@ -3026,13 +3056,16 @@ def main() -> int:
           exits=int(dev.exit_nodes.shape[0]), words=eng.voca.n_words,
           trellis_m=eng.p1_cfg.n_atoms)
 
-    # ---- kernel vs plain at the main path's shapes
+    # ---- kernel vs plain at the main path's shapes and the batch sizes
+    # the other paths give it (4: cli_lattice, 2: cli_gshmm, 1: cli_48)
     max_err = 0.0
-    for B in (64, N_UTTS, 1):
+    for B in STEP_BATCHES:
         for ties in (True, False):
-            args = step_inputs(dev, etot, B, R, seed=B + ties, ties=ties)
-            err, _ = compare_step(pk, args)
-            max_err = max(max_err, err)
+            for padded in (True, False):
+                args = step_inputs(dev, etot, B, R, seed=B + ties,
+                                   ties=ties, padded=padded)
+                err, _ = compare_step(pk, args)
+                max_err = max(max_err, err)
     # a run of frames, each fed the previous frame's output
     args = step_inputs(dev, etot, 64, R, seed=7, ties=False)
     for f in range(6):
@@ -3041,18 +3074,31 @@ def main() -> int:
         args = dict(args, score=out[0], ctx=out[1], prev=out[2],
                     row=args["row"].roll(f + 1, dims=1),
                     frame_valid=args["frame_valid"].roll(1))
+    Np = p1.kernel_tables(dev)[0].shape[1]
     phase("kernel_check", kernel="pass1_step", max_abs_err=max_err,
-          shapes=[[B, N, K1 - 1] for B in (64, N_UTTS, 1)])
+          shapes=[[B, n, K1 - 1] for B in STEP_BATCHES for n in (Np, N)])
 
+    # each shape timed three ways (step_ways), beside one empty launch of
+    # the same library timed as (a): the floor of a launch
+    from julius_tpu_torch.utils.cuda_timing import l2_flush, time_ms
+    flush = l2_flush(DEVICE)
+    floor_ms = time_ms(pk.empty_launch)
+    phase("launch_floor", kernel="empty", ms=floor_ms, card=card)
+    # at the main path's shape: the node axis padded as pass1_batch pads
     timings = {}
-    for B in (64, N_UTTS, 1):
-        args = step_inputs(dev, etot, B, R, seed=11, ties=False)
-        timings[B] = t = time_step(pk, args, B, N, K1, R)
-        nbytes = step_bytes(B, N, K1, R)
-        phase("kernel_time", kernel="pass1_step", batch=B, nodes=N, **t,
+    for B in STEP_BATCHES:
+        args = step_inputs(dev, etot, B, R, seed=11, ties=False, padded=True)
+        timings[B] = t = time_step(pk, args, B, Np, K1, R)
+        ways = step_ways(pk, args, flush)
+        nbytes = step_bytes(B, Np, K1, R)
+        phase("kernel_time", kernel="pass1_step", batch=B, nodes=Np, **t,
+              **ways, cold_share_of_bound=t["bound_ms"] / ways["cold_ms"],
               bytes=nbytes, gb_per_s=nbytes / t["ms"] / 1e6,
               share_of_hbm=nbytes / (t["ms"] * 1e-3) / HBM_BYTES_PER_S,
+              launch_floor_ms=floor_ms,
+              plan=pk._plan(args["score"].device, B, Np, K1)._asdict(),
               library_ms=None, card=card)
+    del flush
 
     # ---- scan_win vs plain: the device A*'s shape, two window buckets of
     # the host re-scan, then the kernel's edges: one frame, a chunk less

@@ -13,12 +13,16 @@ takes the same arguments so the two stay comparable.
 `fused_step` runs the plain version only for CPU tensors.  For CUDA
 tensors it launches the kernel or raises; `LAUNCHES` counts launches.
 The kernel is built with nvcc at first use, from the source in this
-package (ops/cuda_build.py).
+package (ops/cuda_build.py).  `launch_plan` sizes its launch: one block
+a tile of nodes across all B rows, the tile's tables in shared memory
+for all of them, its warps sharing the rows, each lane holding one
+16-byte chunk of a row's state.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +33,13 @@ NEG_HALF = LOG_ZERO / 2
 MAX_K1 = 9              # K + 1 with K <= search.pass1.MAX_LOCAL_K
 
 SOURCE = cuda_build.CSRC / "pass1_step.cu"
+
+# launch plan limits, as csrc/pass1_step.cu takes them
+N_SM = 132              # SMs of an H100 SXM
+MAX_WARPS = 8           # warps a block (the kernel's launch bound)
+TAB_STRIDE = 128        # words a tile row takes in shared memory
+L2_BYTES = 50 << 20     # L2 of an H100: a larger output is streamed out
+MODEL_REGISTERS = 96    # registers a thread, for plans made off the card
 
 #: kernel launches made through `fused_step` in this process
 LAUNCHES = 0
@@ -72,18 +83,102 @@ def fused_step_plain(score, ctx, prev, loc_lp, entry_total, row, score_idx,
             torch.where(fv, p, prev))
 
 
+def tile_nodes(K1: int) -> int:
+    """Nodes a tile: a warp's 32 lanes hold one 16-byte chunk each, the
+    first ceil(K / 4) the chunks in front of the tile (its halo), and the
+    others less one the tile at any alignment."""
+    return 4 * (31 - (K1 + 2) // 4)
+
+
+def modelled_blocks_per_sm(warps: int) -> int:
+    """Blocks of `warps` warps an H100 SM holds at once at
+    MODEL_REGISTERS registers a thread (the card's own count comes from
+    the built kernel, `fused_step`)."""
+    return min(32, 64 // warps, 65536 // (32 * warps * MODEL_REGISTERS))
+
+
+class LaunchPlan(NamedTuple):
+    """How one frame launches: one block a tile of `tile` nodes
+    (`n_tiles` blocks, the last tile ragged) with its K+1 arc rows, entry
+    totals and senone ids in shared memory for all B rows (K+3 rows of
+    `tab_stride` words, `smem_bytes` in all), and `warps` warps sharing
+    the rows (warp w takes rows w, w + warps, ...); `stream_out` stores
+    with the streaming hint."""
+
+    tile: int
+    n_tiles: int
+    warps: int
+    tab_stride: int
+    smem_bytes: int
+    stream_out: bool
+
+
+def launch_plan(B: int, N: int, K1: int, n_sm: int = N_SM,
+                blocks_per_sm=modelled_blocks_per_sm) -> LaunchPlan:
+    """The launch of one frame at B rows of N nodes with K1 arc shifts on
+    a card of n_sm SMs holding blocks_per_sm(warps) blocks each: the most
+    warps a tile (a power of two, at most MAX_WARPS and B) with which
+    every block is resident at once; the streaming hint where the three
+    outputs outgrow L2, so the next frame could not find them there."""
+    if not (B >= 1 and N >= 1 and 1 <= K1 <= MAX_K1):
+        raise ValueError(f"no launch plan for B={B}, N={N}, K1={K1}")
+    tile = tile_nodes(K1)
+    n_tiles = -(-N // tile)
+    warps = 1
+    while (warps * 2 <= min(B, MAX_WARPS)
+           and n_tiles <= n_sm * blocks_per_sm(warps * 2)):
+        warps *= 2
+    return LaunchPlan(tile, n_tiles, warps, TAB_STRIDE,
+                      4 * (K1 + 2) * TAB_STRIDE, B * N * 12 > L2_BYTES)
+
+
+_plans = {}
+
+
+def _plan(dev: torch.device, B: int, N: int, K1: int) -> LaunchPlan:
+    """launch_plan on the card `dev`, from its SM count and the built
+    kernel's own occupancy (cached per shape)."""
+    key = (dev, B, N, K1)
+    if key not in _plans:
+        lib = bind(cuda_build.load(SOURCE))
+        with torch.cuda.device(dev):
+            n_sm = torch.cuda.get_device_properties(
+                torch.cuda.current_device()).multi_processor_count
+
+            def blocks_per_sm(warps):
+                n = ctypes.c_int(0)
+                rc = lib.pass1_step_blocks_per_sm(
+                    K1, warps, 4 * (K1 + 2) * TAB_STRIDE, ctypes.byref(n))
+                if rc != 0:
+                    raise RuntimeError("pass1_step occupancy query failed: "
+                                       f"CUDA error {rc}")
+                return n.value
+            _plans[key] = launch_plan(B, N, K1, n_sm, blocks_per_sm)
+    return _plans[key]
+
+
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib
     if _lib is not None:
         return _lib
-    lib = cuda_build.load(SOURCE)
+    _lib = bind(cuda_build.load(SOURCE))
+    return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built library of the kernel."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.pass1_step_launch.argtypes = [
         vp, vp, vp, vp, i32, vp, vp, i64, vp, vp, vp, vp, vp,
-        vp, vp, vp, i32, i32, vp]
+        vp, vp, vp, i32, i32, vp, i32, i32, i32, i32]
     lib.pass1_step_launch.restype = i32
-    _lib = lib
+    if hasattr(lib, "pass1_step_blocks_per_sm"):
+        lib.pass1_step_blocks_per_sm.argtypes = [i32, i32, i32, vp]
+        lib.pass1_step_blocks_per_sm.restype = i32
+    if hasattr(lib, "pass1_empty_launch"):
+        lib.pass1_empty_launch.argtypes = [vp]
+        lib.pass1_empty_launch.restype = i32
     return lib
 
 
@@ -92,7 +187,9 @@ def fused_step(score, ctx, prev, loc_lp, entry_total, row, score_idx,
     """One beam-update frame (arguments as `fused_step_plain`).  CPU
     tensors take the plain version; CUDA tensors launch the kernel.
     Returns fresh (new_score, new_ctx, new_prev) tensors.  score_idx
-    must index inside row's width (the network build guarantees it)."""
+    must index inside row's width (the network build guarantees it);
+    score, ctx and prev must start 16-byte aligned, as fresh tensors
+    do."""
     global LAUNCHES
     dev = score.device
     if dev.type == "cpu":
@@ -119,6 +216,10 @@ def fused_step(score, ctx, prev, loc_lp, entry_total, row, score_idx,
             raise ValueError(f"{name} must be contiguous")
     if row.stride(1) != 1:
         raise ValueError("row must be contiguous along its last axis")
+    for name, t in (("score", score), ("ctx", ctx), ("prev", prev)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned")
+    plan = _plan(dev, B, N, k1)
     lib = build()
     o_score = torch.empty_like(score)
     o_ctx = torch.empty_like(ctx)
@@ -129,8 +230,18 @@ def fused_step(score, ctx, prev, loc_lp, entry_total, row, score_idx,
         score_idx.data_ptr(), ent_s.data_ptr(), ectx_s.data_ptr(),
         eprev_s.data_ptr(), frame_valid.data_ptr(), o_score.data_ptr(),
         o_ctx.data_ptr(), o_prev.data_ptr(), B, N,
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, plan.warps,
+        plan.tab_stride, plan.smem_bytes, int(plan.stream_out))
     if rc != 0:
         raise RuntimeError(f"pass1_step kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     return o_score, o_ctx, o_prev
+
+
+def empty_launch() -> None:
+    """Launch the library's empty kernel on the current stream: the floor
+    one launch costs, timed the same way as `fused_step`.  Not counted in
+    LAUNCHES."""
+    rc = build().pass1_empty_launch(torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")

@@ -259,6 +259,20 @@ def entry_total(dev: DeviceNetwork) -> torch.Tensor:
                        LOG_ZERO)
 
 
+def kernel_tables(dev: DeviceNetwork):
+    """The beam-update kernel's (loc_lp, entry_total, score_idx), the
+    node axis padded to a multiple of 4 with LOG_ZERO arcs and entries
+    and senone 0, as the reference pads its fused path's to a tile
+    multiple: every row of the [B, N] state then starts on a 16-byte
+    boundary.  Pad nodes stay LOG_ZERO, and no exit reads them."""
+    pad = -dev.loc_lp.shape[1] % 4
+
+    def padded(x, fill):
+        return torch.nn.functional.pad(x, (0, pad), value=fill).contiguous()
+    return (padded(dev.loc_lp, LOG_ZERO), padded(entry_total(dev), LOG_ZERO),
+            padded(dev.score_idx, 0))
+
+
 def topk_stable(x: torch.Tensor, k: int):
     """Top-k along the last axis, ties to the lowest index (lax.top_k's
     order; torch.topk promises none on CUDA)."""
@@ -492,11 +506,11 @@ def pass1_batch(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
     n_frames = n_frames.to(device=device, dtype=torch.int32)
     out_ext = out_ext.to(torch.float32).contiguous()
     fused = use_kernel and fused_ok(dev, cfg)
-    if fused:
-        etot = entry_total(dev)
-        loc = dev.loc_lp.contiguous()
-
     score = pass1_init(dev, cfg, out_ext[:, 0])
+    if fused:
+        loc, etot, sidx = kernel_tables(dev)
+        score = torch.nn.functional.pad(
+            score, (0, loc.shape[1] - score.shape[1]), value=LOG_ZERO)
     ctx = torch.full(score.shape, -1, dtype=torch.int32, device=device)
     prev = torch.full(score.shape, -1, dtype=torch.int32, device=device)
 
@@ -512,7 +526,7 @@ def pass1_batch(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
         if fused:
             ent_s, ectx_s, eprev_s = _scalar_entry_batched(atoms, t, M)
             score, ctx, prev = pk.fused_step(
-                score, ctx, prev, loc, etot, row, dev.score_idx,
+                score, ctx, prev, loc, etot, row, sidx,
                 ent_s, ectx_s, eprev_s, frame_valid)
         else:
             score, ctx, prev = pass1_step(dev, ngram, cfg, score, ctx, prev,

@@ -48,10 +48,32 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,K,N", [(1, 1, 5000), (64, 1, 5000),
-                                   (3, 3, 4099), (2, 8, 300)])
+def tie_at_tile_edges(d, plan, K):
+    """Exact ties at every tile start t0 > 0 of `plan`: each shifted
+    candidate from the previous tile (k = 1..K) ties with the in-tile one
+    (k = 0), and in row 2 the entry candidate ties too, so only the
+    smallest k may win."""
+    d = {k: v.copy() for k, v in d.items()}
+    B, N = d["score"].shape
+    for t0 in range(plan.tile, N, plan.tile):
+        for k in range(K + 1):
+            if t0 - k >= 0:
+                d["score"][:, t0 - k] = -10.0
+            d["loc"][k, t0] = -2.0
+        if B > 2:
+            d["et"][t0] = -12.0 - d["ent"][2]
+    return d
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 16, 32, 64])
+@pytest.mark.parametrize("K,N", [(1, 5000), (3, 4099), (8, 4099),
+                                 (1, 4100), (8, 300)])
 def test_kernel_matches_plain(cuda, B, K, N):
     d = make_step_inputs(B + K, B, N, K)
+    plan = tpk._plan(torch.device("cuda", 0), B, N, K + 1)
+    if N > 300:
+        assert plan.n_tiles >= 3
+    d = tie_at_tile_edges(d, plan, K)
     for f in range(3):
         before = tpk.LAUNCHES
         got = run_step(d, cuda, tpk.fused_step)
@@ -77,6 +99,27 @@ def test_kernel_rejects_bad_arguments(cuda):
     bad[6] = bad[6].cpu()
     with pytest.raises(ValueError, match="score_idx"):
         tpk.fused_step(*bad)
+
+
+def test_kernel_takes_any_row_stride_and_refuses_misaligned_state(cuda):
+    """A frame row that is a view of a [B, 3, R] cache at frame 1 (its
+    rows 8 bytes off 16-byte alignment) gives the plain version's
+    result; state that does not start 16-byte aligned raises."""
+    B, N, K, R = 5, 4099, 1, 50
+    d = make_step_inputs(9, B, N, K, R=R)
+    t = {k: torch.tensor(v, device=cuda) for k, v in d.items()}
+    cache = torch.zeros(B, 3, R, device=cuda)
+    cache[:, 1] = t["row"]
+    args = [t[k] for k in ("score", "ctx", "prev", "loc", "et")]
+    tail = [t[k] for k in ("sidx", "ent", "ectx", "eprev", "fv")]
+    got = tpk.fused_step(*args, cache[:, 1], *tail)
+    want = tpk.fused_step_plain(*args, t["row"], *tail)
+    assert_same_step([a.cpu().numpy() for a in got],
+                     [a.cpu().numpy() for a in want])
+    off = torch.empty(B * N + 1, device=cuda)[1:].view(B, N)
+    off.copy_(t["score"])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tpk.fused_step(off, *args[1:], t["row"], *tail)
 
 
 def make_scan_inputs(seed, K, W, N, K1, B=3, T=120, R=60):

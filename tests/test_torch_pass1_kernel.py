@@ -7,14 +7,26 @@ of several reference tiles (the inter-tile halo), exact ties between
 shifted candidates (smallest k wins) and with the entry candidate
 (strictly greater only), LOG_ZERO runs, missing arcs and entries, and
 frozen rows.  Integer outputs must be equal; scores within atol 1e-5
-(the same f32 adds in the same order, so in practice bit-equal)."""
+(the same f32 adds in the same order, so in practice bit-equal).
+
+Then the CUDA kernel's launch plan and a numpy mirror of its lanes
+(csrc/pass1_step.cu has no CPU build), and pass 1 over the node axis
+padded for the kernel against the unpadded run and the reference."""
+
+import dataclasses
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from julius_tpu.ops import pass1_kernel as jpk
+from julius_tpu.search import pass1 as jp1
+from julius_tpu.tools.synth import flagship_engine
+from julius_tpu_torch import convert
 from julius_tpu_torch.ops import pass1_kernel as tpk
+from julius_tpu_torch.search import pass1 as tp1
 
 from torch_fixtures import assert_same_step, make_step_inputs, run_step
 
@@ -62,3 +74,236 @@ def test_cpu_tensors_take_the_plain_version():
     before = tpk.LAUNCHES
     assert_same_step(run_step(d, fn=tpk.fused_step), run_step(d))
     assert tpk.LAUNCHES == before
+
+
+# ---- the kernel's launch plan and a numpy mirror of its schedule
+
+GARBAGE_F, GARBAGE_I = np.float32(1.0e9), np.int32(123456789)
+LOG_ZERO_F = np.float32(-1e10)
+
+
+def halo_lanes(K1):
+    """Lanes holding the chunks in front of a tile: ceil(K / 4)."""
+    return (K1 + 2) // 4
+
+
+def lane_chunks(plan, B, N, K1, tile, b):
+    """Row b of tile `tile`: (t0, t1, the chunk of lane 0), as
+    csrc/pass1_step.cu `lane_chunk` computes them; lane L holds chunk
+    q0 + L."""
+    t0 = tile * plan.tile
+    t1 = min(t0 + plan.tile, N)
+    return t0, t1, (b * N + t0) // 4 - halo_lanes(K1)
+
+
+def tab_pos(x):
+    return x + (x >> 5)
+
+
+def mirror_kernel(d, plan):
+    """csrc/pass1_step.cu in numpy, block by block (one a tile) and lane
+    by lane: each of a warp's 32 lanes holds one 16-byte chunk of the
+    flat state (the first ceil(K / 4) the chunks in front of the tile;
+    elements outside the array are garbage here), the shifted reads
+    n - k come from the chunk of lane - 1 or lane - 2 (the kernel's
+    shuffles), the tables and score_idx from the tile's shared-memory
+    rows, and the lanes past the halo store their nodes inside the
+    tile.  Returns the outputs
+    (garbage where nothing was stored) and each element's store count."""
+    flat = [d[k].ravel() for k in ("score", "ctx", "prev")]
+    loc, et, sidx, row = d["loc"], d["et"], d["sidx"], d["row"]
+    B, N = d["score"].shape
+    K1 = loc.shape[0]
+    K = K1 - 1
+    total = B * N
+    outs = [np.full(total, GARBAGE_F), np.full(total, GARBAGE_I),
+            np.full(total, GARBAGE_I)]
+    writes = np.zeros(total, int)
+
+    def chunk(q):
+        out = []
+        for a in flat:
+            v = np.full(4, GARBAGE_I if a.dtype == np.int32 else GARBAGE_F,
+                        a.dtype)
+            for i in range(4):
+                if 0 <= 4 * q + i < total:
+                    v[i] = a[4 * q + i]
+            out.append(v)
+        return out
+
+    for tile in range(plan.n_tiles):
+        t0 = tile * plan.tile
+        t1 = min(t0 + plan.tile, N)
+        tab = np.full((K1 + 2, plan.tab_stride), GARBAGE_F)
+        for x in range(t1 - t0):
+            assert tab_pos(x) < plan.tab_stride
+            tab[:K1, tab_pos(x)] = loc[:, t0 + x]
+            tab[K1, tab_pos(x)] = et[t0 + x]
+            tab[K1 + 1, tab_pos(x)] = sidx[t0 + x]
+        for b in range(B):
+            t0, t1, q0 = lane_chunks(plan, B, N, K1, tile, b)
+            row0 = b * N
+            lanes = [chunk(q0 + lane) for lane in range(32)]
+            halo = halo_lanes(K1)
+            # the lanes past the halo cover the tile
+            assert 4 * (q0 + halo) <= row0 + t0 and 4 * (q0 + 32) >= row0 + t1
+            fv = d["fv"][b]
+            for lane in range(halo, 32):
+                q = q0 + lane
+                n0 = 4 * q - row0
+                for i in range(4):
+                    n, f = n0 + i, 4 * q + i
+                    if n < t0 or n >= t1:
+                        continue
+                    s0, c0, p0 = (a[i] for a in lanes[lane])
+                    if fv:
+                        x = tab_pos(n - t0)
+                        inw = np.float32(s0 + tab[0, x])
+                        cw, pw = c0, p0
+                        for k in range(1, K + 1):
+                            j = i - k
+                            dd, pos = j // 4, j % 4
+                            assert lane + dd >= 0
+                            hs, hc, hp = (a[pos] for a in lanes[lane + dd])
+                            if n < k:
+                                hs, hc, hp = LOG_ZERO_F, -1, -1
+                            cand = np.float32(hs + tab[k, x])
+                            if cand > inw:
+                                inw, cw, pw = cand, hc, hp
+                        e_t = tab[K1, x]
+                        cand_e = (np.float32(d["ent"][b] + e_t)
+                                  if e_t > LOG_ZERO_F / 2 else LOG_ZERO_F)
+                        if cand_e > inw:
+                            inw, cw, pw = cand_e, d["ectx"][b], d["eprev"][b]
+                        g = row[b, int(tab[K1 + 1, x])]
+                        s0 = (np.float32(inw + g)
+                              if inw > LOG_ZERO_F / 2 else LOG_ZERO_F)
+                        c0, p0 = cw, pw
+                    outs[0][f], outs[1][f], outs[2][f] = s0, c0, p0
+                    writes[f] += 1
+    return [o.reshape(B, N) for o in outs], writes
+
+
+@pytest.mark.parametrize("N", [1, 300, 4099, 74_967, 299_718])
+def test_launch_plan_fits_the_card(N):
+    """At K1 = 1, 2 and 9 and every B up to 64: a block's tables fit the
+    48 KB of shared memory a block has without opting in, the warps of a
+    tile are a power of two within B, every block is resident at once
+    when a tile has more than one warp, and the outputs stream out
+    exactly when they outgrow L2."""
+    for B in range(1, 65):
+        for K1 in (1, 2, 9):
+            p = tpk.launch_plan(B, N, K1)
+            assert p.smem_bytes <= 48 * 1024
+            assert p.warps & (p.warps - 1) == 0
+            assert 1 <= p.warps <= min(B, tpk.MAX_WARPS)
+            if p.warps > 1:
+                assert p.n_tiles <= tpk.N_SM * tpk.modelled_blocks_per_sm(
+                    p.warps)
+            assert p.stream_out == (B * N * 12 > tpk.L2_BYTES)
+            halo = halo_lanes(K1)
+            assert 4 * halo >= K1 - 1                # the halo holds K
+            assert p.tile + 4 <= 4 * (32 - halo)     # any alignment
+            assert p.tab_stride >= tab_pos(p.tile - 1) + 1
+
+
+@pytest.mark.parametrize("B,N,K1", [(1, 74_967, 2), (4, 74_967, 2),
+                                    (64, 74_967, 2), (32, 299_718, 2),
+                                    (3, 4099, 9), (2, 300, 9), (5, 1, 4),
+                                    (2, 700, 1), (3, 500, 6)])
+def test_launch_plan_tiles_cover_nodes(B, N, K1):
+    """The tiles cover [0, N) exactly; in every row the lanes past the
+    halo cover the tile and the halo lanes hold at least K nodes in
+    front of it."""
+    p = tpk.launch_plan(B, N, K1)
+    tiles = [(t * p.tile, min((t + 1) * p.tile, N))
+             for t in range(p.n_tiles)]
+    assert tiles[0][0] == 0 and tiles[-1][1] == N
+    assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(tiles, tiles[1:]))
+    halo = halo_lanes(K1)
+    for tile in list(range(min(p.n_tiles, 50))) + [p.n_tiles - 1]:
+        for b in range(B):
+            t0, t1, q0 = lane_chunks(p, B, N, K1, tile, b)
+            assert (t0, t1) == tiles[tile]
+            assert 4 * q0 <= b * N + t0 - (K1 - 1)            # the halo
+            assert 4 * (q0 + halo) <= b * N + t0
+            assert 4 * (q0 + 32) >= b * N + t1
+
+
+@pytest.mark.parametrize("B,N,K", [
+    (1, 5, 1), (2, 300, 8), (3, 4099, 3), (5, 601, 1), (4, 1001, 0),
+    (7, 253, 4), (2, 1000, 8), (9, 250, 5), (16, 130, 7), (3, 370, 0)])
+def test_kernel_mirror_matches_plain(B, N, K):
+    """The kernel's lanes, mirrored in numpy with garbage wherever it
+    must not read, equal the plain version on the tie-heavy inputs:
+    ragged tiles, rows starting mid-chunk, halos of one and two chunks
+    across tile edges, the first row's halo before the array, a frozen
+    row; every node is stored exactly once."""
+    d = make_step_inputs(B * 100 + N + K, B, N, K)
+    got, writes = mirror_kernel(d, tpk.launch_plan(B, N, K + 1))
+    assert (writes == 1).all()
+    want = run_step(d)
+    assert_same_step(got, want)
+    np.testing.assert_array_equal(got[0], want[0])    # bit-equal
+
+
+def test_padded_pass1_batch_matches_unpadded_and_reference(monkeypatch):
+    """pass1_batch pads the kernel's node axis to a multiple of 4; on the
+    reference's small fixtures (a node count that is not one) its trellis
+    equals the same loop over the unpadded tables and the reference's
+    pass1_batch: word ids equal, other fields equal and scores within
+    atol 1e-5 where a word survived (the reference's own rule)."""
+    eng = flagship_engine(n_words=120, n_phones=48, hidden=32, n_layers=1)
+    rng = np.random.default_rng(11)
+    B, T = 3, 70
+    out = np.array(jax.jit(eng._outprob)(jnp.asarray(
+        rng.standard_normal((B, T, 1320)).astype(np.float32))))
+    out[1] = out[1][rng.permutation(T)]
+    nfr = np.asarray([T, T - 9, T - 30], np.int32)
+    old = jp1.FUSE_PASS1
+    jp1.FUSE_PASS1 = False
+    try:
+        ref = jax.tree_util.tree_map(np.asarray, jp1.pass1_batch(
+            eng.dev_net, eng.ngram_dev, eng.p1_cfg, jnp.asarray(out),
+            jnp.asarray(nfr)))
+    finally:
+        jp1.FUSE_PASS1 = old
+    dev = convert.device_network(convert.numpy_fields(eng.dev_net), "cpu")
+    ng = convert.device_ngram(convert.numpy_fields(eng.ngram_dev), "cpu")
+    cfg = tp1.Pass1Config(**{f.name: getattr(eng.p1_cfg, f.name)
+                             for f in dataclasses.fields(tp1.Pass1Config)})
+    N = dev.loc_lp.shape[1]
+    assert N % 4 and tp1.fused_ok(dev, cfg)
+    loc, etot, sidx = tp1.kernel_tables(dev)
+    assert loc.shape[1] == etot.shape[0] == sidx.shape[0] == N + (-N % 4)
+    assert (loc[:, N:] == LOG_ZERO_F).all() and (etot[N:] == LOG_ZERO_F).all()
+    shapes = []
+    real = tpk.fused_step
+
+    def recording(score, *a):
+        shapes.append(score.shape[1])
+        return real(score, *a)
+    monkeypatch.setattr(tpk, "fused_step", recording)
+    padded = tp1.pass1_batch(dev, ng, cfg, torch.from_numpy(out),
+                             torch.from_numpy(nfr))
+    assert set(shapes) == {loc.shape[1]}
+    monkeypatch.setattr(tp1, "kernel_tables", lambda d: (
+        d.loc_lp.contiguous(), tp1.entry_total(d), d.score_idx))
+    shapes.clear()
+    unpadded = tp1.pass1_batch(dev, ng, cfg, torch.from_numpy(out),
+                               torch.from_numpy(nfr))
+    assert set(shapes) == {N}
+    padded = tp1.Trellis(*[a.numpy() for a in padded])
+    unpadded = tp1.Trellis(*[a.numpy() for a in unpadded])
+    for a, b in zip(padded, unpadded):
+        np.testing.assert_array_equal(a, b)
+    valid = ref.word >= 0
+    assert np.array_equal(padded.word, ref.word) and valid.sum() > 500
+    for name in padded._fields:
+        x, y = getattr(padded, name), getattr(ref, name)
+        if x.dtype.kind == "f":
+            assert np.allclose(np.where(valid, x, 0), np.where(valid, y, 0),
+                               atol=1e-5), name
+        else:
+            assert np.array_equal(np.where(valid, x, 0),
+                                  np.where(valid, y, 0)), name
