@@ -24,6 +24,10 @@ Phases, one line each, in order (any failure exits non-zero):
      then the same decode is staged, the kernel-path trellis is held
      against the plain-path trellis, and the device A* is run again with
      the plain scan in place of the kernel and held against the first;
+     the host cost of the kernels' device guard (launch_guard), and one
+     graphed pass 1 of the batch under torch.profiler (frame_profile:
+     the kernels a frame and their time, the card's busy share; also
+     for lvcsr);
   5. rescan: the host-driven re-scan (pass2_device=False) on 4 of the
      utterances, held to the device A*'s word ids;
   6. frozen: the frozen-score pass 2 (pass2_rescan=False) on 4 of them;
@@ -166,8 +170,19 @@ Phases, one line each, in order (any failure exits non-zero):
      (refbaseline.export_model, refparity.export_flagship) read back by
      the port's readers, then 4 generative utterances as spliced
      feature files decoded by recognize.main on the exported files;
- 26. the kernels' JSON line (one entry per kernel and path), the card
-     line, and the result line last.
+ 26. a summary of the pass1_graph lines, the kernels' JSON line (one
+     entry per kernel and path), the card line, and the result line last.
+
+Pass 1 runs on the card as replays of its captured frame step (a CUDA
+graph, search/pass1.py), and every path that calls pass1_batch holds it
+against its eager oracle (the same step once a frame from Python) on
+the same batch: slice, waveform, lvcsr, isolated and gather directly,
+every other path on each pass1_batch call of its recorded run.  Each
+such check prints a pass1_graph line: the trellises bit-equal, the
+kernel launches equal (counted on the graph's replays), the wall and ms
+a frame of each, and the network's graphs and capture seconds so far.
+The kernel's recorded calls (path_kernels) come from the oracle, since
+a graph calls the wrapper only at capture.
 
 Weights and utterances are made from fixed seeds; nothing is read from
 outside the repository.  Exits non-zero without a result where CUDA is
@@ -592,6 +607,10 @@ def lvcsr_phase(card):
         t0 = time.perf_counter()
         staged = eng._results(trellis, lens_np, out_ext=out_ext)
         p2_s = time.perf_counter() - t0
+        graph = graph_vs_eager("lvcsr", dev, eng.ngram_dev, eng.p1_cfg,
+                               out_ext, lens_np, got=trellis, card=card)
+        walls["pass1_eager_wall_s"] = graph["eager_wall_s"]
+        frame_profile("lvcsr", eng, out_ext, lens_np, card)
     net = dict(eng.last_pass2)
     walls.update(astar_wall_s=net["astar_s"], retry_net_wall_s=net["retry_s"],
                  assembly_wall_s=p2_s - net["astar_s"] - net["retry_s"])
@@ -687,10 +706,13 @@ def waveform_phase(eng, card, step_t):
         torch.cuda.synchronize()
         dnn_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        eng._pass1(out_ext, mask.sum(dim=1).int())
+        staged = eng._pass1(out_ext, mask.sum(dim=1).int())
         torch.cuda.synchronize()
         p1_s = time.perf_counter() - t0
-        del out_ext, trellis
+        graph = graph_vs_eager("waveform", eng.dev_net, eng.ngram_dev,
+                               eng.p1_cfg, out_ext, mask.sum(dim=1),
+                               got=staged, card=card)
+        del out_ext, trellis, staged
         # the front end on the card against the CPU front end
         cpu_feats, cpu_mask = fe.extract_features(
             wave.cpu(), lengths.cpu(), eng.fe_tables)
@@ -714,6 +736,7 @@ def waveform_phase(eng, card, step_t):
           decode_device_wall_s=p1_wall, first_timed_call_s=one_s,
           pass1_only_xrt=N_WAVE * WAVE_S / p1_wall,
           frontend_splice_wall_s=fe_s, dnn_wall_s=dnn_s, pass1_wall_s=p1_s,
+          pass1_eager_wall_s=graph["eager_wall_s"],
           pass1_kernel_s=launches * step_t["ms"] * 1e-3,
           kernel_launches=launches, frontend_card_vs_cpu_max_err=fe_err,
           recognize_batch=[dict(words=r.words, score=r.score,
@@ -748,12 +771,19 @@ KEEP_CALL = 64    # besides the first, the call of a shape whose arguments are k
 
 @contextlib.contextmanager
 def recorded_calls(pk, sk, p2d, scan_mod):
-    """Wrap both kernels' wrappers where the decode looks them up: each
-    call's shape is counted, and the arguments of the first and the
-    KEEP_CALL-th call at each shape are copied.  Yields calls[kernel]
-    = {shape: [count, [args, ...]]}; the wrappers' own launch counts are
-    untouched."""
-    calls = {"pass1_step": {}, "scan_win": {}}
+    """Wrap both kernels where the decode looks them up: each call's
+    shape is counted, and the arguments of the first and the KEEP_CALL-th
+    call at each shape are copied.  Pass 1 runs its frame step from a
+    CUDA graph, where pass1_step's wrapper is called only at capture, so
+    each pass1_batch call is kept instead (its inputs and the graphed
+    trellis) and `path_kernels` records pass1_step's calls from its
+    eager oracle on the same batch.  Yields calls[kernel] = {shape:
+    [count, [args, ...]]}, with calls["batches"] the kept pass1_batch
+    calls and calls["record_step"] the context that records pass1_step;
+    the wrappers' own launch counts are untouched."""
+    from julius_tpu_torch.search import pass1 as p1
+
+    calls = {"pass1_step": {}, "scan_win": {}, "batches": []}
 
     def wrap(name, fn, shape_of):
         # the arguments are named as the plain version's, which the
@@ -779,19 +809,100 @@ def recorded_calls(pk, sk, p2d, scan_mod):
         K, K1, N = a["loc"].shape
         return (K, a["seed"].shape[1], N, K1, *a["out_ext"].shape)
 
-    real = pk.fused_step, p2d.scan_core_win, scan_mod.scan_core_win
-    pk.fused_step = wrap("pass1_step", real[0], step_shape)
+    def batch(dev, ngram, cfg, out_ext, n_frames, use_kernel=True,
+              eager=False):
+        tr = real[3](dev, ngram, cfg, out_ext, n_frames,
+                     use_kernel=use_kernel, eager=eager)
+        calls["batches"].append(dict(
+            dev=dev, ngram=ngram, cfg=cfg, out_ext=out_ext.clone(),
+            n_frames=torch.as_tensor(n_frames).clone(),
+            use_kernel=use_kernel, got=[a.clone() for a in tr]))
+        return tr
+
+    @contextlib.contextmanager
+    def record_step():
+        pk.fused_step = wrap("pass1_step", real[0], step_shape)
+        try:
+            yield
+        finally:
+            pk.fused_step = real[0]
+
+    calls["record_step"] = record_step
+    real = pk.fused_step, p2d.scan_core_win, scan_mod.scan_core_win, \
+        p1.pass1_batch
     p2d.scan_core_win = wrap("scan_win", real[1], scan_shape)
     scan_mod.scan_core_win = wrap("scan_win", real[2], scan_shape)
+    p1.pass1_batch = batch
     try:
         yield calls
     finally:
-        pk.fused_step, p2d.scan_core_win, scan_mod.scan_core_win = real
+        p2d.scan_core_win, scan_mod.scan_core_win, p1.pass1_batch = real[1:]
+
+
+#: every pass1_graph line of the run, for the summary before the kernels
+GRAPH_LINES = []
+
+
+def graph_vs_eager(label, dev, ngram, cfg, out_ext, n_frames,
+                   use_kernel=True, got=None, card=None, record=None):
+    """pass1_batch on one batch, graphed (replays of its captured frame
+    step) and as its eager oracle (the same step once a frame from
+    Python), each timed by the host clock around a synchronised run: the
+    two trellises, and `got` (the trellis the path produced) where
+    given, must be equal bit for bit, with equal kernel launches.  The
+    oracle runs inside `record` (a context) where given; the launches of
+    both runs are taken back out of LAUNCHES.  Prints a pass1_graph line
+    (with the network's graphs captured so far and their capture
+    seconds) and returns its fields."""
+    from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.search import pass1 as p1
+
+    B, T = out_ext.shape[:2]
+    nfr = torch.as_tensor(n_frames).to(out_ext.device, torch.int32)
+    n0, captures = pk.LAUNCHES, dev.graphs.captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graphed = p1.pass1_batch(dev, ngram, cfg, out_ext, nfr,
+                             use_kernel=use_kernel)
+    torch.cuda.synchronize()
+    graphed_s = time.perf_counter() - t0
+    n_graphed = pk.LAUNCHES - n0
+    with record() if record else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        eager = p1.pass1_batch(dev, ngram, cfg, out_ext, nfr,
+                               use_kernel=use_kernel, eager=True)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+    n_eager = pk.LAUNCHES - n0 - n_graphed
+    pk.LAUNCHES = n0
+    same = all(torch.equal(a, b) for a, b in zip(graphed, eager))
+    same_run = got is None or all(torch.equal(a, b)
+                                  for a, b in zip(got, eager))
+    fields = dict(
+        path=label, batch=B, frames=T,
+        fused=bool(use_kernel and p1.fused_ok(dev, cfg)),
+        graphed_wall_s=graphed_s, eager_wall_s=eager_s,
+        graphed_ms_per_frame=graphed_s * 1e3 / T,
+        eager_ms_per_frame=eager_s * 1e3 / T,
+        eager_over_graphed=eager_s / graphed_s,
+        launches_graphed=n_graphed, launches_eager=n_eager,
+        captured_in_this_call=dev.graphs.captures - captures,
+        network_graphs=dev.graphs.captures,
+        network_capture_s=dev.graphs.capture_s,
+        bit_equal=same, equal_to_the_run=same_run)
+    phase("pass1_graph", **fields, card=card)
+    GRAPH_LINES.append(fields)
+    if not (same and same_run) or n_graphed != n_eager:
+        raise RuntimeError(f"{label}: graphed pass 1 differs from its eager "
+                           f"oracle: {fields}")
+    return fields
 
 
 def path_kernels(label, calls, launches, eng, card):
     """Each kernel one run launched, at the shapes the run gave it
-    (`recorded_calls`): per shape, held against the plain version on the
+    (`recorded_calls`; pass1_step's from the eager oracle of each of the
+    run's pass1_batch calls, `graph_vs_eager`, whose trellis must equal
+    the graphed run's): per shape, held against the plain version on the
     run's own kept arguments and on integer-valued inputs at that shape
     over the run's engine tables, then timed on the kept arguments
     beside the plain version and the bound.  -> {kernel: entry fields},
@@ -802,6 +913,11 @@ def path_kernels(label, calls, launches, eng, card):
     from julius_tpu_torch.search import pass1 as p1
 
     dev = eng.dev_net
+    # pass1_step's calls, from the eager oracle of each graphed batch
+    for b in calls.pop("batches"):
+        graph_vs_eager(label, b["dev"], b["ngram"], b["cfg"], b["out_ext"],
+                       b["n_frames"], b["use_kernel"], got=b["got"],
+                       card=card, record=calls["record_step"])
     out = {}
     for name in ("pass1_step", "scan_win"):
         if not calls[name] and not launches[name]:
@@ -1088,6 +1204,62 @@ def kernel_entries(path, measured):
             for name, fields in measured.items()]
 
 
+def frame_profile(label, eng, out_ext, lens_np, card):
+    """The engine's graphed pass 1 on a batch whose graph exists (so
+    replays only) under torch.profiler: the kernels a frame, the card's
+    kernel time a frame and the kernels that take most of it (by name),
+    and the share of the traced window in which a kernel runs."""
+    import os
+    from torch.profiler import ProfilerActivity, profile
+
+    T = out_ext.shape[1]
+    eng._pass1(out_ext, lens_np)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng._pass1(out_ext, lens_np)
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, "pass1.json")
+        prof.export_chrome_trace(path)
+        busy = trace_busy(path)
+        with open(path) as fh:
+            kernels = [e for e in json.load(fh)["traceEvents"]
+                       if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    phase("pass1_frame_profile", path=label, frames=T,
+          kernels_per_frame=len(kernels) / T,
+          kernel_us_per_frame=busy["kernel_busy_ms"] * 1e3 / T,
+          window_us_per_frame=busy["window_ms"] * 1e3 / T,
+          busy_share=busy["busy_share"],
+          top=[dict(name=n[:100], us_per_frame=d / T) for n, d in top],
+          card=card)
+
+
+def launch_guard(dev, card, n=100_000):
+    """The host cost of the kernels' device guard (cuda_build.on_device)
+    a call, on the card that is current (nothing to enter, as on one
+    card) and through torch.cuda.device itself (what a call on another
+    card enters); pass 1's eager loop on the kernel path makes one call
+    a frame."""
+    from julius_tpu_torch.ops import cuda_build
+
+    costs = {}
+    for name, ctx in (("guard_us", cuda_build.on_device),
+                      ("device_context_us", torch.cuda.device)):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with ctx(dev):
+                pass
+        costs[name] = (time.perf_counter() - t0) * 1e6 / n
+    phase("launch_guard", calls=n, **costs,
+          guard_us_per_frame_kernel_path=costs["guard_us"], card=card)
+    return costs
+
+
 def timed_pass1(eng, out_ext, lens_np):
     """Pass 1 alone on cached outprobs -> wall seconds."""
     torch.cuda.synchronize()
@@ -1220,11 +1392,16 @@ def isolated_phase(eng, protos, card):
                            f"{scan_launches} scan_win launches")
     exact = sum(r.word_ids == w for r, w in zip(res, words))
     with torch.no_grad():
-        p1_s = timed_pass1(ieng, ieng._outprob(feats), lens_np)
+        out_ext = ieng._outprob(feats)
+        p1_s = timed_pass1(ieng, out_ext, lens_np)
+        graph = graph_vs_eager("isolated", ieng.dev_net, ieng.ngram_dev,
+                               ieng.p1_cfg, out_ext, lens_np, card=card)
+        del out_ext
     phase("isolated", utterances=N_UTTS, frames=T, words=eng.voca.n_words,
           e2e_wall_s=wall, exact_transcripts=f"{exact}/{N_UTTS}",
           from_pass1=sum(r.from_pass == 1 for r in res),
           pass1_wall_s=p1_s, pass1_ms_per_frame=p1_s * 1e3 / T,
+          pass1_eager_ms_per_frame=graph["eager_ms_per_frame"],
           pass1_step_launches=launches, scan_win_launches=scan_launches,
           card=card)
     if exact < N_UTTS - 1 or any(r.from_pass != 1 for r in res):
@@ -1329,7 +1506,10 @@ def gather_phase(card):
         -8.0, 3.0, (3, 70, hmm.n_states)).astype(np.float32)
     lens = np.asarray([70, 52, 31], np.int32)
     pk.LAUNCHES = 0
-    tr_card = card_eng._pass1(torch.from_numpy(rows).to(DEVICE), lens)
+    rows_card = torch.from_numpy(rows).to(DEVICE)
+    tr_card = card_eng._pass1(rows_card, lens)
+    graph_vs_eager("gather", card_eng.dev_net, card_eng.ngram_dev,
+                   card_eng.p1_cfg, rows_card, lens, got=tr_card, card=card)
     tr_cpu = cpu_eng._pass1(torch.from_numpy(rows), lens)
     valid = tr_cpu.word >= 0
     err = float(torch.where(valid, (tr_card.score.cpu() - tr_cpu.score).abs(),
@@ -3186,15 +3366,23 @@ def main() -> int:
     staged_net = dict(eng.last_pass2)
     if [r.word_ids for r in staged] != [r.word_ids for r in res]:
         raise RuntimeError("staged decode differs from decode_features")
+    slice_graph = graph_vs_eager("slice", eng.dev_net, eng.ngram_dev,
+                                 eng.p1_cfg, out_ext, lens_np,
+                                 got=tr_kernel, card=card)
+    # the eager loop with the kernel's plain version in it
     real = pk.fused_step
     pk.fused_step = pk.fused_step_plain
     try:
         t0 = time.perf_counter()
-        tr_plain = eng._pass1(out_ext, lens_np)
+        tr_plain = p1.pass1_batch(eng.dev_net, eng.ngram_dev, eng.p1_cfg,
+                                  out_ext, torch.as_tensor(lens_np),
+                                  eager=True)
         torch.cuda.synchronize()
         p1_plain_s = time.perf_counter() - t0
     finally:
         pk.fused_step = real
+    launch_guard(out_ext.device, card)
+    frame_profile("slice", eng, out_ext, lens_np, card)
     valid = tr_plain.word >= 0
     for f in tr_kernel._fields:
         a, b = getattr(tr_kernel, f), getattr(tr_plain, f)
@@ -3248,6 +3436,9 @@ def main() -> int:
           - staged_net["retry_s"],
           astar_rerun_wall_s=astar_s, astar_plain_scan_wall_s=astar_plain_s,
           pass1_plain_wall_s=p1_plain_s,
+          pass1_eager_wall_s=slice_graph["eager_wall_s"],
+          pass1_graphs=eng.dev_net.graphs.captures,
+          pass1_capture_s=eng.dev_net.graphs.capture_s,
           pass1_kernel_s=launches * timings[N_UTTS]["ms"] * 1e-3,
           e2e_wall_s=e2e_s, xrt=audio_s / e2e_s,
           exact_transcripts=f"{exact}/{N_UTTS}",
@@ -3336,6 +3527,13 @@ def main() -> int:
                            max_abs_err=max_err),
         "scan_win": dict(scan_t[tabs.nmax, K_A, W_A], launches=scan_launches,
                          max_abs_err=scan_err)})
+    phase("pass1_graph_summary", note="pass 1 a frame, graphed (replays "
+          "of the captured step) beside its eager oracle on the same batch",
+          paths=[{k: g[k] for k in (
+              "path", "batch", "frames", "fused", "graphed_ms_per_frame",
+              "eager_ms_per_frame", "eager_over_graphed",
+              "network_graphs", "network_capture_s")} for g in GRAPH_LINES],
+          card=card)
     print(json.dumps({"kernels": flagship + kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

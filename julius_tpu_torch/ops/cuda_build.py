@@ -6,11 +6,14 @@ git-ignored `julius_tpu_torch/_build/`, named by a hash of the source
 and the flags, so a changed source builds anew and an unchanged one is
 loaded as it is.  The ptxas report (registers, spills) lands beside each
 library as `.log`.  `compile_all` starts one nvcc per missing library,
-all at once, and waits for them together.
+all at once, and waits for them together.  A launch through such a
+library runs on the CUDA runtime's current device, so the wrappers make
+their tensors' card current around it (`on_device`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -100,3 +105,12 @@ def check_arg(name, t, dtype, shape, device) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
+
+
+def on_device(dev: torch.device):
+    """A context in which card `dev` is the current CUDA device: a
+    `torch.cuda.device(dev)` when another card is current (the current
+    device is per thread), else nothing to enter."""
+    if torch.cuda.current_device() == dev.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

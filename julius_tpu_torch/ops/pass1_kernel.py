@@ -11,7 +11,11 @@ node->senone map instead of a [B, N] out_node tensor; the plain version
 takes the same arguments so the two stay comparable.
 
 `fused_step` runs the plain version only for CPU tensors.  For CUDA
-tensors it launches the kernel or raises; `LAUNCHES` counts launches.
+tensors it launches the kernel on their card or raises; `LAUNCHES`
+counts launches.  Called while its stream captures a CUDA graph (pass
+1's frame step, search/pass1.py), it records the launch into the graph
+instead, counted in `CAPTURED`; whoever replays the graph counts the
+launches there.
 The kernel is built with nvcc at first use, from the source in this
 package (ops/cuda_build.py).  `launch_plan` sizes its launch: one block
 a tile of nodes across all B rows, the tile's tables in shared memory
@@ -41,8 +45,11 @@ TAB_STRIDE = 128        # words a tile row takes in shared memory
 L2_BYTES = 50 << 20     # L2 of an H100: a larger output is streamed out
 MODEL_REGISTERS = 96    # registers a thread, for plans made off the card
 
-#: kernel launches made through `fused_step` in this process
+#: kernel launches made through `fused_step` in this process, a launch
+#: a CUDA graph holds counted at each replay of the graph
 LAUNCHES = 0
+#: launches `fused_step` recorded into CUDA graphs under capture
+CAPTURED = 0
 _lib = None
 
 
@@ -190,7 +197,7 @@ def fused_step(score, ctx, prev, loc_lp, entry_total, row, score_idx,
     must index inside row's width (the network build guarantees it);
     score, ctx and prev must start 16-byte aligned, as fresh tensors
     do."""
-    global LAUNCHES
+    global LAUNCHES, CAPTURED
     dev = score.device
     if dev.type == "cpu":
         return fused_step_plain(score, ctx, prev, loc_lp, entry_total, row,
@@ -224,17 +231,22 @@ def fused_step(score, ctx, prev, loc_lp, entry_total, row, score_idx,
     o_score = torch.empty_like(score)
     o_ctx = torch.empty_like(ctx)
     o_prev = torch.empty_like(prev)
-    rc = lib.pass1_step_launch(
-        score.data_ptr(), ctx.data_ptr(), prev.data_ptr(), loc_lp.data_ptr(),
-        k1, entry_total.data_ptr(), row.data_ptr(), row.stride(0),
-        score_idx.data_ptr(), ent_s.data_ptr(), ectx_s.data_ptr(),
-        eprev_s.data_ptr(), frame_valid.data_ptr(), o_score.data_ptr(),
-        o_ctx.data_ptr(), o_prev.data_ptr(), B, N,
-        torch.cuda.current_stream(dev).cuda_stream, plan.warps,
-        plan.tab_stride, plan.smem_bytes, int(plan.stream_out))
+    with cuda_build.on_device(dev):
+        rc = lib.pass1_step_launch(
+            score.data_ptr(), ctx.data_ptr(), prev.data_ptr(),
+            loc_lp.data_ptr(), k1, entry_total.data_ptr(), row.data_ptr(),
+            row.stride(0), score_idx.data_ptr(), ent_s.data_ptr(),
+            ectx_s.data_ptr(), eprev_s.data_ptr(), frame_valid.data_ptr(),
+            o_score.data_ptr(), o_ctx.data_ptr(), o_prev.data_ptr(), B, N,
+            torch.cuda.current_stream(dev).cuda_stream, plan.warps,
+            plan.tab_stride, plan.smem_bytes, int(plan.stream_out))
+        capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise RuntimeError(f"pass1_step kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    if capturing:
+        CAPTURED += 1
+    else:
+        LAUNCHES += 1
     return o_score, o_ctx, o_prev
 
 

@@ -12,7 +12,8 @@ and the chains' senone maps instead of a gathered [K, W, N] block; the
 plain version takes the same arguments so the two stay comparable.
 
 `scan_core_win` runs the plain version only for CPU tensors.  For CUDA
-tensors it launches the kernel or raises; `LAUNCHES` counts launches.
+tensors it launches the kernel on their card or raises; `LAUNCHES`
+counts launches.
 The kernel is built with nvcc at first use (ops/cuda_build.py).  For
 chains with N + KL <= 32 and KL <= 3 (every flagship word) it is
 warp-specialised: a recurrence warp carries each node's score and entry
@@ -143,14 +144,16 @@ def scan_core_win(loc, ent, ext, sidx, seed, out_ext, bidx, t0):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lib = build()
-    g = torch.empty((K, W), dtype=f32, device=dev)
-    beg = torch.empty((K, W), dtype=i32, device=dev)
-    sv = torch.empty((K, W), dtype=f32, device=dev)
-    rc = lib.scan_win_launch(
-        loc.data_ptr(), ent.data_ptr(), ext.data_ptr(), sidx.data_ptr(),
-        seed.data_ptr(), out_ext.data_ptr(), bidx.data_ptr(), t0.data_ptr(),
-        K, K1, N, W, B, T, R, g.data_ptr(), beg.data_ptr(), sv.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    g = seed.new_empty((K, W))
+    beg = seed.new_empty((K, W), dtype=i32)
+    sv = seed.new_empty((K, W))
+    with cuda_build.on_device(dev):
+        rc = lib.scan_win_launch(
+            loc.data_ptr(), ent.data_ptr(), ext.data_ptr(), sidx.data_ptr(),
+            seed.data_ptr(), out_ext.data_ptr(), bidx.data_ptr(),
+            t0.data_ptr(), K, K1, N, W, B, T, R, g.data_ptr(),
+            beg.data_ptr(), sv.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"scan_win kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

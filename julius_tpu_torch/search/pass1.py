@@ -9,8 +9,13 @@ payload (LM context word, trellis backpointer); each frame
   * advances every node: in-word arcs, the cross-word entry from the
     atoms, the emission, frozen past each utterance's end.
 
-The frame loop is Python over a batch written out as a leading [B]
-axis, with no host synchronisation inside it.  Where the reference
+One frame is `_frame`, over a batch written out as a leading [B] axis,
+with the frame index a device tensor and no host synchronisation
+inside it.  On the CPU `pass1_batch` calls it once a frame.  On a CUDA
+card it runs it as the reference's jitted `lax.scan` runs its step:
+the step is captured once as a CUDA graph (`GraphCache`, kept on the
+network) and replayed once a frame, advancing its own frame index, so
+the host makes one graph launch a frame.  Where the reference
 takes its fused Pallas kernel (`_fused_ok`: a shift-structured network,
 cross-word N-gram decoding with unigram factoring or no LM, no DFA, no
 score envelope, no per-context head emission rows) each frame picks the
@@ -32,7 +37,9 @@ products.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import threading
+import time
+from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -46,6 +53,27 @@ from julius_tpu_torch.utils.logadd import LOG_ZERO
 
 NEG_HALF = LOG_ZERO / 2
 MAX_LOCAL_K = 8     # max arc span for the shift-structured network
+MIN_T_BUCKET = 16   # the shortest frame capacity a captured step holds
+
+
+class GraphCache:
+    """The CUDA graphs of `pass1_batch`'s frame step on one network.
+
+    An entry (`_Graph`) is keyed by what fixes its addresses and shapes
+    (card, B, the node axis, M, R, the branch, the config, the N-gram,
+    and a power-of-two capacity of frames).  Every graph of a cache shares one memory pool and one
+    capture stream; `lock` keeps one batch at a time on them, since a
+    batch fills the fixed tensors, replays and copies the trellis out.
+    `captures` and `capture_s` count the captures made and their host
+    seconds (the eager first frame and the capture)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.entries = {}
+        self.pool = None
+        self.stream = None
+        self.captures = 0
+        self.capture_s = 0.0
 
 
 @dataclass
@@ -90,6 +118,10 @@ class DeviceNetwork:
     tail_word: int
     local_k: int
     rc_C: int = 0             # classes per rc_sidx row
+    # pass 1's captured frame steps on a CUDA card (not a table: a copy
+    # of the network by dataclasses.replace starts its own)
+    graphs: GraphCache = field(default_factory=GraphCache, init=False,
+                               repr=False, compare=False)
 
 
 #: DeviceNetwork tensor fields, with their dtypes (convert.py reads the
@@ -338,10 +370,11 @@ def _word_end_candidates(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
     return atoms
 
 
-def _scalar_entry_batched(atoms: Trellis, t: int, M: int):
+def _scalar_entry_batched(atoms: Trellis, t, M: int):
     """Batched single-best corrected word-end (the factoring-1
     cross-word winner): [B] score, LM context, trellis pointer.  Ties
-    go to the lowest slot, as argmax gives them."""
+    go to the lowest slot, as argmax gives them.  t, the step (an int or
+    a [1] int32 tensor), places the pointer in frame t-1's atoms."""
     valid = atoms.word >= 0
     sc = torch.where(valid, atoms.score, LOG_ZERO)
     slots = torch.arange(sc.shape[-1], device=sc.device)
@@ -356,7 +389,7 @@ def _scalar_entry_batched(atoms: Trellis, t: int, M: int):
 
 
 def _entry_scores(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
-                  cfg: Pass1Config, atoms: Trellis, t: int):
+                  cfg: Pass1Config, atoms: Trellis, t):
     """Cross-word expansion: each word-head node's entry score, LM
     context and trellis pointer ([B, N] each, or [B, 1] when the winner
     is the same for every word).
@@ -429,11 +462,12 @@ def pass1_init(dev: DeviceNetwork, cfg: Pass1Config,
 def pass1_step(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
                cfg: Pass1Config, score: torch.Tensor, ctx: torch.Tensor,
                prev: torch.Tensor, atoms: Trellis, out_row: torch.Tensor,
-               frame_valid: torch.Tensor, t: int):
+               frame_valid: torch.Tensor, t):
     """One frame of the reference's unfused `pass1_step` (pass1.py:458)
     over the batch: [B, N] state, the [B, M] atoms of frame t-1, the
     [B, R] outprob rows of frame t, [B] frame_valid -> the new state,
-    frozen where frame_valid is False."""
+    frozen where frame_valid is False.  t is an int or a [1] int32
+    tensor."""
     if dev.local_k >= 0:
         # K+1 shifted adds; ties keep the smallest span k
         cands = [_shift(score, k, LOG_ZERO) + dev.loc_lp[k]
@@ -491,53 +525,202 @@ def pass1_step(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
             torch.where(fv, nprev, prev))
 
 
+def _frame(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
+           cfg: Pass1Config, tabs, score: torch.Tensor, ctx: torch.Tensor,
+           prev: torch.Tensor, t: torch.Tensor, n_frames: torch.Tensor,
+           rows: torch.Tensor, trellis: Trellis):
+    """Step t of pass 1 (t a [1] int32 tensor on the state's device,
+    1..T): frame t-1's word ends from the [B, N] state go into row t-1
+    of the [B, >= T, M] `trellis` tensors, and the state advances
+    through frame t, whose [B, R] outprob rows are rows[:, t] (`rows`
+    holds the T frames and a zero frame after them).  `tabs` are the
+    kernel's `kernel_tables`, or None for the unfused step.  Returns
+    the new (score, ctx, prev)."""
+    M = cfg.n_atoms
+    row = rows.index_select(1, t)[:, 0]                           # [B, R]
+    frame_valid = t < n_frames                                     # [B]
+    atoms = _word_end_candidates(dev, ngram, cfg, score, ctx, prev)
+    if tabs is not None:
+        loc, etot, sidx = tabs
+        ent_s, ectx_s, eprev_s = _scalar_entry_batched(atoms, t, M)
+        new = pk.fused_step(score, ctx, prev, loc, etot, row, sidx,
+                            ent_s, ectx_s, eprev_s, frame_valid)
+    else:
+        new = pass1_step(dev, ngram, cfg, score, ctx, prev, atoms, row,
+                         frame_valid, t)
+    # atoms describe frame t-1, valid while t-1 < n_frames
+    atom_ok = ((t - 1) < n_frames)[:, None] & (atoms.word >= 0)
+    atoms = atoms._replace(
+        word=torch.where(atom_ok, atoms.word, -1),
+        score=torch.where(atom_ok, atoms.score, LOG_ZERO))
+    at = (t - 1).long()
+    for buf, a in zip(trellis, atoms):
+        buf.index_copy_(1, at, a[:, None])
+    return new
+
+
+#: Trellis field dtypes, in field order
+TRELLIS_DTYPES = (torch.int32, torch.float32, torch.float32, torch.int32,
+                  torch.int32, torch.int32)
+
+
+class _Loop:
+    """pass1_batch's frame loop over fixed tensors: the [B, N] state,
+    the step t, the [B] frame counts, the outprob rows of up to T frames
+    and a zero frame, and the [B, T, M] trellis.  `step` is one frame
+    and writes everything back in place, so a CUDA graph of it replays
+    the loop."""
+
+    def __init__(self, B: int, N: int, R: int, T: int, M: int, device):
+        self.score = torch.empty((B, N), dtype=torch.float32, device=device)
+        self.ctx = torch.empty((B, N), dtype=torch.int32, device=device)
+        self.prev = torch.empty_like(self.ctx)
+        self.t = torch.empty(1, dtype=torch.int32, device=device)
+        self.n_frames = torch.empty(B, dtype=torch.int32, device=device)
+        self.rows = torch.empty((B, T + 1, R), dtype=torch.float32,
+                                device=device)
+        self.trellis = Trellis(*[torch.empty((B, T, M), dtype=dt,
+                                             device=device)
+                                 for dt in TRELLIS_DTYPES])
+
+    def load(self, score0: torch.Tensor, out_ext: torch.Tensor,
+             n_frames: torch.Tensor) -> None:
+        """Start a batch: pass 1's initial scores, empty payloads, t = 1,
+        the [B, T, R] outprob rows with a zero frame after them."""
+        T = out_ext.shape[1]
+        self.score.copy_(score0)
+        self.ctx.fill_(-1)
+        self.prev.fill_(-1)
+        self.t.fill_(1)
+        self.n_frames.copy_(n_frames)
+        self.rows[:, :T].copy_(out_ext)
+        self.rows[:, T].zero_()
+
+    def step(self, dev: DeviceNetwork, ngram: Optional[DeviceNgram],
+             cfg: Pass1Config, tabs) -> None:
+        new = _frame(dev, ngram, cfg, tabs, self.score, self.ctx, self.prev,
+                     self.t, self.n_frames, self.rows, self.trellis)
+        for buf, x in zip((self.score, self.ctx, self.prev), new):
+            buf.copy_(x)
+        self.t.add_(1)
+
+
+def _eager(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
+           cfg: Pass1Config, tabs, score0: torch.Tensor,
+           out_ext: torch.Tensor, n_frames: torch.Tensor) -> Trellis:
+    """pass1_batch as a Python loop of T frame steps."""
+    B, T, R = out_ext.shape
+    loop = _Loop(B, score0.shape[1], R, T, cfg.n_atoms, out_ext.device)
+    loop.load(score0, out_ext, n_frames)
+    for _ in range(T):
+        loop.step(dev, ngram, cfg, tabs)
+    return loop.trellis
+
+
+def _capture(cache: GraphCache, device, step) -> torch.cuda.CUDAGraph:
+    """Run `step` once on the cache's side stream, then capture it into
+    a CUDA graph there (the eager run plans and loads the kernel, whose
+    occupancy query and library load a capture cannot hold).  Raises if
+    the capture fails, and then drops the cache's pool and stream.
+
+    The capture's error mode is "thread_local": a server builds engines
+    on its command thread while another thread decodes, and in the
+    "global" mode that thread's allocations would fail during a capture
+    and break it; this thread's own host synchronisations still fail
+    it."""
+    if cache.stream is None:
+        cache.pool = torch.cuda.graph_pool_handle()
+        cache.stream = torch.cuda.Stream(device)
+    side = cache.stream
+    side.wait_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.stream(side):
+            step()
+            with torch.cuda.graph(graph, pool=cache.pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                step()
+    except BaseException:
+        cache.pool = cache.stream = None
+        raise
+    torch.cuda.current_stream(device).wait_stream(side)
+    return graph
+
+
+class _Graph(NamedTuple):
+    """A captured frame step: the graph, the fixed tensors it reads and
+    writes, the kernel launches one replay makes, and the tables it
+    reads that the network does not hold (the kernel's padded tables and
+    the N-gram, whose id is part of the key)."""
+
+    graph: torch.cuda.CUDAGraph
+    loop: _Loop
+    launches: int
+    tabs: Optional[tuple]
+    ngram: Optional[DeviceNgram]
+
+
+def _graphed(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
+             cfg: Pass1Config, tabs, score0: torch.Tensor,
+             out_ext: torch.Tensor, n_frames: torch.Tensor) -> Trellis:
+    """pass1_batch on a CUDA card: T replays of a captured frame step.
+    The first batch of a key runs step 1 eagerly and captures the step
+    (`_capture`), then replays it T-1 times; nothing falls back to the
+    eager loop."""
+    B, T, R = out_ext.shape
+    Np, M = score0.shape[1], cfg.n_atoms
+    device = out_ext.device
+    cap = max(MIN_T_BUCKET, 1 << (T - 1).bit_length())
+    key = (device, B, Np, M, R, tabs is not None, cfg, id(ngram), cap)
+    cache = dev.graphs
+    with cache.lock, torch.cuda.device(device):
+        entry = cache.entries.get(key)
+        if entry is None:
+            t0 = time.perf_counter()
+            loop = _Loop(B, Np, R, cap, M, device)
+            loop.load(score0, out_ext, n_frames)
+            before = pk.CAPTURED
+            graph = _capture(cache, device,
+                             lambda: loop.step(dev, ngram, cfg, tabs))
+            entry = cache.entries[key] = _Graph(
+                graph, loop, pk.CAPTURED - before, tabs, ngram)
+            cache.captures += 1
+            cache.capture_s += time.perf_counter() - t0
+            replays = T - 1
+        else:
+            entry.loop.load(score0, out_ext, n_frames)
+            replays = T
+        for _ in range(replays):
+            entry.graph.replay()
+        pk.LAUNCHES += entry.launches * replays
+        return Trellis(*[a[:, :T].clone() for a in entry.loop.trellis])
+
+
 def pass1_batch(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
                 cfg: Pass1Config, out_ext: torch.Tensor,
-                n_frames: torch.Tensor, use_kernel: bool = True) -> Trellis:
+                n_frames: torch.Tensor, use_kernel: bool = True,
+                eager: bool = False) -> Trellis:
     """[B, T, R] extended outprob rows + [B] valid frame counts ->
     Trellis of [B, T, M] tensors (atom row t holds word-ends at frame
     t).  Reference: get_back_trellis pass1.c:616.  Each frame launches
     the beam-update kernel where `fused_ok` holds, else runs
     `pass1_step`; use_kernel=False runs `pass1_step` everywhere (the
-    reference's `use_pallas=False`, which its mesh decode sets)."""
-    B, T, _ = out_ext.shape
-    M = cfg.n_atoms
+    reference's `use_pallas=False`, which its mesh decode sets).
+
+    On a CUDA card the frames are replays of a captured step
+    (`_graphed`); eager=True runs the same step once a frame from
+    Python instead, the graph's oracle.  The CPU always runs that loop,
+    the kernel's plain version in it."""
     device = out_ext.device
     n_frames = n_frames.to(device=device, dtype=torch.int32)
-    out_ext = out_ext.to(torch.float32).contiguous()
-    fused = use_kernel and fused_ok(dev, cfg)
+    out_ext = out_ext.to(torch.float32)
+    tabs = kernel_tables(dev) if use_kernel and fused_ok(dev, cfg) else None
     score = pass1_init(dev, cfg, out_ext[:, 0])
-    if fused:
-        loc, etot, sidx = kernel_tables(dev)
+    if tabs is not None:
         score = torch.nn.functional.pad(
-            score, (0, loc.shape[1] - score.shape[1]), value=LOG_ZERO)
-    ctx = torch.full(score.shape, -1, dtype=torch.int32, device=device)
-    prev = torch.full(score.shape, -1, dtype=torch.int32, device=device)
-
-    rows_out = []
-    # steps t = 1..T advance through frame t; step T runs on a dummy row
-    # with every frame invalid, so word-ends at the last frame are still
-    # emitted
-    zero_row = torch.zeros_like(out_ext[:, 0])
-    for t in range(1, T + 1):
-        row = out_ext[:, t] if t < T else zero_row
-        frame_valid = t < n_frames                                  # [B]
-        atoms = _word_end_candidates(dev, ngram, cfg, score, ctx, prev)
-        if fused:
-            ent_s, ectx_s, eprev_s = _scalar_entry_batched(atoms, t, M)
-            score, ctx, prev = pk.fused_step(
-                score, ctx, prev, loc, etot, row, sidx,
-                ent_s, ectx_s, eprev_s, frame_valid)
-        else:
-            score, ctx, prev = pass1_step(dev, ngram, cfg, score, ctx, prev,
-                                          atoms, row, frame_valid, t)
-        # atoms describe frame t-1, valid while t-1 < n_frames
-        atom_ok = ((t - 1) < n_frames)[:, None] & (atoms.word >= 0)
-        atoms = atoms._replace(
-            word=torch.where(atom_ok, atoms.word, -1),
-            score=torch.where(atom_ok, atoms.score, LOG_ZERO))
-        rows_out.append(atoms)
-    return Trellis(*[torch.stack(f, dim=1) for f in zip(*rows_out)])
+            score, (0, tabs[0].shape[1] - score.shape[1]), value=LOG_ZERO)
+    run = _eager if device.type == "cpu" or eager else _graphed
+    return run(dev, ngram, cfg, tabs, score, out_ext, n_frames)
 
 
 class Pass1State(NamedTuple):

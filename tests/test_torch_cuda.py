@@ -12,7 +12,11 @@ CPU, and the native audio-input library built into the package; a
 backward N-gram pair and an application LM decoding on the card like
 the CPU, the full-utterance scan on the card equal to its plain version
 (and its limits raising), and parallel/ on a mesh that repeats the
-card.
+card; pass 1's frame step captured as a CUDA graph against its eager
+oracle on every branch (reuse of a graph, a new frame capacity, launch
+counts on replays, a capture beside another thread's allocations, a
+capture that meets a host synchronisation), and a decode on a second
+card from a thread whose current card is the first.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference package, so it also runs where
@@ -202,6 +206,8 @@ def engines():
 
 
 def test_pass1_kernel_path_matches_plain_path(engines, monkeypatch):
+    """The engine's pass 1 (the graphed kernel path) against the eager
+    loop with the kernel's plain version in it."""
     eng, _, feats, lens = engines
     out = eng._outprob(torch.from_numpy(feats).cuda())
     before = tpk.LAUNCHES
@@ -209,7 +215,8 @@ def test_pass1_kernel_path_matches_plain_path(engines, monkeypatch):
     torch.cuda.synchronize()
     assert tpk.LAUNCHES == before + feats.shape[1]
     monkeypatch.setattr(tpk, "fused_step", tpk.fused_step_plain)
-    want = eng._pass1(out, lens)
+    want = tp1.pass1_batch(eng.dev_net, eng.ngram_dev, eng.p1_cfg, out,
+                           torch.from_numpy(lens), eager=True)
     assert torch.equal(got.word, want.word)
     valid = want.word >= 0
     for name in tp1.Trellis._fields:
@@ -959,3 +966,230 @@ def test_parallel_on_card_matches_one_device(engines):
     with torch.no_grad():
         err = (eng.mesh_replicas[0]._outprob(x) - eng._outprob(x)).abs()
     assert float(err.max()) <= 2e-2
+
+
+# ---- pass 1's frame step as a CUDA graph
+
+
+@pytest.fixture(scope="module")
+def graph_cases(engines):
+    """branch -> (network, N-gram, Pass1Config, use_kernel, [B, T, R]
+    outprob rows on the card, [B] frame counts): the small flagship's
+    kernel path and unfused N-gram step, factoring 2, the envelope,
+    isolated words, a grammar over its words, and a topology with
+    backward arcs (random rows)."""
+    from julius_tpu_torch import grammar
+    from julius_tpu_torch.config import SearchConfig
+    from julius_tpu_torch.engine import Engine
+    eng, _, feats, lens = engines
+    with torch.no_grad():
+        out = eng._outprob(torch.from_numpy(feats).cuda())
+    # frames past every utterance's end
+    lens = np.minimum(lens, out.shape[1] - 3).astype(np.int32)
+    cfg = eng.p1_cfg
+    cases = {"fused": (eng.dev_net, eng.ngram_dev, cfg, True, out, lens),
+             "ngram_unfused": (eng.dev_net, eng.ngram_dev, cfg, False, out,
+                               lens)}
+    for name, kw in (("factoring2", dict(factoring=2, expand_k=16)),
+                     ("envelope", dict(beam_width=150.0)),
+                     ("isolated", dict(crossword=False))):
+        cases[name] = (eng.dev_net, eng.ngram_dev,
+                       dataclasses.replace(cfg, **kw), True, out, lens)
+    gtext, vtext = synth.make_grammar(eng.voca, n_cats=8)
+    rev, _, voca, wc, _ = grammar.compile_grammar(gtext, vtext)
+    g = Engine(eng.hmm, voca, dnn=eng.dnn_params, frontend=eng.fe_cfg,
+               search=eng.search_cfg, dfa=rev,
+               word_cat=np.asarray(wc, np.int32), device="cuda")
+    cases["dfa"] = (g.dev_net, g.ngram_dev, g.p1_cfg, True, out, lens)
+    hmm = synth.make_hmmset(n_phones=24, dim=8, seed=4)
+    hmm.phone_trans[:, 3, 2] = np.log(0.1)
+    voca = synth.make_vocabulary(hmm, n_words=60, seed=5)
+    b = Engine(hmm, voca, synth.make_ngram(voca, seed=6),
+               search=SearchConfig(trellis_topm=16, lm_weight=4.0),
+               device="cuda")
+    assert b.dev_net.local_k < 0
+    rows = np.random.default_rng(7).normal(
+        -8.0, 3.0, (3, 70, hmm.n_states)).astype(np.float32)
+    cases["gather"] = (b.dev_net, b.ngram_dev, b.p1_cfg, True,
+                       torch.from_numpy(rows).cuda(),
+                       np.asarray([70, 52, 31], np.int32))
+    return cases
+
+
+def graph_run(case, out, lens, eager=False, dev=None):
+    """pass1_batch on one graph case -> (trellis, kernel launches)."""
+    net, ng, cfg, use_kernel = case[:4]
+    before = tpk.LAUNCHES
+    tr = tp1.pass1_batch(dev or net, ng, cfg, out,
+                         torch.as_tensor(lens, device="cuda"),
+                         use_kernel=use_kernel, eager=eager)
+    torch.cuda.synchronize()
+    return tr, tpk.LAUNCHES - before
+
+
+def assert_same_trellis(a, b):
+    for name, x, y in zip(tp1.Trellis._fields, a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("branch", ["fused", "ngram_unfused", "factoring2",
+                                    "envelope", "isolated", "dfa",
+                                    "gather"])
+def test_pass1_graph_equals_eager_oracle(graph_cases, branch):
+    """The graphed trellis is bit-equal to the eager loop's; a second
+    batch of other lengths and values replays the same graph and equals
+    its own eager loop; the kernel launches, counted on replays, are one
+    a frame on the kernel path and none elsewhere."""
+    case = graph_cases[branch]
+    net, _, cfg, use_kernel, out, lens = case
+    T = out.shape[1]
+    fused = use_kernel and tp1.fused_ok(net, cfg)
+    assert fused == (branch == "fused")
+    got, n = graph_run(case, out, lens)
+    want, n_eager = graph_run(case, out, lens, eager=True)
+    assert_same_trellis(got, want)
+    assert n == n_eager == (T if fused else 0)
+    assert (want.word >= 0).sum() > 20
+    captures = net.graphs.captures
+    g = torch.Generator(device="cuda").manual_seed(1)
+    out2 = out.flip(0) + torch.rand(out.shape, generator=g, device="cuda")
+    lens2 = np.maximum(lens[::-1] - np.asarray([4, 0, 11]), 2)
+    got2, n2 = graph_run(case, out2, lens2)
+    assert net.graphs.captures == captures          # the same graph
+    want2, _ = graph_run(case, out2, lens2, eager=True)
+    assert_same_trellis(got2, want2)
+    assert n2 == n
+    assert not torch.equal(got2.score, got.score)
+
+
+def test_pass1_graph_longer_batch_takes_a_new_capacity(graph_cases):
+    case = graph_cases["fused"]
+    net, out, lens = case[0], case[4], case[5]
+    dev = dataclasses.replace(net)                  # a cache of its own
+    T = out.shape[1]
+    cap = max(tp1.MIN_T_BUCKET, 1 << (T - 1).bit_length())
+    reps = cap // T + 1                             # cap < reps T <= 2 cap
+    long = out.repeat(1, reps, 1)
+    long_lens = lens * reps
+    for o, n in ((out, lens), (long, long_lens), (out, lens)):
+        got, launches = graph_run(case, o, n, dev=dev)
+        want, _ = graph_run(case, o, n, eager=True, dev=dev)
+        assert_same_trellis(got, want)
+        assert launches == o.shape[1]
+    assert dev.graphs.captures == 2
+    assert sorted(k[-1] for k in dev.graphs.entries) == [cap, 2 * cap]
+
+
+def test_stable_sort_captures(cuda):
+    """torch.sort(stable=True), pass 1's top-k, inside a CUDA graph: ties
+    to the lowest index, at a row wider than the in-register sort."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randint(-40, 0, (16, 6000), generator=g, device=cuda).float()
+    static = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tp1.topk_stable(static, 64)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        vals, idx = tp1.topk_stable(static, 64)
+    y = torch.randint(-40, 0, (16, 6000), generator=g, device=cuda).float()
+    static.copy_(y)
+    graph.replay()
+    want = tp1.topk_stable(y.cpu(), 64)
+    assert torch.equal(vals.cpu(), want[0])
+    assert torch.equal(idx.cpu(), want[1])
+
+
+def test_pass1_capture_beside_an_allocating_thread(graph_cases):
+    """Captures run from a second thread while this one allocates card
+    memory of new sizes: the captures hold, the allocations do not fail,
+    and each trellis equals the eager loop's."""
+    import threading
+    case = graph_cases["fused"]
+    net, out, lens = case[0], case[4], case[5]
+    devs = [dataclasses.replace(net) for _ in range(4)]
+    got, errors = [], []
+    done = threading.Event()
+
+    def capture():
+        try:
+            for d in devs:
+                got.append(graph_run(case, out, lens, dev=d)[0])
+        except BaseException as e:          # reported by the main thread
+            errors.append(e)
+        finally:
+            done.set()
+
+    t = threading.Thread(target=capture)
+    t.start()
+    held, mb = [], 1
+    while not done.is_set():
+        held.append(torch.empty(mb << 20, dtype=torch.uint8, device="cuda"))
+        mb = mb % 64 + 1
+        if len(held) > 32:
+            held.clear()
+    t.join(timeout=300)
+    assert not t.is_alive() and not errors
+    want, _ = graph_run(case, out, lens, eager=True)
+    for tr, d in zip(got, devs):
+        assert_same_trellis(tr, want)
+        assert d.graphs.captures == 1
+
+
+def test_decode_on_second_card_from_a_thread_on_the_first(engines):
+    """An engine on cuda:1 decoded from a thread whose current card is
+    cuda:0: both kernels launch on the engine's card, and the results are
+    the CPU's."""
+    import threading
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    _, cpu, feats, lens = engines
+    eng, _ = synth.flagship_engine(trained=True, device="cuda:1", **SMALL)
+    res, errors = [], []
+
+    def decode():
+        try:
+            torch.cuda.set_device(0)
+            before = (tpk.LAUNCHES, tsk.LAUNCHES)
+            res.extend(eng.decode_features(feats, lens))
+            res.append((tpk.LAUNCHES - before[0], tsk.LAUNCHES - before[1]))
+        except BaseException as e:          # reported by the main thread
+            errors.append(e)
+
+    t = threading.Thread(target=decode)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive() and not errors
+    launches = res.pop()
+    assert launches[0] == feats.shape[1] and launches[1] > 0
+    want = cpu.decode_features(feats, lens)
+    assert [r.word_ids for r in res] == [r.word_ids for r in want]
+    for g, w in zip(res, want):
+        assert g.score == pytest.approx(w.score, abs=1e-2)
+
+
+def test_pass1_capture_that_syncs_raises(graph_cases, monkeypatch):
+    """A step that synchronises with the host cannot be captured: pass 1
+    raises, never runs the eager loop, keeps no graph, and captures
+    again once the step is sound.  (Last in the file: a failed capture
+    may leave the allocator's capture bookkeeping behind.)"""
+    case = graph_cases["fused"]
+    net, out, lens = case[0], case[4], case[5]
+    dev = dataclasses.replace(net)
+    real = tp1._word_end_candidates
+
+    def syncing(d, ng, cfg, score, *a):
+        float(score.max())                  # a host synchronisation
+        return real(d, ng, cfg, score, *a)
+
+    monkeypatch.setattr(tp1, "_word_end_candidates", syncing)
+    with pytest.raises(RuntimeError):
+        graph_run(case, out, lens, dev=dev)
+    assert not dev.graphs.entries and dev.graphs.captures == 0
+    monkeypatch.undo()
+    got, _ = graph_run(case, out, lens, dev=dev)
+    want, _ = graph_run(case, out, lens, eager=True, dev=dev)
+    assert_same_trellis(got, want)
+    assert dev.graphs.captures == 1
