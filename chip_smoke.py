@@ -170,8 +170,9 @@ Phases, one line each, in order (any failure exits non-zero):
      (refbaseline.export_model, refparity.export_flagship) read back by
      the port's readers, then 4 generative utterances as spliced
      feature files decoded by recognize.main on the exported files;
- 26. a summary of the pass1_graph lines, the kernels' JSON line (one
-     entry per kernel and path), the card line, and the result line last.
+ 26. a summary of the pass1_graph lines, one of the astar_graph lines,
+     the kernels' JSON line (one entry per kernel and path), the card
+     line, and the result line last.
 
 Pass 1 runs on the card as replays of its captured frame step (a CUDA
 graph, search/pass1.py), and every path that calls pass1_batch holds it
@@ -183,6 +184,23 @@ kernel launches equal (counted on the graph's replays), the wall and ms
 a frame of each, and the network's graphs and capture seconds so far.
 The kernel's recorded calls (path_kernels) come from the oracle, since
 a graph calls the wrapper only at capture.
+
+The device A* runs on the card as replays of its captured round (a CUDA
+graph, search/pass2_device.py), the host reading its stop flag once
+every STOP_EVERY replays; every path that calls run_batch (slice,
+lvcsr, the unfused N-gram paths, cli, align, stream, cli_live, server,
+vecnet) holds each call against its eager oracle (the same round once
+a round from Python, eager=True) on the same inputs, and prints one
+astar_graph line a path: N-best lists, rounds and pops equal, both
+loop walls, the rounds the card ran (gated rounds past the end
+included), host waits, captures and their seconds, and the A* wall's
+prepare and readback.  scan_win's recorded calls on those paths come
+from the oracle too, with the graph's rounds past the end added.  On
+the slice and lvcsr inputs the A* also runs at each STOP_EVERY of
+SWEEP_G (astar_stop_every lines), and one graphed run of its rounds
+is profiled (astar_round_profile: kernels and kernel time a round); on
+the slice's, capturing the round through torch.cuda.graph and directly
+is timed in turns (capture_cost).
 
 Weights and utterances are made from fixed seeds; nothing is read from
 outside the repository.  Exits non-zero without a result where CUDA is
@@ -582,9 +600,10 @@ def lvcsr_phase(card):
     retried.append(eng.last_pass2["retried"])
     if launches != T:
         raise RuntimeError(f"{launches} pass1_step launches for {T} frames")
-    if scan_launches != stats["rounds"] + chunks or scan_launches == 0:
+    if scan_launches != stats["replayed"] + chunks or scan_launches == 0:
         raise RuntimeError(f"{scan_launches} scan_win launches for "
-                           f"{stats['rounds']} A* rounds + {chunks} chunks")
+                           f"{stats['replayed']} A* rounds run + {chunks} "
+                           "chunks")
     check_results(res, "lvcsr")
 
     # ---- the same decode staged, for where the time goes
@@ -604,16 +623,21 @@ def lvcsr_phase(card):
         trellis = eng._pass1(out_ext, lens_np)
         torch.cuda.synchronize()
         walls["pass1_wall_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        staged = eng._results(trellis, lens_np, out_ext=out_ext)
-        p2_s = time.perf_counter() - t0
+        with counted_astar(p2d) as staged_astar:
+            t0 = time.perf_counter()
+            staged = eng._results(trellis, lens_np, out_ext=out_ext)
+            p2_s = time.perf_counter() - t0
         graph = graph_vs_eager("lvcsr", dev, eng.ngram_dev, eng.p1_cfg,
                                out_ext, lens_np, got=trellis, card=card)
+        astar = astar_vs_eager("lvcsr", staged_astar, card)
+        stop_every_sweep("lvcsr", staged_astar["calls"][0], card)
+        astar_profile("lvcsr", staged_astar["calls"][0], card)
         walls["pass1_eager_wall_s"] = graph["eager_wall_s"]
         frame_profile("lvcsr", eng, out_ext, lens_np, card)
     net = dict(eng.last_pass2)
     walls.update(astar_wall_s=net["astar_s"], retry_net_wall_s=net["retry_s"],
-                 assembly_wall_s=p2_s - net["astar_s"] - net["retry_s"])
+                 assembly_wall_s=p2_s - net["astar_s"] - net["retry_s"],
+                 **astar_split(astar))
     if [r.word_ids for r in staged] != [r.word_ids for r in res]:
         raise RuntimeError("staged lvcsr decode differs from decode_features")
     BT = N_LVCSR * T
@@ -629,6 +653,8 @@ def lvcsr_phase(card):
           from_pass2=sum(r.from_pass == 2 for r in res),
           spot_checks_passed_after_each_decode=spot,
           retried_in_each_decode=retried, astar_rounds=stats["rounds"],
+          astar_replayed=stats["replayed"], astar_waits=stats["waits"],
+          astar_captured=stats["captured"],
           astar_n_pops=stats["n_pops"], astar_loop_wall_s=stats["wall_loop"],
           kernel_launches=launches, scan_win_launches=scan_launches,
           rescan_chunks=chunks, card=card)
@@ -780,7 +806,11 @@ def recorded_calls(pk, sk, p2d, scan_mod):
     eager oracle on the same batch.  Yields calls[kernel] = {shape:
     [count, [args, ...]]}, with calls["batches"] the kept pass1_batch
     calls and calls["record_step"] the context that records pass1_step;
-    the wrappers' own launch counts are untouched."""
+    the wrappers' own launch counts are untouched.  The device A*'s
+    round runs from a CUDA graph too, so its scans are recorded from its
+    eager oracle likewise: calls["astar"] is the block's
+    `counted_astar`, and calls["record_astar"] the context that records
+    its scans."""
     from julius_tpu_torch.search import pass1 as p1
 
     calls = {"pass1_step": {}, "scan_win": {}, "batches": []}
@@ -827,16 +857,25 @@ def recorded_calls(pk, sk, p2d, scan_mod):
         finally:
             pk.fused_step = real[0]
 
+    @contextlib.contextmanager
+    def record_astar():
+        p2d.scan_core_win = wrap("scan_win", real[1], scan_shape)
+        try:
+            yield
+        finally:
+            p2d.scan_core_win = real[1]
+
     calls["record_step"] = record_step
+    calls["record_astar"] = record_astar
     real = pk.fused_step, p2d.scan_core_win, scan_mod.scan_core_win, \
         p1.pass1_batch
-    p2d.scan_core_win = wrap("scan_win", real[1], scan_shape)
     scan_mod.scan_core_win = wrap("scan_win", real[2], scan_shape)
     p1.pass1_batch = batch
     try:
-        yield calls
+        with counted_astar(p2d) as calls["astar"]:
+            yield calls
     finally:
-        p2d.scan_core_win, scan_mod.scan_core_win, p1.pass1_batch = real[1:]
+        scan_mod.scan_core_win, p1.pass1_batch = real[2:]
 
 
 #: every pass1_graph line of the run, for the summary before the kernels
@@ -902,15 +941,19 @@ def path_kernels(label, calls, launches, eng, card):
     """Each kernel one run launched, at the shapes the run gave it
     (`recorded_calls`; pass1_step's from the eager oracle of each of the
     run's pass1_batch calls, `graph_vs_eager`, whose trellis must equal
-    the graphed run's): per shape, held against the plain version on the
-    run's own kept arguments and on integer-valued inputs at that shape
-    over the run's engine tables, then timed on the kept arguments
-    beside the plain version and the bound.  -> {kernel: entry fields},
+    the graphed run's; the device A*'s scans from the eager oracle of
+    each of its run_batch calls, `astar_vs_eager`, with the graph's
+    gated rounds past the end added at that shape): per shape, held
+    against the plain version on the run's own kept arguments and on
+    integer-valued inputs at that shape over the run's engine tables,
+    then timed on the kept arguments beside the plain version and the
+    bound.  -> {kernel: entry fields},
     the times and bound the launch-weighted mean over the run's shapes;
     a kernel the run never called has no entry."""
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
     from julius_tpu_torch.search import pass1 as p1
+    from julius_tpu_torch.search import pass2_device as p2d
 
     dev = eng.dev_net
     # pass1_step's calls, from the eager oracle of each graphed batch
@@ -918,6 +961,18 @@ def path_kernels(label, calls, launches, eng, card):
         graph_vs_eager(label, b["dev"], b["ngram"], b["cfg"], b["out_ext"],
                        b["n_frames"], b["use_kernel"], got=b["got"],
                        card=card, record=calls["record_step"])
+    # the A*'s scans, from the eager oracle of each graphed call, plus
+    # the gated rounds the graph ran past the end (same shape)
+    astar = calls.pop("astar")
+    if astar["calls"]:
+        astar_vs_eager(label, astar, card, record=calls["record_astar"])
+    for c in astar["calls"]:
+        tabs, out_ext = c["args"][1], c["args"][5]
+        B, T, R = out_ext.shape
+        key = (B * p2d.POPS, min(p2d.SCAN_WIN, T), tabs.nmax,
+               tabs.kl + 1, B, T, R)
+        calls["scan_win"][key][0] += c["stats"]["replayed"] - \
+            c["stats"]["rounds"]
     out = {}
     for name in ("pass1_step", "scan_win"):
         if not calls[name] and not launches[name]:
@@ -1136,20 +1191,21 @@ def cli_phase(card, task_dir):
             results = []
             with recorded_calls(pk, sk, p2d, scan_mod) as calls:
                 pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
-                p2d.LAST_STATS.clear()
                 lines, wall, built = run_cli(recognize, argv + inputs,
                                              results)
                 launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
-            chunks, rounds = p2r.CHUNKS, p2d.LAST_STATS.get("rounds", 0)
+            chunks = p2r.CHUNKS
+            rounds, replayed = (calls["astar"][k]
+                                for k in ("rounds", "replayed"))
             t_run = max(read_htk_param(f).data.shape[0] for f in inputs)
             if launches != (t_run if fused else 0):
                 raise RuntimeError(f"{label}: {launches} pass1_step launches "
                                    f"for {t_run} frames")
-            if scan_launches != rounds + chunks \
+            if scan_launches != replayed + chunks \
                     or (scan_launches > 0) != (label != "cli_word"):
                 raise RuntimeError(f"{label}: {scan_launches} scan_win "
-                                   f"launches for {rounds} A* rounds + "
-                                   f"{chunks} chunks")
+                                   f"launches for {replayed} A* rounds "
+                                   f"run + {chunks} chunks")
             check_results(results, label, edges={
                 "cli_gram": "texts", "cli_word": None}.get(label, "words"))
             got = [ln.split(": ", 1)[1] if ": " in ln else ""
@@ -1161,8 +1217,9 @@ def cli_phase(card, task_dir):
             runs[label] = dict(
                 utterances=n, wall_s=wall, exact_transcripts=f"{exact}/{n}",
                 from_pass2=sum(r.from_pass == 2 for r in results),
-                astar_rounds=rounds, rescan_chunks=chunks,
-                kernel_launches=launches, scan_win_launches=scan_launches,
+                astar_rounds=rounds, astar_replayed=replayed,
+                rescan_chunks=chunks, kernel_launches=launches,
+                scan_win_launches=scan_launches,
                 wordgraphs=lines.count("--- begin wordgraph data ---"),
                 confnets=lines.count("--- begin confusion network ---"),
                 sentences_per_input=sum(ln.startswith("sentence")
@@ -1237,6 +1294,103 @@ def frame_profile(label, eng, out_ext, lens_np, card):
           busy_share=busy["busy_share"],
           top=[dict(name=n[:100], us_per_frame=d / T) for n, d in top],
           card=card)
+
+
+def astar_profile(label, call, card):
+    """One kept device A* call's rounds (`counted_astar`; its graph
+    cached, so replays only) under torch.profiler, from loading the
+    batch to the last replay: the kernels a round the card ran, the
+    card's kernel time a round and the kernels that take most of it, and
+    the share of the traced window in which a kernel runs.  The host's
+    `prepare` is outside the window."""
+    import os
+    from torch.profiler import ProfilerActivity, profile
+    from julius_tpu_torch.search import pass2_device as p2d
+
+    a, kw = call["args"], call["kw"]
+    d, x = p2d._setup(a[0], a[1], a[3], a[4], a[5], a[6], a[7],
+                      kw.get("best_in"))
+    iwcd2 = kw.get("iwcd2")
+    if iwcd2 is not None and iwcd2.n_resolved == 0:
+        iwcd2 = None
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with p2d._graphed(a[1], a[2], iwcd2, d, x) as (_, info):
+                torch.cuda.synchronize()
+        path = os.path.join(tmp, "astar.json")
+        prof.export_chrome_trace(path)
+        busy = trace_busy(path)
+        with open(path) as fh:
+            kernels = [e for e in json.load(fh)["traceEvents"]
+                       if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    n = info["replayed"]
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    phase("astar_round_profile", path=label, rounds_run=n,
+          captured=info["captured"], kernels_per_round=len(kernels) / n,
+          kernel_us_per_round=busy["kernel_busy_ms"] * 1e3 / n,
+          window_us_per_round=busy["window_ms"] * 1e3 / n,
+          busy_share=busy["busy_share"],
+          top=[dict(name=k[:100], us_per_round=v / n) for k, v in top],
+          card=card)
+
+
+def capture_cost(label, call, card, turns=3):
+    """Host seconds of capturing the device A*'s round on one kept call's
+    inputs (`counted_astar`), through `torch.cuda.graph` (which first
+    synchronises the card and empties the allocator's device and
+    pinned-host caches) and through capture_begin / capture_end directly
+    (search/pass1.py `_capture`), in turns (graph, direct, direct,
+    graph, ...), each on fresh fixed tensors after an eager round run to
+    its end; then the seconds of the next allocation of the batch's
+    outprob cache's size, written and synchronised."""
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass2_device as p2d
+
+    a, kw = call["args"], call["kw"]
+    d, x = p2d._setup(a[0], a[1], a[3], a[4], a[5], a[6], a[7],
+                      kw.get("best_in"))
+    iwcd2 = kw.get("iwcd2")
+    if iwcd2 is not None and iwcd2.n_resolved == 0:
+        iwcd2 = None
+    side = torch.cuda.Stream()
+    n0, runs = sk.CAPTURED, []
+    for i in range(2 * turns):
+        way = ("graph", "direct")[(i + i // 2) % 2]
+        pool = torch.cuda.graph_pool_handle()     # the last one's is gone
+        r = p2d._Rounds(a[1], a[2], iwcd2, d, x)
+        r.load(x)
+        graph = torch.cuda.CUDAGraph()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            r.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if way == "graph":
+                with torch.cuda.graph(graph, pool=pool, stream=side,
+                                      capture_error_mode="thread_local"):
+                    r.step()
+            else:
+                graph.capture_begin(pool, capture_error_mode="thread_local")
+                try:
+                    r.step()
+                finally:
+                    graph.capture_end()
+            capture_s = time.perf_counter() - t0
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = torch.empty_like(x.out_ext).fill_(0.0)
+        torch.cuda.synchronize()
+        runs.append(dict(way=way, capture_s=capture_s,
+                         next_alloc_s=time.perf_counter() - t0))
+        del r, graph, y
+    sk.CAPTURED = n0
+    phase("capture_cost", path=label, runs=runs, card=card)
 
 
 def launch_guard(dev, card, n=100_000):
@@ -1428,16 +1582,16 @@ def unfused_run(label, ueng, fused_eng, feats, lens_np, truths, card):
     torch.cuda.synchronize()
     with recorded_calls(pk, sk, p2d, scan_mod) as calls:
         pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
-        p2d.LAST_STATS.clear()
         t0 = time.perf_counter()
         res = ueng.decode_features(feats, lens_np)
         wall = time.perf_counter() - t0
         launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
-    chunks, rounds = p2r.CHUNKS, p2d.LAST_STATS.get("rounds", 0)
-    if launches or scan_launches != rounds + chunks or not scan_launches:
+    chunks = p2r.CHUNKS
+    rounds, replayed = (calls["astar"][k] for k in ("rounds", "replayed"))
+    if launches or scan_launches != replayed + chunks or not scan_launches:
         raise RuntimeError(f"{label}: {launches} pass1_step and "
                            f"{scan_launches} scan_win launches for "
-                           f"{rounds} A* rounds + {chunks} chunks")
+                           f"{replayed} A* rounds run + {chunks} chunks")
     check_results(res, label)
     exact = exact_count(res, truths)
     with torch.no_grad():
@@ -1455,7 +1609,7 @@ def unfused_run(label, ueng, fused_eng, feats, lens_np, truths, card):
                   fused_pass1_ms_per_frame=fused_s * 1e3 / T,
                   pass1_step_launches=launches,
                   scan_win_launches=scan_launches, astar_rounds=rounds,
-                  rescan_chunks=chunks)
+                  astar_replayed=replayed, rescan_chunks=chunks)
     if exact < B - 1:
         raise RuntimeError(f"{label}: {fields}")
     return fields, kernel_entries(label, measured)
@@ -1540,14 +1694,27 @@ CHUNK_SAMPLES = 1600          # 100 ms of 16 kHz audio a feed
 
 @contextlib.contextmanager
 def counted_astar(p2d):
-    """Sum the device A*'s rounds over every run_batch call in the block
-    (LAST_STATS keeps the last call's only).  Yields {"rounds": n}."""
-    total = {"rounds": 0}
+    """Keep every device A* call in the block (LAST_STATS keeps the last
+    call's only).  Yields {"rounds": n, "replayed": n, "calls": [...]}:
+    the rounds searched, the rounds the card ran (the gated rounds past
+    the end included, one scan_win launch each), and each call that
+    searched (its arguments, its outprob cache copied, its N-best lists
+    as `nbest_tuples` and LAST_STATS) for `astar_vs_eager`."""
+    total = {"rounds": 0, "replayed": 0, "calls": []}
     real = p2d.run_batch
 
     def run_batch(*a, **kw):
+        p2d.LAST_STATS.clear()
         out = real(*a, **kw)
-        total["rounds"] += p2d.LAST_STATS.get("rounds", 0)
+        stats = dict(p2d.LAST_STATS)
+        if stats:
+            total["rounds"] += stats["rounds"]
+            total["replayed"] += stats["replayed"]
+            a = list(a)
+            a[5] = a[5].clone()                 # the outprob cache
+            # the lists as returned (the retry net replaces some after)
+            total["calls"].append(dict(args=a, kw=kw, got=nbest_tuples(out),
+                                       stats=stats))
         return out
 
     p2d.run_batch = run_batch
@@ -1555,6 +1722,114 @@ def counted_astar(p2d):
         yield total
     finally:
         p2d.run_batch = real
+
+
+#: every astar_graph line of the run, for the summary before the kernels
+ASTAR_LINES = []
+
+
+def nbest_tuples(lists):
+    return [[dataclasses.astuple(r) for r in x] for x in lists]
+
+
+def astar_vs_eager(label, astar, card, record=None):
+    """Each device A* call of one path (`counted_astar`), graphed as the
+    path ran it, run again as its eager oracle (eager=True: the same
+    round once a round from Python) on the same inputs: the N-best lists
+    must be equal bit for bit, with equal rounds and pops.  The oracle
+    runs inside `record` (a context) where given; its launches are taken
+    back out of LAUNCHES.  Prints one astar_graph line: both loop walls
+    (host clock, first round to the scores on the host), the rounds, the
+    rounds the card ran, the host waits, captures and their seconds, G,
+    and the A* wall split into prepare, loop and readback; returns its
+    fields."""
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass2_device as p2d
+
+    n0 = sk.LAUNCHES
+    per = []
+    for c in astar["calls"]:
+        torch.cuda.synchronize()
+        with record() if record else contextlib.nullcontext():
+            eager = p2d.run_batch(*c["args"], **c["kw"], eager=True)
+        e, g = dict(p2d.LAST_STATS), c["stats"]
+        per.append(dict(
+            batch=g["B"], frames=g["T"], atoms=g["NA"], rounds=g["rounds"],
+            replayed=g["replayed"], waits=g["waits"], captured=g["captured"],
+            capture_s=g["capture_s"], graphed_loop_s=g["wall_loop"],
+            eager_loop_s=e["wall_loop"], prepare_s=g["wall_prepare"],
+            readback_s=g["wall_readback"],
+            bit_equal=(nbest_tuples(eager) == c["got"]
+                       and e["rounds"] == g["rounds"]
+                       and e["n_pops"] == g["n_pops"] and g["graphed"]
+                       and not e["graphed"])))
+    sk.LAUNCHES = n0
+
+    def total(k):
+        return sum(x[k] for x in per)
+
+    fields = dict(
+        path=label, calls=len(per), rounds=total("rounds"),
+        replayed=total("replayed"), waits=total("waits"),
+        captures=total("captured"), capture_s=total("capture_s"),
+        stop_every=p2d.STOP_EVERY, graphed_loop_s=total("graphed_loop_s"),
+        eager_loop_s=total("eager_loop_s"),
+        eager_over_graphed=(total("eager_loop_s")
+                            / max(total("graphed_loop_s"), 1e-9)),
+        prepare_s=total("prepare_s"), readback_s=total("readback_s"),
+        bit_equal=all(x["bit_equal"] for x in per), per_call=per)
+    phase("astar_graph", **fields, card=card)
+    ASTAR_LINES.append(fields)
+    if not per or not fields["bit_equal"]:
+        raise RuntimeError(f"{label}: graphed A* differs from its eager "
+                           f"oracle: {fields}")
+    return fields
+
+
+def astar_split(fields):
+    """A staged decode's device A* wall split (`astar_vs_eager` fields):
+    the host's prepare, the graphed loop and the readback, and the eager
+    oracle's loop beside it."""
+    return dict(astar_prepare_s=fields["prepare_s"],
+                astar_graphed_loop_s=fields["graphed_loop_s"],
+                astar_readback_s=fields["readback_s"],
+                astar_eager_loop_s=fields["eager_loop_s"],
+                astar_graphed_rounds_run=fields["replayed"],
+                astar_host_waits=fields["waits"])
+
+
+#: STOP_EVERY values of the sweep, run up and back down
+SWEEP_G = (1, 2, 4, 8, 16)
+
+
+def stop_every_sweep(label, call, card):
+    """One kept device A* call (`counted_astar`) again, graphed from its
+    cached graph, at each STOP_EVERY of SWEEP_G and back: the loop wall,
+    the host waits and the gated rounds past the end at each G, for the
+    choice of STOP_EVERY.  Each result must equal the call's."""
+    from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.search import pass2_device as p2d
+
+    chosen, n0 = p2d.STOP_EVERY, sk.LAUNCHES
+    runs = []
+    try:
+        for G in SWEEP_G + SWEEP_G[::-1]:
+            p2d.STOP_EVERY = G
+            torch.cuda.synchronize()
+            got = p2d.run_batch(*call["args"], **call["kw"])
+            st = dict(p2d.LAST_STATS)
+            runs.append(dict(
+                stop_every=G, loop_s=st["wall_loop"], waits=st["waits"],
+                past_end=st["replayed"] - st["rounds"],
+                captured=st["captured"],
+                equal=nbest_tuples(got) == call["got"]))
+    finally:
+        p2d.STOP_EVERY = chosen
+        sk.LAUNCHES = n0
+    phase("astar_stop_every", path=label, rounds=call["stats"]["rounds"],
+          chosen=chosen, runs=runs, card=card)
+    if not all(r["equal"] for r in runs):
+        raise RuntimeError(f"{label}: the A* at another STOP_EVERY differs")
 
 
 def align_phase(eng, protos, card):
@@ -1591,22 +1866,22 @@ def align_phase(eng, protos, card):
         eng.decode_features(feats[:2], lens_np[:2])        # warm-up
         torch.cuda.synchronize()
         walls.clear()
-        with recorded_calls(pk, sk, p2d, scan_mod) as calls, \
-                counted_astar(p2d) as astar:
+        with recorded_calls(pk, sk, p2d, scan_mod) as calls:
             pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
             t0 = time.perf_counter()
             res = eng.decode_features(feats, lens_np)
             wall = time.perf_counter() - t0
             launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
-        chunks, rounds = p2r.CHUNKS, astar["rounds"]
+        chunks = p2r.CHUNKS
+        rounds, replayed = (calls["astar"][k] for k in ("rounds", "replayed"))
     finally:
         eng.search_cfg = base
         del eng.align
-    if launches != T or scan_launches != rounds + chunks \
+    if launches != T or scan_launches != replayed + chunks \
             or not scan_launches:
         raise RuntimeError(f"align: {launches} pass1_step launches for {T} "
-                           f"frames, {scan_launches} scan_win for {rounds} "
-                           f"A* rounds + {chunks} chunks")
+                           f"frames, {scan_launches} scan_win for {replayed} "
+                           f"A* rounds run + {chunks} chunks")
     check_results(res, "align")
     exact = exact_count(res, truths)
     worst, n_checked = 0, 0
@@ -1655,7 +1930,8 @@ def align_phase(eng, protos, card):
           viterbi_card_vs_cpu_backpointers_equal=vit_same,
           viterbi_card_vs_cpu_score_err=vit_err,
           pass1_step_launches=launches, scan_win_launches=scan_launches,
-          astar_rounds=rounds, rescan_chunks=chunks, card=card)
+          astar_rounds=rounds, astar_replayed=replayed, rescan_chunks=chunks,
+          card=card)
     if exact < N_UTTS - 1 or worst > 3 or not vit_same or vit_err > 1e-3:
         raise RuntimeError(f"align: {exact}/{N_UTTS} exact, worst boundary "
                            f"{worst} frames, Viterbi card vs CPU "
@@ -1744,13 +2020,13 @@ def stream_phase(eng, card):
         caches.clear()
         torch.cuda.synchronize()
         res = []
-        with recorded_calls(pk, sk, p2d, scan_mod) as calls, \
-                counted_astar(p2d) as astar:
+        with recorded_calls(pk, sk, p2d, scan_mod) as calls:
             pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
             for u in range(N_STREAM):
                 res.append(one_stream(waves[u], timed=True))
             launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
-        chunks, rounds = p2r.CHUNKS, astar["rounds"]
+        chunks = p2r.CHUNKS
+        rounds, replayed = (calls["astar"][k] for k in ("rounds", "replayed"))
     finally:
         p1.pass1_stream_finalize = real_finalize
         del eng._pass2_result
@@ -1758,10 +2034,10 @@ def stream_phase(eng, card):
         raise RuntimeError(f"stream: {[len(r) for r in res]} results")
     res = [r[0] for r in res]
     check_results(res, "stream")
-    if launches or scan_launches != rounds + chunks or not scan_launches:
+    if launches or scan_launches != replayed + chunks or not scan_launches:
         raise RuntimeError(f"stream: {launches} pass1_step and "
-                           f"{scan_launches} scan_win launches for {rounds} "
-                           f"A* rounds + {chunks} chunks")
+                           f"{scan_launches} scan_win launches for "
+                           f"{replayed} A* rounds run + {chunks} chunks")
     # where the stream's outprob rows differ from the batch path's
     rows = []
     for u, cache in enumerate(caches):
@@ -1795,6 +2071,7 @@ def stream_phase(eng, card):
           pass1_step_note="0: the stream's pass 1 takes the unfused step, "
                           "as the reference's stream runs XLA",
           scan_win_launches=scan_launches, astar_rounds=rounds,
+          astar_replayed=replayed,
           rescan_chunks=chunks, card=card)
     if same != N_STREAM:
         raise RuntimeError(f"stream: {same}/{N_STREAM} equal to the batch "
@@ -1993,17 +2270,18 @@ def cli_live_phase(card, files, live):
     runs, entries = {}, []
     for label, extra in plan:
         results = []
-        with recorded_calls(pk, sk, p2d, scan_mod) as calls, \
-                counted_astar(p2d) as astar:
+        with recorded_calls(pk, sk, p2d, scan_mod) as calls:
             pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
             lines, wall, built = run_cli(recognize, models + extra, results)
             launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
-        chunks, rounds = p2r.CHUNKS, astar["rounds"]
-        if scan_launches != rounds + chunks or not scan_launches \
+        chunks = p2r.CHUNKS
+        rounds, replayed = (calls["astar"][k] for k in ("rounds", "replayed"))
+        if scan_launches != replayed + chunks or not scan_launches \
                 or (launches == 0) != (label == "cli_fake"):
             raise RuntimeError(f"{label}: {launches} pass1_step and "
                                f"{scan_launches} scan_win launches for "
-                               f"{rounds} A* rounds + {chunks} chunks")
+                               f"{replayed} A* rounds run + {chunks} "
+                               "chunks")
         heads = [ln for ln in lines if ln.startswith("input: ")]
         runs[label] = dict(
             wall_s=wall, inputs=len(heads),
@@ -2013,6 +2291,7 @@ def cli_live_phase(card, files, live):
             alignment_blocks=sum(ln.startswith("=== ") for ln in lines),
             results=len(results), kernel_launches=launches,
             scan_win_launches=scan_launches, astar_rounds=rounds,
+            astar_replayed=replayed,
             rescan_chunks=chunks)
         entries += kernel_entries(label, path_kernels(
             label, calls, {"pass1_step": launches,
@@ -2188,8 +2467,7 @@ def server_phase(eng, card, stream_in, live):
         with serving([eng]) as (f, sock, aport):
             control_s = sum(command(f, sock, c, w) for c, w in control)
             cli = AdinnetClient(port=aport)
-            with recorded_calls(pk, sk, p2d, scan_mod) as calls, \
-                    counted_astar(p2d) as astar:
+            with recorded_calls(pk, sk, p2d, scan_mod) as calls:
                 pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
                 t0 = time.perf_counter()
                 for w in waves:
@@ -2205,11 +2483,12 @@ def server_phase(eng, card, stream_in, live):
             cli.close()
     finally:
         p1.pass1_stream_finalize = real_finalize
-    chunks, rounds = p2r.CHUNKS, astar["rounds"]
-    if launches or scan_launches != rounds + chunks or not scan_launches:
+    chunks = p2r.CHUNKS
+    rounds, replayed = (calls["astar"][k] for k in ("rounds", "replayed"))
+    if launches or scan_launches != replayed + chunks or not scan_launches:
         raise RuntimeError(f"server: {launches} pass1_step and "
-                           f"{scan_launches} scan_win launches for {rounds} "
-                           f"A* rounds + {chunks} chunks")
+                           f"{scan_launches} scan_win launches for "
+                           f"{replayed} A* rounds run + {chunks} chunks")
     same = same_as_batch(msgs, batch)
     runs["server"] = dict(
         segments=len(msgs), seconds_each=STREAM_S,
@@ -2219,6 +2498,7 @@ def server_phase(eng, card, stream_in, live):
         segment_end_delay_ms=end_to_result, wall_s=wall,
         control_commands_s=control_s, pass1_step_launches=launches,
         scan_win_launches=scan_launches, astar_rounds=rounds,
+        astar_replayed=replayed,
         rescan_chunks=chunks)
     entries += kernel_entries("server", path_kernels(
         "server", calls, {"pass1_step": launches, "scan_win": scan_launches},
@@ -2240,8 +2520,7 @@ def server_phase(eng, card, stream_in, live):
 
     out = io.StringIO()
     with serving([eng]) as (f, sock, aport):
-        with recorded_calls(pk, sk, p2d, scan_mod) as calls, \
-                counted_astar(p2d) as astar:
+        with recorded_calls(pk, sk, p2d, scan_mod) as calls:
             pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
             real_client = adintool.AdinnetClient
             adintool.AdinnetClient = RecordingClient
@@ -2257,16 +2536,17 @@ def server_phase(eng, card, stream_in, live):
             msgs = [read_msg(f) for _ in sent]
             wall = time.perf_counter() - t0
             launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
-    chunks, rounds = p2r.CHUNKS, astar["rounds"]
+    chunks = p2r.CHUNKS
+    rounds, replayed = (calls["astar"][k] for k in ("rounds", "replayed"))
     said = out.getvalue().strip()
     if rc != 0 or said != f"sent {len(sent)} segment(s) over adinnet" \
             or len(sent) != 3:
         raise RuntimeError(f"adintool: rc {rc}, {said!r}, {len(sent)} "
                            "segments recorded (3 expected)")
-    if launches or scan_launches != rounds + chunks or not scan_launches:
+    if launches or scan_launches != replayed + chunks or not scan_launches:
         raise RuntimeError(f"server_adintool: {launches} pass1_step and "
-                           f"{scan_launches} scan_win launches for {rounds} "
-                           f"A* rounds + {chunks} chunks")
+                           f"{scan_launches} scan_win launches for "
+                           f"{replayed} A* rounds run + {chunks} chunks")
     lens = np.asarray([len(x) for x in sent], np.int32)
     padded = np.zeros((len(sent), lens.max()), np.float32)
     for u, x in enumerate(sent):
@@ -2279,6 +2559,7 @@ def server_phase(eng, card, stream_in, live):
         recogfail=sum(m.startswith("<RECOGFAIL") for m in msgs),
         wall_s=wall, pass1_step_launches=launches,
         scan_win_launches=scan_launches, astar_rounds=rounds,
+        astar_replayed=replayed,
         rescan_chunks=chunks)
     entries += kernel_entries("server_adintool", path_kernels(
         "server_adintool", calls, {"pass1_step": launches,
@@ -2369,17 +2650,18 @@ def vecnet_phase(eng, card, feats, lens_np, truths, first):
         torch.cuda.synchronize()
         with recorded_calls(pk, sk, p2d, scan_mod) as calls:
             pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
-            p2d.LAST_STATS.clear()
             t0 = time.perf_counter()
             res = decode(batch, lens)
             decode_s = time.perf_counter() - t0
             launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
-        chunks, rounds = p2r.CHUNKS, p2d.LAST_STATS.get("rounds", 0)
-        if launches != lens.max() or scan_launches != rounds + chunks \
+        chunks = p2r.CHUNKS
+        rounds, replayed = (calls["astar"][k] for k in ("rounds", "replayed"))
+        if launches != lens.max() or scan_launches != replayed + chunks \
                 or not scan_launches:
             raise RuntimeError(f"{label}: {launches} pass1_step launches "
                                f"for {lens.max()} frames, {scan_launches} "
-                               f"scan_win for {rounds} rounds + {chunks}")
+                               f"scan_win for {replayed} rounds run + "
+                               f"{chunks}")
         check_results(res, label)
         exact = exact_count(res, truths)
         equal = sum(r.word_ids == w.word_ids for r, w in zip(res, first))
@@ -2389,7 +2671,7 @@ def vecnet_phase(eng, card, feats, lens_np, truths, first):
             exact_transcripts=f"{exact}/{N_UTTS}",
             equal_to_first_decode=f"{equal}/{N_UTTS}",
             pass1_step_launches=launches, scan_win_launches=scan_launches,
-            astar_rounds=rounds, rescan_chunks=chunks)
+            astar_rounds=rounds, astar_replayed=replayed, rescan_chunks=chunks)
         entries += kernel_entries(label, path_kernels(
             label, calls, {"pass1_step": launches,
                            "scan_win": scan_launches}, eng, card))
@@ -3344,9 +3626,10 @@ def main() -> int:
     net = dict(eng.last_pass2)
     if launches != T:
         raise RuntimeError(f"{launches} kernel launches for {T} frames")
-    if scan_launches != stats["rounds"] + chunks or scan_launches == 0:
+    if scan_launches != stats["replayed"] + chunks or scan_launches == 0:
         raise RuntimeError(f"{scan_launches} scan_win launches for "
-                           f"{stats['rounds']} A* rounds + {chunks} chunks")
+                           f"{stats['replayed']} A* rounds run + {chunks} "
+                           "chunks")
 
     # the same decode again in its three stages, for where the time goes
     torch.cuda.synchronize()
@@ -3359,16 +3642,20 @@ def main() -> int:
     tr_kernel = eng._pass1(out_ext, lens_np)
     torch.cuda.synchronize()
     p1_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), counted_astar(p2d) as staged_astar:
+        t0 = time.perf_counter()
         staged = eng._results(tr_kernel, lens_np, out_ext=out_ext)
-    p2_s = time.perf_counter() - t0
+        p2_s = time.perf_counter() - t0
     staged_net = dict(eng.last_pass2)
     if [r.word_ids for r in staged] != [r.word_ids for r in res]:
         raise RuntimeError("staged decode differs from decode_features")
     slice_graph = graph_vs_eager("slice", eng.dev_net, eng.ngram_dev,
                                  eng.p1_cfg, out_ext, lens_np,
                                  got=tr_kernel, card=card)
+    slice_astar = astar_vs_eager("slice", staged_astar, card)
+    stop_every_sweep("slice", staged_astar["calls"][0], card)
+    astar_profile("slice", staged_astar["calls"][0], card)
+    capture_cost("slice", staged_astar["calls"][0], card)
     # the eager loop with the kernel's plain version in it
     real = pk.fused_step
     pk.fused_step = pk.fused_step_plain
@@ -3415,7 +3702,8 @@ def main() -> int:
         p2d.scan_core_win = sk.scan_core_win_plain
         try:
             t0 = time.perf_counter()
-            nb_plain = p2d.run_batch(*astar_args, best_in=eng._p2d_best_in)
+            nb_plain = p2d.run_batch(*astar_args, best_in=eng._p2d_best_in,
+                                     eager=True)
             astar_plain_s = time.perf_counter() - t0
         finally:
             p2d.scan_core_win = sk.scan_core_win
@@ -3433,7 +3721,7 @@ def main() -> int:
           astar_wall_s=staged_net["astar_s"],
           retry_net_wall_s=staged_net["retry_s"],
           assembly_wall_s=p2_s - staged_net["astar_s"]
-          - staged_net["retry_s"],
+          - staged_net["retry_s"], **astar_split(slice_astar),
           astar_rerun_wall_s=astar_s, astar_plain_scan_wall_s=astar_plain_s,
           pass1_plain_wall_s=p1_plain_s,
           pass1_eager_wall_s=slice_graph["eager_wall_s"],
@@ -3444,6 +3732,8 @@ def main() -> int:
           exact_transcripts=f"{exact}/{N_UTTS}",
           from_pass2=sum(r.from_pass == 2 for r in res),
           retried=net["retried"], astar_rounds=stats["rounds"],
+          astar_replayed=stats["replayed"], astar_waits=stats["waits"],
+          astar_captured=stats["captured"],
           astar_n_pops=stats["n_pops"], astar_loop_wall_s=stats["wall_loop"],
           max_rounds=stats["max_rounds"], CAPP=stats["CAPP"],
           kernel_launches=launches, scan_win_launches=scan_launches,
@@ -3534,6 +3824,14 @@ def main() -> int:
               "eager_ms_per_frame", "eager_over_graphed",
               "network_graphs", "network_capture_s")} for g in GRAPH_LINES],
           card=card)
+    phase("astar_graph_summary", note="the device A* per path, graphed "
+          "(replays of the captured round) beside its eager oracle on the "
+          "same inputs; walls summed over the path's calls",
+          paths=[{k: g[k] for k in (
+              "path", "calls", "rounds", "replayed", "waits", "captures",
+              "capture_s", "graphed_loop_s", "eager_loop_s",
+              "eager_over_graphed", "prepare_s", "readback_s")}
+              for g in ASTAR_LINES], card=card)
     print(json.dumps({"kernels": flagship + kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,10 @@ plain version takes the same arguments so the two stay comparable.
 
 `scan_core_win` runs the plain version only for CPU tensors.  For CUDA
 tensors it launches the kernel on their card or raises; `LAUNCHES`
-counts launches.
+counts launches.  Called while its stream captures a CUDA graph (the
+device A*'s round, search/pass2_device.py), it records the launch into
+the graph instead, counted in `CAPTURED`; whoever replays the graph
+counts the launches there.
 The kernel is built with nvcc at first use (ops/cuda_build.py).  For
 chains with N + KL <= 32 and KL <= 3 (every flagship word) it is
 warp-specialised: a recurrence warp carries each node's score and entry
@@ -40,6 +43,8 @@ SOURCE = cuda_build.CSRC / "scan_win.cu"
 
 #: kernel launches made through `scan_core_win` in this process
 LAUNCHES = 0
+#: launches `scan_core_win` recorded into CUDA graphs under capture
+CAPTURED = 0
 _lib = None
 
 
@@ -120,7 +125,7 @@ def scan_core_win(loc, ent, ext, sidx, seed, out_ext, bidx, t0):
     """K windowed word-chain scans (arguments as `scan_core_win_plain`).
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     Callers keep t0 + W <= T and sidx inside R."""
-    global LAUNCHES
+    global LAUNCHES, CAPTURED
     dev = seed.device
     if dev.type == "cpu":
         return scan_core_win_plain(loc, ent, ext, sidx, seed, out_ext, bidx,
@@ -154,7 +159,11 @@ def scan_core_win(loc, ent, ext, sidx, seed, out_ext, bidx, t0):
             t0.data_ptr(), K, K1, N, W, B, T, R, g.data_ptr(),
             beg.data_ptr(), sv.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise RuntimeError(f"scan_win kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    if capturing:
+        CAPTURED += 1
+    else:
+        LAUNCHES += 1
     return g, beg, sv

@@ -57,15 +57,18 @@ MIN_T_BUCKET = 16   # the shortest frame capacity a captured step holds
 
 
 class GraphCache:
-    """The CUDA graphs of `pass1_batch`'s frame step on one network.
+    """Captured CUDA graphs of one loop body: `pass1_batch`'s frame step
+    on one network (here), the device A*'s round on one set of chain
+    tables (search/pass2_device.py).
 
-    An entry (`_Graph`) is keyed by what fixes its addresses and shapes
-    (card, B, the node axis, M, R, the branch, the config, the N-gram,
-    and a power-of-two capacity of frames).  Every graph of a cache shares one memory pool and one
-    capture stream; `lock` keeps one batch at a time on them, since a
-    batch fills the fixed tensors, replays and copies the trellis out.
-    `captures` and `capture_s` count the captures made and their host
-    seconds (the eager first frame and the capture)."""
+    An entry of pass 1 (`_Graph`) is keyed by what fixes its addresses
+    and shapes (card, B, the node axis, M, R, the branch, the config,
+    the N-gram, and a power-of-two capacity of frames).  Every graph of
+    a cache shares one memory pool and one capture stream; `lock` keeps
+    one batch at a time on them, since a batch fills the fixed tensors,
+    replays and copies its results out.  `captures` and `capture_s`
+    count the captures made and their host seconds (the eager first
+    step and the capture)."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -627,19 +630,27 @@ def _capture(cache: GraphCache, device, step) -> torch.cuda.CUDAGraph:
     on its command thread while another thread decodes, and in the
     "global" mode that thread's allocations would fail during a capture
     and break it; this thread's own host synchronisations still fail
-    it."""
+    it.  The capture begins and ends directly, not through
+    `torch.cuda.graph`, which would first synchronise the card and empty
+    the allocator's device and pinned-host caches, so that later
+    allocations go back to cudaMalloc (chip_smoke.py's capture_cost line
+    times both ways)."""
     if cache.stream is None:
-        cache.pool = torch.cuda.graph_pool_handle()
         cache.stream = torch.cuda.Stream(device)
+    if cache.pool is None or not cache.entries:
+        # a pool none of whose graphs is alive cannot take a capture
+        cache.pool = torch.cuda.graph_pool_handle()
     side = cache.stream
     side.wait_stream(torch.cuda.current_stream(device))
     graph = torch.cuda.CUDAGraph()
     try:
         with torch.cuda.stream(side):
             step()
-            with torch.cuda.graph(graph, pool=cache.pool, stream=side,
-                                  capture_error_mode="thread_local"):
+            graph.capture_begin(cache.pool, capture_error_mode="thread_local")
+            try:
                 step()
+            finally:
+                graph.capture_end()
     except BaseException:
         cache.pool = cache.stream = None
         raise

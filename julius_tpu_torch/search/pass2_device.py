@@ -4,9 +4,14 @@ Port of `julius_tpu/search/pass2_device.py`.  The host-driven re-scan
 A* (`pass2_rescan.py`) pays one host round trip per batched round plus
 Python bookkeeping per expansion.  This module keeps the WHOLE second
 pass - stack, pops, word re-scans, LM probes, pushes, N-best
-termination - in device tensors; the round loop runs on the host and
-reads one flag back a round (is any utterance still active), where the
-reference runs it inside one `lax.while_loop`.
+termination - in device tensors.  The reference runs its rounds inside
+one jitted `lax.while_loop`; here one round is `_Rounds.step` over
+fixed tensors, gated on the device by the loop's condition so that a
+round past the end changes nothing.  On a CUDA card the round is
+captured once as a CUDA graph (`GraphCache` on the chain tables) and
+replayed, the host reading the stop flag once every STOP_EVERY
+replays; on the CPU, and with `eager=True`, the same step runs once a
+round from Python.
 
 Algorithmically this is the reference's stack decoder with the
 scan-at-pop structure of `search_bestfirst_main.c:787` (wchmm_fbs):
@@ -65,19 +70,21 @@ fused into the scan kernel.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from julius_tpu_torch.config import SearchConfig
+from julius_tpu_torch.ops import scan_kernel as sk
 from julius_tpu_torch.ops.scan_kernel import scan_core_win
 from julius_tpu_torch.search.ngram_device import (U32, DeviceNgram,
                                                   _mul_u32, bigram_score)
-from julius_tpu_torch.search.pass1 import topk_stable
+from julius_tpu_torch.search.pass1 import _capture, topk_stable
 from julius_tpu_torch.search.pass2 import NBestResult, TrellisLattice
 from julius_tpu_torch.search.scan import (DeviceChainTables,
                                           head_substituted_sidx)
@@ -116,6 +123,13 @@ NB_SLOTS = 8
 LAST_STATS: dict = {}
 #: g/beg-store budget (MB) bounding the per-utterance pop arena
 MEM_MB = 384
+#: rounds the card replays between two host reads of the stop flag: 1,
+#: by measurement on the H100 (PERF.md §6) a host read costs less
+#: than the round past the end that a larger value may run
+STOP_EVERY = 1
+#: captured rounds kept per set of chain tables; each holds its own
+#: g/beg stores (up to MEM_MB) and a copy of its batch's outprob cache
+GRAPHS_KEPT = 3
 
 
 @dataclass
@@ -443,9 +457,11 @@ def prepare(lattices: List[Optional[TrellisLattice]], T: int,
                 s_row, s_len, s_seqh))
 
 
-#: word-envelope hash slots and recombination hash slots per utterance
+#: word-envelope hash slots, recombination hash slots and envelope
+#: lengths per utterance
 ENV_H = 8192
 DH = 1 << 14
+LEN_CAP = 128
 
 
 def _seq_mix(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -470,53 +486,129 @@ def _recomb_keys(key: torch.Tensor, w: torch.Tensor, prev: torch.Tensor):
     return k1, k2
 
 
-def _astar_loop(tabs: DeviceChainTables, ng: DeviceNgram, wid2lm, cprobv,
-                out_ext, ab, atoms_packed, rest, cfm, last, stack0,
-                *, P: int, S: int, CA: int, CK: int, CAPP: int,
-                max_rounds: int, T: int, lr: int, tail: int, nbest: int,
-                lw2: float, pen2: float, wb: int, iwcd2=None):
-    """The whole batched A*: rounds run while any utterance is active
-    and fewer than `max_rounds` have run (`round_i * P` indexes the
-    arena).  The one host sync of a round is reading that flag.
+class _Dims(NamedTuple):
+    """What fixes one batch's A* program: its shapes and static values
+    (the reference's jit static arguments and traced shapes)."""
+
+    B: int
+    T: int
+    R: int
+    NA: int
+    P: int
+    S: int
+    CA: int
+    CK: int
+    CAPP: int
+    max_rounds: int
+    lr: int
+    tail: int
+    nbest: int
+    lw2: float
+    pen2: float
+    wb: int
+
+
+class _Inputs(NamedTuple):
+    """One batch's inputs to the rounds, on the device."""
+
+    out_ext: torch.Tensor   # [B, T, R] f32 outprob cache
+    wid2lm: torch.Tensor    # [V+1] i64 word -> LM id (-1 none)
+    cprobv: torch.Tensor    # [V+1] f32 class probability add
+    ab: torch.Tensor        # [B, NA] i64 atom begin frames
+    packed: torch.Tensor    # [B, NA, 6] f32 per-atom candidate columns
+    rest: torch.Tensor      # [B, T] f32 suffix estimate
+    cfm: torch.Tensor       # [B, T+1] f32 cumulative frame maxima
+    last: torch.Tensor      # [B] i64 final frame (-1 = skip)
+    stack: Tuple[torch.Tensor, ...]   # initial stack fields [B, S]
+
+
+class _Rounds:
+    """The whole batched A* over fixed tensors: the inputs, the stack,
+    the g/beg stores, the arena, the results, the envelope counters,
+    `n_pops`, `active` and a [1] round counter.  `step` is one round
+    under the reference's `cond` (some utterance active and fewer than
+    max_rounds run), computed on the device as `go`: with `go` false it
+    changes nothing, so replaying it past the end is exact.  It writes
+    everything back in place, so a CUDA graph of it replays the loop.
+    `more` holds `cond` of the current state; the host reads it to stop.
     `iwcd2` (search.iwcd2.StrictIWCDTables) turns on strict inter-word
-    CD heads.
-    Returns (res_score, res_arena, arena_w, arena_t, arena_parent,
-    arena_lm_sum, beg_store, n_pops, rounds); see `run_batch` for the
-    host-side decoding of the outputs."""
-    dev = out_ext.device
-    B = out_ext.shape[0]
-    V_dead = tabs.loc.shape[0] - 1
-    K = B * P
-    f32, i64 = torch.float32, torch.int64
-    bvec = torch.arange(B, device=dev)
-    arP = torch.arange(P, device=dev)
-    W = min(SCAN_WIN, T)
-    arW = torch.arange(W, device=dev)
-    arCA = torch.arange(CA, device=dev)
-    W11 = 2 * lr + 1
-    arH = torch.arange(4 * lr + 1, device=dev)
-    arW11 = torch.arange(W11, device=dev)
-    tri = (arP[:, None] > arP[None, :])[None]                   # [1, P, P]
+    CD heads."""
 
-    g_store = torch.full((B * CAPP, T), LOG_ZERO, dtype=f32, device=dev)
-    beg_store = torch.zeros((B * CAPP, T), dtype=torch.int32, device=dev)
-    arena_w = torch.full((B, CAPP), -1, dtype=i64, device=dev)
-    arena_t = torch.zeros((B, CAPP), dtype=i64, device=dev)
-    arena_parent = torch.full((B, CAPP), -1, dtype=i64, device=dev)
-    arena_lm_sum = torch.zeros((B, CAPP), dtype=f32, device=dev)
-    res_score = torch.full((B, NB_SLOTS), NEG_INF, dtype=f32, device=dev)
-    res_arena = torch.full((B, NB_SLOTS), -1, dtype=i64, device=dev)
-    res_seqh = torch.zeros((B, NB_SLOTS), dtype=i64, device=dev)
-    n_pops = torch.zeros(B, dtype=i64, device=dev)
-    active = last >= 0
-    LEN_CAP = 128
-    env_cnt = torch.zeros((B, LEN_CAP), dtype=i64, device=dev)
-    env_seen = torch.zeros((B, ENV_H), dtype=i64, device=dev)
-    (s_prio, s_w, s_t, s_prev, s_parent, s_lm_add, s_lm_sum, s_row, s_len,
-     s_seqh) = stack0
+    def __init__(self, tabs: DeviceChainTables, ng: DeviceNgram, iwcd2,
+                 d: _Dims, x: _Inputs):
+        self.tabs, self.ng, self.iwcd2, self.d = tabs, ng, iwcd2, d
+        dev = x.out_ext.device
+        B, T, P, CAPP = d.B, d.T, d.P, d.CAPP
+        f32, i64 = torch.float32, torch.int64
 
-    round_i = 0
-    while round_i < max_rounds and bool(active.any()):
+        def new(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        self.x = _Inputs(*[torch.empty_like(a) for a in x[:-1]],
+                         tuple(torch.empty_like(a) for a in x.stack))
+        self.stack = self.x.stack
+        self.g_store = new((B * CAPP, T), f32)
+        self.beg_store = new((B * CAPP, T), torch.int32)
+        self.arena_w = new((B, CAPP), i64)
+        self.arena_t = new((B, CAPP), i64)
+        self.arena_parent = new((B, CAPP), i64)
+        self.arena_lm_sum = new((B, CAPP), f32)
+        self.res_score = new((B, NB_SLOTS), f32)
+        self.res_arena = new((B, NB_SLOTS), i64)
+        self.res_seqh = new((B, NB_SLOTS), i64)
+        self.n_pops = new(B, i64)
+        self.active = new(B, torch.bool)
+        self.env_cnt = new((B, LEN_CAP), i64)
+        self.env_seen = new((B, ENV_H), i64)
+        self.round_i = new(1, i64)
+        self.more = new(1, torch.bool)
+        self.bvec = torch.arange(B, device=dev)
+        self.bidx = self.bvec[:, None].expand(B, P).reshape(B * P).to(
+            torch.int32)
+        self.arP = torch.arange(P, device=dev)
+
+    def load(self, x: _Inputs) -> None:
+        """Start a batch: copy its inputs in and reset the state."""
+        for buf, a in zip((*self.x[:-1], *self.stack), (*x[:-1], *x.stack)):
+            buf.copy_(a)
+        self.g_store.fill_(LOG_ZERO)
+        self.beg_store.zero_()
+        self.arena_w.fill_(-1)
+        self.arena_t.zero_()
+        self.arena_parent.fill_(-1)
+        self.arena_lm_sum.zero_()
+        self.res_score.fill_(NEG_INF)
+        self.res_arena.fill_(-1)
+        self.res_seqh.zero_()
+        self.n_pops.zero_()
+        self.active.copy_(self.x.last >= 0)
+        self.env_cnt.zero_()
+        self.env_seen.zero_()
+        self.round_i.zero_()
+        self.more.copy_(self._cond())
+
+    def _cond(self) -> torch.Tensor:
+        return self.active.any() & (self.round_i < self.d.max_rounds)
+
+    def step(self) -> None:
+        """One round (the reference's `body`), gated by `go`."""
+        d, tabs, x = self.d, self.tabs, self.x
+        B, P, T, CAPP, lr, tail = d.B, d.P, d.T, d.CAPP, d.lr, d.tail
+        dev = x.out_ext.device
+        K = B * P
+        V_dead = tabs.loc.shape[0] - 1
+        f32, i64 = torch.float32, torch.int64
+        bvec, arP = self.bvec, self.arP
+        W = min(SCAN_WIN, T)
+        W11 = 2 * lr + 1
+        rest, cfm, last = x.rest, x.cfm, x.last
+        g_store = self.g_store
+        go = self._cond()                                        # [1]
+        # a gated-off round pops nothing: no utterance is valid in it
+        act = self.active & go
+        (s_prio, s_w, s_t, s_prev, s_parent, s_lm_add, s_lm_sum, s_row, s_len,
+         s_seqh) = self.stack
+
         # ---- pop the top P entries of every active utterance
         pprio, pop_idx = topk_stable(s_prio, P)
         pw, pt, pprev, pparent, plm_add, plm_sum, prow_own, plen, pseqh = (
@@ -524,20 +616,21 @@ def _astar_loop(tabs: DeviceChainTables, ng: DeviceNgram, wid2lm, cprobv,
                                            s_lm_add, s_lm_sum, s_row, s_len,
                                            s_seqh))
         s_prio = s_prio.scatter(1, pop_idx, NEG_INF)
-        valid = (pprio > NEG_HALF) & active[:, None]
+        valid = (pprio > NEG_HALF) & act[:, None]
         scanned = valid & (prow_own >= 0)
         fresh = valid & (prow_own < 0)
         # envelope class = the word SEQUENCE (rolling hash); fresh pops
         # of a full, never-admitted sequence are killed before their scan
         lidx = plen.clamp(0, LEN_CAP - 1)
         ekey = _env_key(pseqh)
-        eseen = env_seen.gather(1, ekey) > 0
-        env_ok = eseen | (env_cnt.gather(1, lidx) < wb)
+        eseen = self.env_seen.gather(1, ekey) > 0
+        env_ok = eseen | (self.env_cnt.gather(1, lidx) < d.wb)
         fresh = fresh & (env_ok | (pw == tail))
 
-        # ---- arena slots for this round (one row per pop slot)
-        base = round_i * P
-        aidx = (base + arP)[None, :].expand(B, P)                # [B, P]
+        # ---- arena slots for this round (one row per pop slot); the
+        # clamp keeps a gated-off round's slots inside the arena
+        base = self.round_i.clamp(max=d.max_rounds - 1) * P       # [1]
+        aidx = base + arP                                        # [P]
         rows = (bvec[:, None] * CAPP + aidx).reshape(K)
 
         # ---- scan-at-(first-)pop, windowed to SCAN_WIN frames ending a
@@ -549,60 +642,64 @@ def _astar_loop(tabs: DeviceChainTables, ng: DeviceNgram, wid2lm, cprobv,
                            0).reshape(K)
         w0 = (pt.reshape(K) - (W - WIN_TAIL)).clamp(0, max(T - W, 0))
         w0 = torch.where(has_parent, w0, 0)
-        idx_t = w0[:, None] + arW                                # [K, W]
+        idx_t = w0[:, None] + torch.arange(W, device=dev)        # [K, W]
         lm_k = plm_add.reshape(K)[:, None]
         pgw = g_store[prow[:, None], (idx_t - 1).clamp(min=0)]
         ext_seed = torch.where(idx_t >= 1, pgw, LOG_ZERO) + lm_k
         init_seed = torch.where(idx_t == 0, lm_k, LOG_ZERO)
         seed_w = torch.where(has_parent[:, None], ext_seed, init_seed)
         sidx_k = tabs.sidx[wids]
-        if iwcd2 is not None:
+        if self.iwcd2 is not None:
             # strict inter-word CD (PASS2_STRICT_IWCD,
             # search_bestfirst_v2.c:911): the word-head states read the
             # EXACT left-context triphone of the popped entry's previous
             # word; class 0 (no previous word / no exact model) keeps the
             # v1 pseudo columns (outprob_style.c lcdset fallback)
+            iw = self.iwcd2
             lc = torch.where(pprev >= 0,
-                             iwcd2.lc_of_word_dev[pprev.clamp(min=0)], 0)
+                             iw.lc_of_word_dev[pprev.clamp(min=0)], 0)
             sidx_k = head_substituted_sidx(sidx_k, wids, lc.reshape(K),
-                                           iwcd2.head_sidx, iwcd2.head_ns)
+                                           iw.head_sidx, iw.head_ns)
         g_w, beg_w, _ = scan_core_win(
             tabs.loc[wids], tabs.ent[wids], tabs.ext[wids], sidx_k,
-            seed_w, out_ext, bvec.repeat_interleave(P).to(torch.int32),
-            w0.to(torch.int32))
+            seed_w, x.out_ext, self.bidx, w0.to(torch.int32))
         g = torch.full((K, T), LOG_ZERO, dtype=f32, device=dev)
         g.scatter_(1, idx_t, g_w)
         beg = torch.zeros((K, T), dtype=torch.int32, device=dev)
         beg.scatter_(1, idx_t, beg_w)
-        g_store[rows] = g
-        beg_store[rows] = beg
+        for store, new in ((g_store, g), (self.beg_store, beg)):
+            store.index_copy_(0, rows, torch.where(
+                go[:, None], new, store.index_select(0, rows)))
         gBPT = g.reshape(B, P, T)
         exact = gBPT.gather(2, pt[..., None])[..., 0]            # [B, P]
 
         # ---- arena append (fresh pops only carry a word)
-        arena_w[:, base:base + P] = torch.where(fresh, pw, -1)
-        arena_t[:, base:base + P] = pt
-        arena_parent[:, base:base + P] = pparent
-        arena_lm_sum[:, base:base + P] = plm_sum
+        for buf, new in ((self.arena_w, torch.where(fresh, pw, -1)),
+                         (self.arena_t, pt), (self.arena_parent, pparent),
+                         (self.arena_lm_sum, plm_sum)):
+            buf.index_copy_(1, aidx, torch.where(
+                go, new, buf.index_select(1, aidx)))
 
         # ---- completions: tail word first-popped at the final frame;
         # a sequence already recorded (or recorded by a lower pop slot
         # this round) is a boundary variant, not a new sentence
+        res_score, res_arena, res_seqh = (self.res_score, self.res_arena,
+                                          self.res_seqh)
         is_final = (fresh & (pw == tail) & (pt == last[:, None])
                     & (exact > NEG_HALF))
         comp_s = torch.where(is_final, exact, NEG_INF)
         dup_prev = ((pseqh[:, :, None] == res_seqh[:, None, :])
                     & (res_score[:, None, :] > NEG_HALF)).any(dim=2)
+        tri = arP[:, None] > arP[None, :]                        # [P, P]
         dup_self = ((pseqh[:, :, None] == pseqh[:, None, :])
                     & is_final[:, None, :] & tri).any(dim=2)
         comp_s = torch.where(dup_prev | dup_self, NEG_INF, comp_s)
         rs2 = torch.cat([res_score, comp_s], dim=1)
-        ra2 = torch.cat([res_arena, aidx], dim=1)
+        ra2 = torch.cat([res_arena, aidx.expand(B, P)], dim=1)
         rh2 = torch.cat([res_seqh, pseqh], dim=1)
         order_r = torch.argsort(-rs2, dim=1, stable=True)[:, :NB_SLOTS]
-        res_score = rs2.gather(1, order_r)
-        res_arena = ra2.gather(1, order_r)
-        res_seqh = rh2.gather(1, order_r)
+        res_score, res_arena, res_seqh = (
+            a.gather(1, order_r) for a in (rs2, ra2, rh2))
 
         # ---- lazy A* re-push with anchor fan-out: a fresh non-final pop
         # goes back on the stack at the top A_RP local maxima (+-2 frames)
@@ -610,20 +707,22 @@ def _astar_loop(tabs: DeviceChainTables, ng: DeviceNgram, wid2lm, cprobv,
         live = (gBPT > NEG_HALF) & (rest[:, None, :] > NEG_HALF)
         gr = torch.where(live, gBPT + rest[:, None, :], NEG_INF)
         grp = gr
-        for d in (1, 2):
+        for dd in (1, 2):
             grp = torch.maximum(grp, torch.maximum(
-                F.pad(gr[:, :, d:], (0, d), value=NEG_INF),
-                F.pad(gr[:, :, :-d], (d, 0), value=NEG_INF)))
+                F.pad(gr[:, :, dd:], (0, dd), value=NEG_INF),
+                F.pad(gr[:, :, :-dd], (dd, 0), value=NEG_INF)))
         gr_lm = torch.where(gr >= grp, gr, NEG_INF)
         rp_prio, rp_t = topk_stable(gr_lm, A_RP)                 # [B,P,A]
         repush = (fresh & ~is_final & (exact > NEG_HALF))[..., None]
         r_prio = torch.where(repush & (rp_prio > NEG_HALF), rp_prio,
                              NEG_INF).reshape(B, P * A_RP)
         r_t = rp_t.reshape(B, P * A_RP)
+        # each pop's fields repeated A_RP times in place (a
+        # repeat_interleave whose output size needs no host read)
         r_w, r_prev, r_parent, r_lm_add, r_lm_sum, r_row, r_len, r_seqh = (
-            a.repeat_interleave(A_RP, dim=1)
-            for a in (pw, pprev, pparent, plm_add, plm_sum, aidx, plen,
-                      pseqh))
+            a[..., None].expand(B, P, A_RP).reshape(B, P * A_RP)
+            for a in (pw, pprev, pparent, plm_add, plm_sum,
+                      aidx.expand(B, P), plen, pseqh))
 
         # ---- next-word candidates for SCANNED pops: trellis atoms whose
         # begin falls in +-lr of the boundary (ngram_decode.c:428); the
@@ -631,15 +730,15 @@ def _astar_loop(tabs: DeviceChainTables, ng: DeviceNgram, wid2lm, cprobv,
         tau = pt + 1                                             # [B, P]
         expandable = scanned & (pw != tail) & env_ok
         newclass = expandable & ~eseen
-        env_cnt.scatter_add_(1, lidx, newclass.to(i64))
-        env_seen.scatter_reduce_(1, ekey, expandable.to(i64), reduce="amax",
-                                 include_self=True)
-        NA = ab.shape[1]
-        i0 = torch.searchsorted(ab, tau - lr, right=False)       # [B, P]
+        env_cnt = self.env_cnt.scatter_add(1, lidx, newclass.to(i64))
+        env_seen = self.env_seen.scatter_reduce(
+            1, ekey, expandable.to(i64), reduce="amax", include_self=True)
+        NA, CA, CK = d.NA, d.CA, d.CK
+        i0 = torch.searchsorted(x.ab, tau - lr, right=False)     # [B, P]
         idx = (i0.clamp(max=NA - CA).clamp(min=0)[..., None]
-               + arCA)                                           # [B,P,CA]
+               + torch.arange(CA, device=dev))                   # [B,P,CA]
         inb = idx < NA
-        packed = atoms_packed[bvec[:, None, None], idx]       # [B,P,CA,6]
+        packed = x.packed[bvec[:, None, None], idx]           # [B,P,CA,6]
         cb = packed[..., 0].to(i64)
         ce = packed[..., 1].to(i64)
         cw = packed[..., 2].to(i64)
@@ -658,14 +757,16 @@ def _astar_loop(tabs: DeviceChainTables, ng: DeviceNgram, wid2lm, cprobv,
         # begin of g[t'] - cfm[t'+1], plus cfm[begin]
         g_own_rows = torch.where(scanned, bvec[:, None] * CAPP + prow_own,
                                  0)                              # [B, P]
-        posw = tau[..., None] - 2 * lr - 1 + arH                 # [B,P,4lr+1]
+        posw = (tau[..., None] - 2 * lr - 1
+                + torch.arange(4 * lr + 1, device=dev))          # [B,P,4lr+1]
         posc = posw.clamp(0, T - 1)
         h_at = (g_store[g_own_rows[..., None], posc]
                 - cfm[bvec[:, None, None], posc + 1])
         h_at = torch.where(posw >= 0, h_at, LOG_ZERO)
         h_sel = h_at.unfold(2, W11, 1).amax(dim=3)               # [B,P,W11]
         cfm_sel = cfm[bvec[:, None, None],
-                      (tau[..., None] - lr + arW11).clamp(0, T)]
+                      (tau[..., None] - lr
+                       + torch.arange(W11, device=dev)).clamp(0, T)]
         cb_rel = (cb - (tau[..., None] - lr)).clamp(0, W11 - 1)
         gb = (h_sel + cfm_sel).gather(2, cb_rel)
         est0 = gb + lm_opt_c + cinc + rest_e
@@ -681,10 +782,11 @@ def _astar_loop(tabs: DeviceChainTables, ng: DeviceNgram, wid2lm, cprobv,
 
         # exact weighted 2-gram for the survivors (hash probe); a word
         # outside the LM scores -99 (its id is clamped for the probe)
-        w_lm = wid2lm[c_w]
-        lp = bigram_score(ng, per_child(wid2lm[pw]), w_lm.clamp(min=0))
+        w_lm = x.wid2lm[c_w]
+        lp = bigram_score(self.ng, per_child(x.wid2lm[pw]),
+                          w_lm.clamp(min=0))
         lp = torch.where(w_lm < 0, -99.0, lp)
-        c_lm_add = lw2 * lp + pen2 + cprobv[c_w]
+        c_lm_add = d.lw2 * lp + d.pen2 + x.cprobv[c_w]
         c_opt = lm_opt_c.gather(2, top_i).reshape(B, P * CK)
         top_p = top_p.reshape(B, P * CK)
         c_prio = torch.where(top_p > NEG_HALF, top_p - c_opt + c_lm_add,
@@ -727,43 +829,39 @@ def _astar_loop(tabs: DeviceChainTables, ng: DeviceNgram, wid2lm, cprobv,
         keep &= ((m_prio >= class_best(k2, m_prio) - 40.0)
                  | (is_exact & (m_prio >= class_best(k2, prio_ex) - 40.0)))
         m_prio = torch.where(keep, m_prio, NEG_INF)
-        s_prio, sel = topk_stable(m_prio, S)
-        (s_w, s_t, s_prev, s_parent, s_lm_add, s_lm_sum, s_row, s_len,
-         s_seqh) = (a.gather(1, sel) for a in (
-             m_w, m_t, m_prev, m_parent, m_lm_add, m_lm_sum, m_row, m_len,
-             m_seqh))
+        s_prio, sel = topk_stable(m_prio, d.S)
+        stack = [s_prio] + [a.gather(1, sel) for a in (
+            m_w, m_t, m_prev, m_parent, m_lm_add, m_lm_sum, m_row, m_len,
+            m_seqh)]
 
         # ---- termination bookkeeping (expansions count as the -m pop
         # budget; the exact-scan re-pop is bookkeeping)
-        n_pops = n_pops + scanned.sum(dim=1)
+        n_pops = self.n_pops + scanned.sum(dim=1)
         n_res = (res_score > NEG_HALF).sum(dim=1)
-        kth = res_score[:, nbest - 1]
+        kth = res_score[:, d.nbest - 1]
         top = m_prio.amax(dim=1)
-        done = (((n_res >= nbest) & (top <= kth + 1e-6))
+        done = (((n_res >= d.nbest) & (top <= kth + 1e-6))
                 | (top <= NEG_HALF) | (n_pops >= CAPP - P))
-        active = active & ~done
-        round_i += 1
-    return (res_score, res_arena, arena_w, arena_t, arena_parent,
-            arena_lm_sum, beg_store, n_pops, round_i)
+
+        # ---- write the round back; a gated-off round keeps every value
+        for buf, new in ((self.res_score, res_score),
+                         (self.res_arena, res_arena),
+                         (self.res_seqh, res_seqh), (self.n_pops, n_pops),
+                         (self.active, act & ~done),
+                         (self.env_cnt, env_cnt), (self.env_seen, env_seen),
+                         *zip(self.stack, stack)):
+            buf.copy_(torch.where(go, new, buf))
+        self.round_i.add_(go.to(i64))
+        self.more.copy_(self._cond())
 
 
-def run_batch(lattices: List[Optional[TrellisLattice]],
-              tabs: DeviceChainTables, ng: DeviceNgram,
-              wid2lm: np.ndarray, cprob: Optional[np.ndarray],
-              out_ext: torch.Tensor, strategy, cfg: SearchConfig,
-              best_in: Optional[np.ndarray] = None,
-              iwcd2=None,
-              ) -> List[List[NBestResult]]:
-    """Device A* over a whole utterance batch; returns per-utterance
-    N-best lists (empty list = pass-1 fallback, like the host path).
-    out_ext [B, T, R] is the unshifted outprob cache on the tables'
-    device.  With `iwcd2` tables that resolve at least one head
-    triphone, each scan's word-head columns follow the popped entry's
-    previous word (strict inter-word CD).
-
-    `best_in` is LM-dependent, not batch-dependent: pass the cached
-    array (engine._p2d_best_in) to avoid re-walking the whole N-gram
-    dict per decode batch."""
+def _setup(lattices: List[Optional[TrellisLattice]],
+           tabs: DeviceChainTables, wid2lm: np.ndarray,
+           cprob: Optional[np.ndarray], out_ext: torch.Tensor, strategy,
+           cfg: SearchConfig, best_in: Optional[np.ndarray]
+           ) -> Optional[Tuple[_Dims, _Inputs]]:
+    """The host half of run_batch: `prepare`, the sizes and the inputs
+    on the device; None when no utterance has a start."""
     B, T, R = out_ext.shape
     dev = out_ext.device
     out_ext = out_ext.to(torch.float32).contiguous()
@@ -777,7 +875,6 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
                             / max(1, B * T * 8)) // P * P)
     CAPP = min(max(P * 32, 2 * int(cfg.max_hypo_pop) // P * P),
                capp_mem)
-    max_rounds = CAPP // P
     # per-frame best outprob: the admissible charge for entry-frame
     # slack in the candidate entry bound (cfm)
     fmax = out_ext.amax(dim=2).cpu().numpy()
@@ -786,11 +883,10 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
     prep = prepare(lattices, T, strategy, cfg, S, cprob, best_in,
                    fmax=fmax)
     if not (prep.last >= 0).any():
-        return [[] for _ in range(B)]
+        return None
     NA = prep.ab.shape[1]
     lr = max(0, int(cfg.lookup_range))
     CA = min((2 * lr + 1) * Q_PER_FRAME, NA)
-    CK = min(CHILD_KEEP, CA)
     Vp1 = tabs.loc.shape[0]
     cprobv = (np.zeros(Vp1, np.float32) if cprob is None
               else np.append(cprob.astype(np.float32), 0.0))
@@ -809,32 +905,119 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
                    else on_dev(a.astype(np.int64), i64) for a in prep.stack0)
     cfm = np.concatenate([np.zeros((B, 1), np.float32),
                           np.cumsum(fmax, axis=1, dtype=np.float32)], axis=1)
-    t_start = time.perf_counter()
-    (res_score, res_arena, arena_w, arena_t, arena_parent, arena_lm_sum,
-     beg_store, n_pops, rounds) = _astar_loop(
-        tabs, ng, on_dev(wid2lm_v[:Vp1], i64), on_dev(cprobv[:Vp1], f32),
-        out_ext, on_dev(prep.ab, i64), on_dev(prep.packed, f32),
-        on_dev(prep.rest, f32), on_dev(cfm, f32), on_dev(prep.last, i64),
-        stack0,
-        P=P, S=S, CA=CA, CK=CK, CAPP=CAPP, max_rounds=max_rounds,
-        T=T, lr=lr, tail=int(strategy.tail_word),
-        nbest=int(min(cfg.nbest, NB_SLOTS)),
-        lw2=float(cfg.lm_weight2), pen2=float(cfg.lm_penalty2),
-        wb=(int(cfg.word_envelope) if cfg.enveloped else 1 << 30),
-        iwcd2=iwcd2 if iwcd2 is not None and iwcd2.n_resolved > 0
-        else None)
-    res_score = res_score.cpu().numpy()
-    t_loop = time.perf_counter() - t_start
-    # search statistics of the LAST run_batch call (profiling)
-    LAST_STATS.update(
-        rounds=int(rounds), max_rounds=max_rounds, CAPP=CAPP,
-        P=P, S=S, CA=CA, CK=CK, B=B, T=T, NA=NA,
-        wall_loop=round(t_loop, 3),
-        n_pops=n_pops.cpu().numpy().tolist())
-    res_arena = res_arena.cpu().numpy()
-    arena_w = arena_w.cpu().numpy()
-    arena_parent = arena_parent.cpu().numpy()
-    arena_lm_sum = arena_lm_sum.cpu().numpy()
+    d = _Dims(B=B, T=T, R=R, NA=NA, P=P, S=S, CA=CA, CK=min(CHILD_KEEP, CA),
+              CAPP=CAPP, max_rounds=CAPP // P, lr=lr,
+              tail=int(strategy.tail_word),
+              nbest=int(min(cfg.nbest, NB_SLOTS)),
+              lw2=float(cfg.lm_weight2), pen2=float(cfg.lm_penalty2),
+              wb=(int(cfg.word_envelope) if cfg.enveloped else 1 << 30))
+    x = _Inputs(out_ext, on_dev(wid2lm_v[:Vp1], i64),
+                on_dev(cprobv[:Vp1], f32), on_dev(prep.ab, i64),
+                on_dev(prep.packed, f32), on_dev(prep.rest, f32),
+                on_dev(cfm, f32), on_dev(prep.last, i64), stack0)
+    return d, x
+
+
+@contextlib.contextmanager
+def _eager(tabs, ng, iwcd2, d: _Dims, x: _Inputs):
+    """run_batch's rounds as a Python loop: one step a round while the
+    stop flag holds, read once a round.  Yields (the rounds, the run's
+    statistics)."""
+    rounds = _Rounds(tabs, ng, iwcd2, d, x)
+    rounds.load(x)
+    ran = 0
+    while bool(rounds.more):
+        rounds.step()
+        ran += 1
+    yield rounds, dict(replayed=ran, waits=ran + 1, captured=0,
+                       capture_s=0.0, stop_every=1)
+
+
+def _host_flag(flag: torch.Tensor) -> bool:
+    """A [1] bool of the card on the host: a non-blocking copy into
+    pinned memory and one event wait."""
+    pinned = torch.empty(1, dtype=torch.bool, pin_memory=True)
+    pinned.copy_(flag, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return bool(pinned)
+
+
+class _RoundGraph(NamedTuple):
+    """A captured A* round: the graph, the fixed tensors it reads and
+    writes, the kernel launches one replay makes, and the N-gram and
+    strict head tables it reads (their ids are part of the key)."""
+
+    graph: torch.cuda.CUDAGraph
+    rounds: _Rounds
+    launches: int
+    ng: DeviceNgram
+    iwcd2: object
+
+
+@contextlib.contextmanager
+def _graphed(tabs, ng, iwcd2, d: _Dims, x: _Inputs):
+    """run_batch's rounds on a CUDA card: replays of a captured round.
+    The first batch of a key runs round 1 eagerly and captures the
+    round (`_capture`), dropping the oldest entry past GRAPHS_KEPT.  The
+    host replays STOP_EVERY rounds between two reads of the stop flag,
+    so it waits at most ceil(rounds / STOP_EVERY) + 1 times and runs at
+    most STOP_EVERY - 1 gated rounds past the end; nothing falls back to
+    the eager loop.  Yields (the rounds, the run's statistics) with the
+    cache's lock held, so that the caller reads the results out before
+    another batch reuses the tensors."""
+    device = x.out_ext.device
+    key = (device, d, id(ng), id(iwcd2))
+    cache = tabs.graphs
+    every = STOP_EVERY
+    with cache.lock, torch.cuda.device(device):
+        entry = cache.entries.pop(key, None)
+        captured = entry is None
+        capture_s = 0.0
+        if captured:
+            while len(cache.entries) >= GRAPHS_KEPT:
+                del cache.entries[next(iter(cache.entries))]
+            t0 = time.perf_counter()
+            rounds = _Rounds(tabs, ng, iwcd2, d, x)
+            rounds.load(x)
+            before = sk.CAPTURED
+            graph = _capture(cache, device, rounds.step)
+            entry = _RoundGraph(graph, rounds, sk.CAPTURED - before, ng,
+                                iwcd2)
+            capture_s = time.perf_counter() - t0
+            cache.captures += 1
+            cache.capture_s += capture_s
+        else:
+            entry.rounds.load(x)
+        cache.entries[key] = entry
+        ran = int(captured)         # the capture's eager round 1
+        replays = waits = 0
+        while True:
+            if ran:
+                waits += 1
+                if not _host_flag(entry.rounds.more):
+                    break
+            for _ in range(every):
+                entry.graph.replay()
+            ran += every
+            replays += every
+        sk.LAUNCHES += entry.launches * replays
+        yield entry.rounds, dict(replayed=ran, waits=waits,
+                                 captured=int(captured), capture_s=capture_s,
+                                 stop_every=every)
+
+
+def _collect(r: _Rounds, res_score: np.ndarray,
+             lattices: List[Optional[TrellisLattice]], cfg: SearchConfig
+             ) -> List[List[NBestResult]]:
+    """The N-best lists of finished rounds (`res_score` read from them):
+    word sequences from the arena, bounds from the winners' beg rows."""
+    B, T, CAPP = r.d.B, r.d.T, r.d.CAPP
+    res_arena = r.res_arena.cpu().numpy()
+    arena_w = r.arena_w.cpu().numpy()
+    arena_parent = r.arena_parent.cpu().numpy()
+    arena_lm_sum = r.arena_lm_sum.cpu().numpy()
 
     # reconstruct word sequences; fetch beg rows for the winners only
     chains: List[List[Tuple[int, List[int]]]] = []
@@ -855,7 +1038,8 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
     for b, per in enumerate(chains):
         for _, idxs in per:
             rows_flat.extend(b * CAPP + ai for ai in idxs)
-    begs = (beg_store[torch.as_tensor(rows_flat, dtype=i64, device=dev)]
+    begs = (r.beg_store[torch.as_tensor(rows_flat, dtype=torch.int64,
+                                        device=r.beg_store.device)]
             .cpu().numpy() if rows_flat else np.zeros((0, T), np.int32))
     pos = 0
     results: List[List[NBestResult]] = []
@@ -889,4 +1073,51 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
                 bounds=bounds))
         per_out.sort(key=lambda r: -r.score)
         results.append(per_out[:cfg.nbest])
+    return results
+
+
+def run_batch(lattices: List[Optional[TrellisLattice]],
+              tabs: DeviceChainTables, ng: DeviceNgram,
+              wid2lm: np.ndarray, cprob: Optional[np.ndarray],
+              out_ext: torch.Tensor, strategy, cfg: SearchConfig,
+              best_in: Optional[np.ndarray] = None,
+              iwcd2=None, eager: bool = False,
+              ) -> List[List[NBestResult]]:
+    """Device A* over a whole utterance batch; returns per-utterance
+    N-best lists (empty list = pass-1 fallback, like the host path).
+    out_ext [B, T, R] is the unshifted outprob cache on the tables'
+    device.  With `iwcd2` tables that resolve at least one head
+    triphone, each scan's word-head columns follow the popped entry's
+    previous word (strict inter-word CD).
+
+    On a CUDA card the rounds are replays of a captured round
+    (`_graphed`); eager=True runs the same round once a round from
+    Python instead, the graph's oracle.  The CPU always runs that loop.
+
+    `best_in` is LM-dependent, not batch-dependent: pass the cached
+    array (engine._p2d_best_in) to avoid re-walking the whole N-gram
+    dict per decode batch."""
+    t_start = time.perf_counter()
+    setup = _setup(lattices, tabs, wid2lm, cprob, out_ext, strategy, cfg,
+                   best_in)
+    if setup is None:
+        return [[] for _ in range(len(lattices))]
+    d, x = setup
+    if iwcd2 is not None and iwcd2.n_resolved == 0:
+        iwcd2 = None
+    run = _eager if x.out_ext.device.type == "cpu" or eager else _graphed
+    t_loop = time.perf_counter()
+    with run(tabs, ng, iwcd2, d, x) as (rounds, info):
+        res_score = rounds.res_score.cpu().numpy()
+        t_read = time.perf_counter()
+        n_rounds = int(rounds.round_i)
+        n_pops = rounds.n_pops.cpu().numpy().tolist()
+        results = _collect(rounds, res_score, lattices, cfg)
+    # search statistics of the LAST run_batch call (profiling)
+    LAST_STATS.update(
+        rounds=n_rounds, **info, max_rounds=d.max_rounds, CAPP=d.CAPP,
+        P=d.P, S=d.S, CA=d.CA, CK=d.CK, B=d.B, T=d.T, NA=d.NA,
+        graphed=run is _graphed, wall_prepare=t_loop - t_start,
+        wall_loop=t_read - t_loop,
+        wall_readback=time.perf_counter() - t_read, n_pops=n_pops)
     return results

@@ -35,6 +35,7 @@ import torch
 
 from julius_tpu_torch.ops.scan_kernel import scan_core_win
 from julius_tpu_torch.search.network import DecodeNetwork
+from julius_tpu_torch.search.pass1 import GraphCache
 from julius_tpu_torch.utils.logadd import LOG_ZERO
 
 NEG_HALF = LOG_ZERO / 2
@@ -192,6 +193,8 @@ class DeviceChainTables:
             setattr(self, name, torch.as_tensor(
                 np.array(arrays[name]), dtype=dt, device=device))
         self.kl, self.nmax, self.n_words = int(kl), int(nmax), int(n_words)
+        # the device A*'s captured rounds on these tables (a CUDA card)
+        self.graphs = GraphCache()
 
     @classmethod
     def from_numpy(cls, arrays, kl: int, nmax: int, n_words: int,

@@ -15,8 +15,11 @@ the CPU, the full-utterance scan on the card equal to its plain version
 card; pass 1's frame step captured as a CUDA graph against its eager
 oracle on every branch (reuse of a graph, a new frame capacity, launch
 counts on replays, a capture beside another thread's allocations, a
-capture that meets a host synchronisation), and a decode on a second
-card from a thread whose current card is the first.
+capture that meets a host synchronisation), the device A*'s round
+captured likewise against its eager oracle (the flagship and strict
+heads, launch counts on replays, a capture that meets a host
+synchronisation), and a decode on a second card from a thread whose
+current card is the first.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference package, so it also runs where
@@ -26,6 +29,7 @@ JAX is not installed:
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -246,9 +250,11 @@ def test_device_astar_kernel_path_matches_plain_path(engines, monkeypatch):
             eng._cprob_arr(), out, eng._rescan_strategy(), eng.search_cfg)
     before = tsk.LAUNCHES
     got = tp2d.run_batch(*args)
-    assert tsk.LAUNCHES - before == tp2d.LAST_STATS["rounds"] > 0
+    # the graphed A*: one launch a round the card ran, past the end too
+    stats = tp2d.LAST_STATS
+    assert tsk.LAUNCHES - before == stats["replayed"] >= stats["rounds"] > 0
     monkeypatch.setattr(tp2d, "scan_core_win", tsk.scan_core_win_plain)
-    want = tp2d.run_batch(*args)
+    want = tp2d.run_batch(*args, eager=True)
     assert [[r.word_ids for r in g] for g in got] == \
         [[r.word_ids for r in w] for w in want]
     for g, w in zip(got, want):
@@ -1168,6 +1174,95 @@ def test_decode_on_second_card_from_a_thread_on_the_first(engines):
     assert [r.word_ids for r in res] == [r.word_ids for r in want]
     for g, w in zip(res, want):
         assert g.score == pytest.approx(w.score, abs=1e-2)
+
+
+# ---- the device A*'s round as a CUDA graph
+
+
+def astar_case(eng, feats, lens):
+    """run_batch's arguments for one engine's pass-1 lattices on the card,
+    and its keywords."""
+    with torch.no_grad():
+        out = eng._outprob(torch.from_numpy(feats).cuda())
+        tr = eng._pass1(out, lens)
+    host = tp1.Trellis(*[a.cpu().numpy() for a in tr])
+    lats = [tp2.TrellisLattice(tp1.Trellis(*[a[b] for a in host]), int(n))
+            for b, n in enumerate(lens)]
+    return ((lats, eng.device_chains, eng.ngram_dev, eng._wid2lm_p2,
+             eng._cprob_arr(), out, eng._rescan_strategy(), eng.search_cfg),
+            dict(iwcd2=eng.iwcd2_tables))
+
+
+def astar_run(args, kw, eager=False):
+    """run_batch -> (N-best lists as tuples, LAST_STATS, launches)."""
+    before = tsk.LAUNCHES
+    got = tp2d.run_batch(*args, **kw, eager=eager)
+    torch.cuda.synchronize()
+    return ([[dataclasses.astuple(r) for r in x] for x in got],
+            dict(tp2d.LAST_STATS), tsk.LAUNCHES - before)
+
+
+@pytest.mark.parametrize("which", ["flagship", "strict"])
+def test_astar_graph_equals_eager_oracle(request, which):
+    """The graphed A* is bit-equal to its eager loop (N-best ids, bounds,
+    scores, rounds, pops), captured and then replayed from the cache;
+    scan_win's launches, counted on replays, are one a round the card
+    ran; the host waits at most ceil(rounds / G) + 1 times."""
+    eng, _, feats, lens = request.getfixturevalue(
+        "engines" if which == "flagship" else "lvcsr")
+    args, kw = astar_case(eng, feats, lens)
+    if which == "strict":
+        assert eng.iwcd2_tables.n_resolved > 0
+    cache = eng.device_chains.graphs
+    cache.entries.clear()
+    want, want_stats, n_eager = astar_run(args, kw, eager=True)
+    rounds = want_stats["rounds"]
+    assert n_eager == want_stats["replayed"] == rounds > 0
+    assert not want_stats["graphed"]
+    captures = cache.captures
+    for first in (True, False):
+        got, stats, n = astar_run(args, kw)
+        assert got == want
+        assert stats["graphed"] and stats["captured"] == int(first)
+        assert stats["rounds"] == rounds
+        assert stats["n_pops"] == want_stats["n_pops"]
+        G = stats["stop_every"]
+        assert stats["waits"] <= math.ceil(rounds / G) + 1
+        assert 0 <= stats["replayed"] - rounds <= G - 1
+        assert n == stats["replayed"]        # one scan_win launch a round
+    assert cache.captures == captures + 1
+    assert len(cache.entries) == 1
+    assert all(r for r in got)
+
+
+def test_astar_capture_that_syncs_raises(engines, monkeypatch):
+    """A round that synchronises with the host cannot be captured: the A*
+    raises, never runs the eager loop, keeps no graph and drops the
+    cache's pool and stream, and captures again once the round is
+    sound."""
+    eng, _, feats, lens = engines
+    args, kw = astar_case(eng, feats, lens)
+    tabs = eng.device_chains
+    tabs.graphs.entries.clear()
+    captures = tabs.graphs.captures
+    real = tp2d._env_key
+
+    def syncing(seqh):
+        float(seqh.max())                   # a host synchronisation
+        return real(seqh)
+
+    monkeypatch.setattr(tp2d, "_env_key", syncing)
+    monkeypatch.setattr(tp2d, "_eager", None)
+    with pytest.raises(RuntimeError):
+        tp2d.run_batch(*args, **kw)
+    assert not tabs.graphs.entries
+    assert tabs.graphs.captures == captures
+    assert tabs.graphs.pool is None and tabs.graphs.stream is None
+    monkeypatch.undo()
+    got, stats, _ = astar_run(args, kw)
+    want, _, _ = astar_run(args, kw, eager=True)
+    assert got == want and stats["captured"] == 1
+    assert tabs.graphs.captures == captures + 1
 
 
 def test_pass1_capture_that_syncs_raises(graph_cases, monkeypatch):
