@@ -97,15 +97,17 @@ Phases, one line each, in order (any failure exits non-zero):
      utterance in transcript order, word boundaries within 3 frames of
      the generating ones; the alignment Viterbi held card against CPU on
      the same outprob rows (backpointers equal, score within 1e-3); the
-     alignment's wall per utterance;
+     alignment's wall per utterance, split into build_chain (host), the
+     outprob, the Viterbi, the read back and the backtrace (host);
  15. stream: 4 seeded 10 s waveforms, each fed to StreamSession (no VAD,
      16-frame blocks) in 100 ms chunks on the card and decoded by
      recognize_batch on the card: words equal, scores within 0.5; where
      the stream's outprob rows differ from the batch's; the ms of each
      16-frame block (outprob plus the pass-1 chunk, the unfused step at
-     B = 1) beside the 160 ms of audio it carries, and the segment-end
-     delay (finalize, pass 2, assembly); scan_win held and timed at the
-     shapes the streams gave it;
+     B = 1, replayed from its graph once a frame) beside the 160 ms of
+     audio it carries, and the segment-end delay (finalize, pass 2,
+     assembly); scan_win held and timed at the shapes the streams gave
+     it;
  16. stream_vad: 3 noise bursts of 2 s between 1 s of near-silence fed
      with the VAD on: 3 segments, each equal to recognize_batch on the
      segment's samples; the native segmenter (built here from
@@ -171,8 +173,9 @@ Phases, one line each, in order (any failure exits non-zero):
      the port's readers, then 4 generative utterances as spliced
      feature files decoded by recognize.main on the exported files;
  26. a summary of the pass1_graph lines, one of the astar_graph lines,
-     the kernels' JSON line (one entry per kernel and path), the card
-     line, and the result line last.
+     one of the stream_graph lines, one of the align_graph lines, the
+     kernels' JSON line (one entry per kernel and path), the card line,
+     and the result line last.
 
 Pass 1 runs on the card as replays of its captured frame step (a CUDA
 graph, search/pass1.py), and every path that calls pass1_batch holds it
@@ -201,6 +204,20 @@ SWEEP_G (astar_stop_every lines), and one graphed run of its rounds
 is profiled (astar_round_profile: kernels and kernel time a round); on
 the slice's, capturing the round through torch.cuda.graph and directly
 is timed in turns (capture_cost).
+
+A stream's pass-1 chunk runs on the card as replays of its captured
+chunk row (a CUDA graph a network, search/pass1.py), and the alignment
+Viterbi as replays of its captured frame (a graph a bucket of chain
+sizes, search/align.py).  Every path that streams (stream, stream_vad,
+cli_fake, server, server_adintool) or aligns (align, cli_align) keeps
+each call of its run (kept_loops) and runs it again after the run,
+graphed and as its eager oracle (eager=True: the same body once a row
+or frame from Python) on the same inputs: a stream_graph line a path
+(every chunk's atoms and state bit-equal, one graph launch a chunk
+row, ms a block and a frame of both, captures) and an align_graph line
+a path (score, backpointers and best node bit-equal, one launch a
+frame, no more captures than buckets, ms an utterance and a frame of
+both, and the alignment's wall split).
 
 Weights and utterances are made from fixed seeds; nothing is read from
 outside the repository.  Exits non-zero without a result where CUDA is
@@ -792,6 +809,206 @@ def mixture_cost(BT, S, M):
             4 * BT * S * M + 12 * S * M + 4 * BT * S)
 
 
+@contextlib.contextmanager
+def kept_loops():
+    """Keep every stream chunk (`pass1_stream_chunk`) and alignment
+    Viterbi (`viterbi_chain`) call of the block, with its inputs, its
+    result, the graph replays it made and the captures it took: a graph
+    runs the loop body from replays, so `loops_vs_eager` runs the body's
+    eager oracle on the same inputs after the block.  Each alignment's
+    wall is split into the host's chain build, the outprob (to the
+    Viterbi's start, synchronised), the Viterbi (synchronised), the read
+    back and the host backtrace.  Yields {"streams": [...], "aligns":
+    [...]}."""
+    from julius_tpu_torch.search import align as al
+    from julius_tpu_torch.search import pass1 as p1
+
+    kept = {"streams": [], "aligns": []}
+    replays, marks = [0], {}
+    real = (p1.pass1_stream_chunk, al.viterbi_chain, al.build_chain,
+            al.align_backtrace, torch.cuda.CUDAGraph.replay)
+
+    def replay(self):
+        replays[0] += 1
+        return real[4](self)
+
+    def chunk(dev, ngram, cfg, state, out_chunk, n_valid):
+        n0, c0, s0 = replays[0], dev.graphs.captures, dev.graphs.capture_s
+        got = real[0](dev, ngram, cfg, state, out_chunk, n_valid)
+        kept["streams"].append(dict(
+            args=(dev, ngram, cfg, state, out_chunk, n_valid), got=got,
+            replays=replays[0] - n0, captured=dev.graphs.captures - c0,
+            capture_s=dev.graphs.capture_s - s0))
+        return got
+
+    def build_chain(*a, **kw):
+        t0 = time.perf_counter()
+        chain = real[2](*a, **kw)
+        marks["chain"] = (time.perf_counter() - t0, time.perf_counter())
+        return chain
+
+    def viterbi(*a, graphs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n0, c0, s0 = replays[0], graphs.captures, graphs.capture_s
+        got = real[1](*a, graphs=graphs)
+        torch.cuda.synchronize()
+        marks["viterbi"] = time.perf_counter()
+        chain_s, chain_end = marks.pop("chain")
+        kept["aligns"].append(dict(
+            args=a, graphs=graphs, got=got, replays=replays[0] - n0,
+            captured=graphs.captures - c0, capture_s=graphs.capture_s - s0,
+            build_chain_s=chain_s, outprob_s=t0 - chain_end,
+            viterbi_s=marks["viterbi"] - t0))
+        return got
+
+    def backtrace(*a, **kw):
+        t0 = time.perf_counter()
+        out = real[3](*a, **kw)
+        kept["aligns"][-1].update(readback_s=t0 - marks.pop("viterbi"),
+                                  backtrace_s=time.perf_counter() - t0)
+        return out
+
+    p1.pass1_stream_chunk, al.viterbi_chain = chunk, viterbi
+    al.build_chain, al.align_backtrace = build_chain, backtrace
+    torch.cuda.CUDAGraph.replay = replay
+    try:
+        yield kept
+    finally:
+        p1.pass1_stream_chunk, al.viterbi_chain, al.build_chain, \
+            al.align_backtrace, torch.cuda.CUDAGraph.replay = real
+
+
+#: every stream_graph and align_graph line of the run, for the summaries
+STREAM_LINES, ALIGN_LINES = [], []
+
+
+def timed(fn):
+    """fn() on the card, synchronised -> (its result, host seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def same_tensors(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def stream_vs_eager(label, calls, card):
+    """Each kept stream chunk of one path (`kept_loops`), run again
+    graphed (replays of the network's cached graph) and as its eager
+    oracle (the same chunk row once a row from Python) on the same
+    inputs: the atoms and the state after the chunk must be bit-equal to
+    the run's, and the run must have made one graph launch a chunk row.
+    Prints a stream_graph line: ms a block and a frame of both, the
+    run's graph launches a row, captures and their seconds; returns its
+    fields."""
+    from julius_tpu_torch.search import pass1 as p1
+
+    per = []
+    for c in calls:
+        g, g_s = timed(lambda: p1.pass1_stream_chunk(*c["args"]))
+        e, e_s = timed(lambda: p1.pass1_stream_chunk(*c["args"], eager=True))
+        per.append(dict(rows=c["args"][4].shape[0], valid=c["args"][5],
+                        graphed_s=g_s, eager_s=e_s,
+                        equal=all(same_tensors(x[i], c["got"][i])
+                                  for x in (g, e) for i in (0, 1))))
+
+    def total(k, src=per):
+        return sum(x[k] for x in src)
+
+    rows, n = total("rows"), max(len(per), 1)
+    fields = dict(
+        path=label, chunks=len(per), rows=rows, valid_rows=total("valid"),
+        short_chunks=sum(x["valid"] < x["rows"] for x in per),
+        graph_launches=total("replays", calls),
+        graph_launches_per_row=total("replays", calls) / max(rows, 1),
+        captures=total("captured", calls),
+        capture_s=total("capture_s", calls),
+        graphed_ms_per_block=total("graphed_s") * 1e3 / n,
+        eager_ms_per_block=total("eager_s") * 1e3 / n,
+        graphed_ms_per_frame=total("graphed_s") * 1e3 / max(rows, 1),
+        eager_ms_per_frame=total("eager_s") * 1e3 / max(rows, 1),
+        eager_over_graphed=total("eager_s") / max(total("graphed_s"), 1e-9),
+        bit_equal=all(x["equal"] for x in per))
+    phase("stream_graph", **fields, card=card)
+    STREAM_LINES.append(fields)
+    if not per or not fields["bit_equal"] \
+            or fields["graph_launches"] != rows:
+        raise RuntimeError(f"{label}: the graphed stream chunk differs from "
+                           f"its eager oracle: {fields}")
+    return fields
+
+
+def align_vs_eager(label, calls, card):
+    """Each kept alignment Viterbi of one path (`kept_loops`), run again
+    graphed (replays from the engine's cache) and as its eager oracle
+    (the same frame once a frame from Python at the chain's own sizes)
+    on the same inputs: score, backpointers and best node bit-equal to
+    the run's; the run must have made one graph launch a frame and no
+    more captures than it had buckets of chain sizes.  Prints an
+    align_graph line: ms an utterance and a frame of both, buckets
+    ([nodes, in-arcs, frames] as the graphs are keyed),
+    captures and their seconds, and the run's alignment wall split into
+    build_chain (host), outprob, Viterbi, read back and backtrace
+    (host), ms an utterance each; returns its fields."""
+    from julius_tpu_torch.search import align as al
+
+    per, buckets = [], set()
+    for c in calls:
+        a = c["args"]
+        (N, Din), T = a[1].shape, a[5].shape[0]
+        n_cap, t_cap = al.buckets(N, T)
+        buckets.add((n_cap, Din, t_cap))
+        g, g_s = timed(lambda: al.viterbi_chain(*a, graphs=c["graphs"]))
+        e, e_s = timed(lambda: al.viterbi_chain(*a, eager=True))
+        per.append(dict(frames=max(0, min(T, int(a[6])) - 1), graphed_s=g_s,
+                        eager_s=e_s, equal=(same_tensors(g, c["got"])
+                                            and same_tensors(e, c["got"]))))
+
+    def total(k, src=per):
+        return sum(x[k] for x in src)
+
+    n, frames = max(len(per), 1), max(total("frames"), 1)
+    fields = dict(
+        path=label, utterances=len(per), frames=total("frames"),
+        buckets=sorted(list(b) for b in buckets),
+        captures=total("captured", calls),
+        capture_s=total("capture_s", calls),
+        graph_launches=total("replays", calls),
+        graph_launches_per_frame=total("replays", calls) / frames,
+        graphed_ms_per_utterance=total("graphed_s") * 1e3 / n,
+        eager_ms_per_utterance=total("eager_s") * 1e3 / n,
+        graphed_ms_per_frame=total("graphed_s") * 1e3 / frames,
+        eager_ms_per_frame=total("eager_s") * 1e3 / frames,
+        eager_over_graphed=total("eager_s") / max(total("graphed_s"), 1e-9),
+        wall_split_ms_per_utterance={
+            k[:-2]: total(k, calls) * 1e3 / n
+            for k in ("build_chain_s", "outprob_s", "viterbi_s",
+                      "readback_s", "backtrace_s")},
+        bit_equal=all(x["equal"] for x in per))
+    phase("align_graph", **fields, card=card)
+    ALIGN_LINES.append(fields)
+    if not per or not fields["bit_equal"] \
+            or fields["graph_launches"] != total("frames") \
+            or fields["captures"] > len(buckets):
+        raise RuntimeError(f"{label}: the graphed alignment Viterbi differs "
+                           f"from its eager oracle, or captured more than "
+                           f"once a bucket: {fields}")
+    return fields
+
+
+def loops_vs_eager(label, kept, card):
+    """The stream_graph and align_graph lines of one path's kept loops
+    (`kept_loops`), for the kinds it ran."""
+    if kept["streams"]:
+        stream_vs_eager(label, kept["streams"], card)
+    if kept["aligns"]:
+        align_vs_eager(label, kept["aligns"], card)
+
+
 KEEP_CALL = 64    # besides the first, the call of a shape whose arguments are kept
 
 
@@ -810,7 +1027,8 @@ def recorded_calls(pk, sk, p2d, scan_mod):
     round runs from a CUDA graph too, so its scans are recorded from its
     eager oracle likewise: calls["astar"] is the block's
     `counted_astar`, and calls["record_astar"] the context that records
-    its scans."""
+    its scans.  calls["loops"] is the block's `kept_loops` (its stream
+    chunks and alignment Viterbis, run from graphs too)."""
     from julius_tpu_torch.search import pass1 as p1
 
     calls = {"pass1_step": {}, "scan_win": {}, "batches": []}
@@ -872,7 +1090,8 @@ def recorded_calls(pk, sk, p2d, scan_mod):
     scan_mod.scan_core_win = wrap("scan_win", real[2], scan_shape)
     p1.pass1_batch = batch
     try:
-        with counted_astar(p2d) as calls["astar"]:
+        with counted_astar(p2d) as calls["astar"], \
+                kept_loops() as calls["loops"]:
             yield calls
     finally:
         scan_mod.scan_core_win, p1.pass1_batch = real[2:]
@@ -956,6 +1175,8 @@ def path_kernels(label, calls, launches, eng, card):
     from julius_tpu_torch.search import pass2_device as p2d
 
     dev = eng.dev_net
+    # the stream chunks and alignment Viterbis against their oracles
+    loops_vs_eager(label, calls.pop("loops"), card)
     # pass1_step's calls, from the eager oracle of each graphed batch
     for b in calls.pop("batches"):
         graph_vs_eager(label, b["dev"], b["ngram"], b["cfg"], b["out_ext"],
@@ -1910,7 +2131,8 @@ def align_phase(eng, protos, card):
             n = int(lens_np[b])
             out = eng._outprob(feats[b:b + 1])[0, :n]
             gs, gbp, gbest = al.viterbi_chain(
-                *al.chain_tensors(chain, DEVICE), out, n)
+                *al.chain_tensors(chain, DEVICE), out, n,
+                graphs=eng.align_graphs)
             ws, wbp, wbest = al.viterbi_chain(
                 *al.chain_tensors(chain, "cpu"), out.cpu(), n)
             vit_same &= bool(torch.equal(gbp.cpu(), wbp)
@@ -1920,6 +2142,8 @@ def align_phase(eng, protos, card):
                                              "scan_win": scan_launches},
                             eng, card)
     phase("align", utterances=N_UTTS, frames=T,
+          align_wall_split_ms_per_utterance=ALIGN_LINES[-1][
+              "wall_split_ms_per_utterance"],
           audio_s=float(lens_np.sum()) / 100.0, e2e_wall_s=wall,
           align_wall_s=sum(walls),
           align_ms_per_utterance=[w * 1e3 for w in walls],
@@ -2171,16 +2395,18 @@ def stream_vad_phase(eng, card, files, live):
     ids = [eng.callbacks.add(name, lambda *a, _n=name: events.append(_n))
            for name in ("event_speech_start", "event_speech_stop")]
     try:
-        sess = StreamSession(eng, vad=cfg)
-        t0 = time.perf_counter()
-        res = []
-        for c in chunks:
-            res.extend(sess.feed(c))
-        res.extend(sess.close())
-        wall = time.perf_counter() - t0
+        with kept_loops() as loops:
+            sess = StreamSession(eng, vad=cfg)
+            t0 = time.perf_counter()
+            res = []
+            for c in chunks:
+                res.extend(sess.feed(c))
+            res.extend(sess.close())
+            wall = time.perf_counter() - t0
     finally:
         for i in ids:
             eng.callbacks.delete(i)
+    loops_vs_eager("stream_vad", loops, card)
     # each segment against recognize_batch on the segment's own samples
     # (a noise segment may end without </s> and come from pass 1, as it
     # would in the batch decode)
@@ -2209,9 +2435,11 @@ def stream_vad_phase(eng, card, files, live):
     gsess = StreamSession(geng, use_vad=False, block_frames=BLOCK,
                           gmm_vad=True, gmm_margin=5)
     gres = []
-    for o in range(0, frames.shape[0], BLOCK):
-        gres.extend(gsess._feed_gmm_vad(frames[o:o + BLOCK]))
-    gres.extend(gsess.close())
+    with kept_loops() as loops:
+        for o in range(0, frames.shape[0], BLOCK):
+            gres.extend(gsess._feed_gmm_vad(frames[o:o + BLOCK]))
+        gres.extend(gsess.close())
+    loops_vs_eager("stream_vad_gmm", loops, card)
     # one utterance with its average log energy (MFCC_E: column 12) put
     # above the threshold, the same one put below it
     batch = np.stack([utts[0], utts[0]])
@@ -3832,6 +4060,22 @@ def main() -> int:
               "capture_s", "graphed_loop_s", "eager_loop_s",
               "eager_over_graphed", "prepare_s", "readback_s")}
               for g in ASTAR_LINES], card=card)
+    phase("stream_graph_summary", note="a stream's pass-1 chunk per path, "
+          "graphed (one replay a chunk row) beside its eager oracle on the "
+          "same inputs", paths=[{k: g[k] for k in (
+              "path", "chunks", "rows", "graph_launches_per_row", "captures",
+              "capture_s", "graphed_ms_per_block", "eager_ms_per_block",
+              "graphed_ms_per_frame", "eager_ms_per_frame",
+              "eager_over_graphed")} for g in STREAM_LINES], card=card)
+    phase("align_graph_summary", note="the alignment Viterbi per path, "
+          "graphed (one replay a frame, a graph a bucket of chain sizes) "
+          "beside its eager oracle on the same inputs",
+          paths=[{k: g[k] for k in (
+              "path", "utterances", "frames", "buckets", "captures",
+              "capture_s", "graphed_ms_per_utterance",
+              "eager_ms_per_utterance", "eager_over_graphed",
+              "wall_split_ms_per_utterance")} for g in ALIGN_LINES],
+          card=card)
     print(json.dumps({"kernels": flagship + kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

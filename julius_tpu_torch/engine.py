@@ -117,6 +117,9 @@ class Engine:
         device="cuda",
     ):
         self.device = resolve_device(device)
+        # the alignment Viterbi's captured graphs (search/align.py),
+        # made at the first alignment on a CUDA card
+        self.align_graphs = None
         if dfa is not None and word_cat is None:
             raise ValueError("a DFA grammar needs word_cat, the category "
                              "of each dictionary word")

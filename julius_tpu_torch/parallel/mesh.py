@@ -174,6 +174,7 @@ def _replica(engine, device: torch.device):
     for name in _TABLES:
         setattr(rep, name, replicate(getattr(engine, name), device))
     rep._device_chains = rep._iwcd2_tables = rep._chain_cache = None
+    rep.align_graphs = None
     return rep
 
 

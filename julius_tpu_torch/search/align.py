@@ -13,11 +13,15 @@ each frame gathers the incoming arcs, keeps the first maximum (as
 `argmax` gives it) and writes the winning predecessor into a [T, N]
 backpointer table that stays on the device; the table comes to the host
 once per utterance, where the backtrace maps the state path to state,
-phone and word segments.
+phone and word segments.  On a CUDA card the frame is captured once as a
+CUDA graph per bucket of chain sizes (nodes and frames rounded up to
+powers of two, the chain padded) and replayed once a frame, where the
+reference's jitted `lax.scan` compiles once per chain size.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -29,9 +33,14 @@ from julius_tpu_torch.models.hmm import HMMSet, PseudoPhoneSets
 from julius_tpu_torch.search.network import (_phone_entry_pairs,
                                              _resolve_phone,
                                              word_phone_names)
+from julius_tpu_torch.search.pass1 import (MIN_T_BUCKET, GraphCache,
+                                           _capture)
 from julius_tpu_torch.utils.logadd import LOG_ZERO
 
 _NEG_HALF = LOG_ZERO / 2
+MIN_N_BUCKET = 64   # the fewest nodes a captured Viterbi holds
+#: captured Viterbis kept per cache, the oldest dropped past it
+GRAPHS_KEPT = 8
 
 
 @dataclass
@@ -144,34 +153,140 @@ def build_chain(hmm: HMMSet, voca: Vocabulary, word_ids: Sequence[int],
     )
 
 
+class _Viterbi:
+    """viterbi_chain's frame loop over fixed tensors of `N` nodes and `T`
+    frames: the chain's [N, Din] in-arc tables, the [T, N] emission rows
+    and backpointers, the [N] scores and the frame t ([1] int64).  A
+    chain of fewer nodes is padded: a pad node's only in-arc is itself at
+    LOG_ZERO, its entry is LOG_ZERO and its emission column 0, and no
+    real node has it as a source, so the real nodes' scores and
+    backpointers are those of the chain alone.  `step` is one frame and
+    writes everything back in place, so a CUDA graph of it replays the
+    loop."""
+
+    def __init__(self, N: int, Din: int, T: int, device):
+        self.src = torch.empty((N, Din), dtype=torch.int64, device=device)
+        self.lp = torch.empty((N, Din), dtype=torch.float32, device=device)
+        self.emit = torch.empty((T, N), dtype=torch.float32, device=device)
+        self.bp = torch.empty((T, N), dtype=torch.int64, device=device)
+        self.score = torch.empty(N, dtype=torch.float32, device=device)
+        self.t = torch.empty(1, dtype=torch.int64, device=device)
+        self.nodes = torch.arange(N, device=device)
+        self.graph = None       # the captured step, on a CUDA card
+
+    def load(self, score_idx, in_src, in_lp, entry_lp, out_ext) -> None:
+        """Start an utterance: a chain's tables (N <= the loop's nodes)
+        and its [T, R] outprob rows (T <= the loop's frames); every
+        backpointer row points each node at itself, t = 1."""
+        N, pad = in_src.shape[0], self.src.shape[0] - in_src.shape[0]
+        self.src.copy_(self.nodes[:, None].expand_as(self.src))
+        self.src[:N].copy_(in_src)
+        self.lp.fill_(LOG_ZERO)
+        self.lp[:N].copy_(in_lp)
+        sidx = torch.nn.functional.pad(score_idx, (0, pad))
+        self.emit[:out_ext.shape[0]].copy_(out_ext.index_select(1, sidx))
+        self.bp.copy_(self.nodes.expand_as(self.bp))
+        self.score.copy_(torch.nn.functional.pad(entry_lp, (0, pad),
+                                                 value=LOG_ZERO)
+                         + self.emit[0])
+        self.t.fill_(1)
+
+    def step(self) -> None:
+        """Frame t: each node's first best in-arc (as `argmax` gives
+        it) into backpointer row t, then the emission of row t."""
+        cand = self.score[self.src] + self.lp                     # [N, Din]
+        best_d = cand.argmax(dim=1, keepdim=True)
+        mx = cand.gather(1, best_d)[:, 0]
+        self.bp.index_copy_(0, self.t, self.src.gather(1, best_d).view(1, -1))
+        emit = self.emit.index_select(0, self.t)[0]
+        self.score.copy_(torch.where(mx > _NEG_HALF, mx + emit, LOG_ZERO))
+        self.t.add_(1)
+
+    def result(self, exit_lp: torch.Tensor, T: int):
+        """(total score, a copy of the [T, N] backpointers, best final
+        node) of the chain's N = len(exit_lp) nodes."""
+        N = exit_lp.shape[0]
+        ended = self.score[:N] + exit_lp
+        best_node = ended.argmax()
+        return ended[best_node], self.bp[:T, :N].clone(), best_node
+
+
+def buckets(N: int, T: int) -> Tuple[int, int]:
+    """The nodes and frames a captured Viterbi holds for a chain of N
+    nodes over T frames: powers of two, at least MIN_N_BUCKET nodes and
+    MIN_T_BUCKET frames (pass 1's rule)."""
+    return (max(MIN_N_BUCKET, 1 << (N - 1).bit_length()),
+            max(MIN_T_BUCKET, 1 << (T - 1).bit_length()))
+
+
+def _eager(cache: Optional[GraphCache], tables, out_ext: torch.Tensor,
+           steps: int):
+    """viterbi_chain as a Python loop over the chain's own sizes."""
+    (N, Din), T = tables[1].shape, out_ext.shape[0]
+    loop = _Viterbi(N, Din, T, out_ext.device)
+    loop.load(*tables[:4], out_ext)
+    for _ in range(steps):
+        loop.step()
+    return loop.result(tables[4], T)
+
+
+def _graphed(cache: GraphCache, tables, out_ext: torch.Tensor, steps: int):
+    """viterbi_chain on a CUDA card: `steps` replays of a captured frame,
+    keyed by the card, the bucketed nodes, the exact in-arc width and the
+    bucketed frames (`buckets`; a padded in-arc column would change the
+    backpointer of a dead node, whose float32 sums near LOG_ZERO tie).
+    The first chain of a key captures the step (`_capture`) and loads
+    again; past GRAPHS_KEPT the oldest entry is dropped.  Nothing falls
+    back to the eager loop."""
+    (N, Din), T = tables[1].shape, out_ext.shape[0]
+    device = out_ext.device
+    n_cap, t_cap = buckets(N, T)
+    key = (device, n_cap, Din, t_cap)
+    with cache.lock, torch.cuda.device(device):
+        loop = cache.entries.pop(key, None)
+        if loop is None:
+            while len(cache.entries) >= GRAPHS_KEPT:
+                del cache.entries[next(iter(cache.entries))]
+            t0 = time.perf_counter()
+            loop = _Viterbi(n_cap, Din, t_cap, device)
+            loop.load(*tables[:4], out_ext)
+            loop.graph = _capture(cache, device, loop.step)
+            cache.captures += 1
+            cache.capture_s += time.perf_counter() - t0
+        cache.entries[key] = loop
+        loop.load(*tables[:4], out_ext)
+        for _ in range(steps):
+            loop.graph.replay()
+        return loop.result(tables[4], T)
+
+
 def viterbi_chain(score_idx: torch.Tensor, in_src: torch.Tensor,
                   in_lp: torch.Tensor, entry_lp: torch.Tensor,
                   exit_lp: torch.Tensor, out_ext: torch.Tensor,
-                  n_frames: int):
+                  n_frames: int, graphs: Optional[GraphCache] = None,
+                  eager: bool = False):
     """Viterbi over one chain on out_ext's device: [T, R] outprob rows ->
     (total score, [T, N] int64 backpointers, best final node), the first
     two as tensors on that device.  Frames from n_frames on keep the
-    scores and point every node at itself."""
-    T = out_ext.shape[0]
-    N = score_idx.shape[0]
+    scores and point every node at itself.
+
+    On a CUDA card the frames are replays of a captured frame step kept
+    in `graphs` (an engine's `align_graphs`; without one, a cache of
+    this call's own); eager=True runs the same step once a frame from
+    Python at the chain's own sizes instead, the graph's oracle.  The
+    CPU always runs that loop."""
     device = out_ext.device
-    sidx = score_idx.to(device=device, dtype=torch.int64)
-    src_tab = in_src.to(device=device, dtype=torch.int64)
-    lp_tab = in_lp.to(device=device, dtype=torch.float32)
-    exit_lp = exit_lp.to(device=device, dtype=torch.float32)
-    emit = out_ext.to(torch.float32).index_select(1, sidx)      # [T, N]
-    nodes = torch.arange(N, device=device)
-    bp = nodes.repeat(T, 1)                                      # [T, N]
-    score = entry_lp.to(device=device, dtype=torch.float32) + emit[0]
-    for t in range(1, min(T, int(n_frames))):
-        cand = score[src_tab] + lp_tab                           # [N, Din]
-        best_d = cand.argmax(dim=1, keepdim=True)                # first max
-        mx = cand.gather(1, best_d)[:, 0]
-        bp[t] = src_tab.gather(1, best_d)[:, 0]
-        score = torch.where(mx > _NEG_HALF, mx + emit[t], LOG_ZERO)
-    ended = score + exit_lp
-    best_node = ended.argmax()
-    return ended[best_node], bp, best_node
+    tables = (score_idx.to(device=device, dtype=torch.int64),
+              in_src.to(device=device, dtype=torch.int64),
+              in_lp.to(device=device, dtype=torch.float32),
+              entry_lp.to(device=device, dtype=torch.float32),
+              exit_lp.to(device=device, dtype=torch.float32))
+    out_ext = out_ext.to(torch.float32)
+    steps = max(0, min(out_ext.shape[0], int(n_frames)) - 1)
+    if device.type == "cpu" or eager:
+        return _eager(graphs, tables, out_ext, steps)
+    return _graphed(graphs if graphs is not None else GraphCache(), tables,
+                    out_ext, steps)
 
 
 @dataclass
@@ -248,10 +363,13 @@ def forced_align(engine, feats, n_frames: int,
     chain = build_chain(engine.hmm, engine.voca, word_ids,
                         pseudo=engine.net.pseudo)
     feats = torch.as_tensor(feats, dtype=torch.float32, device=engine.device)
+    if engine.align_graphs is None:
+        engine.align_graphs = GraphCache()
     with torch.no_grad():
         out_ext = engine._outprob(feats[None])[0]
         score, bp, best = viterbi_chain(
-            *chain_tensors(chain, engine.device), out_ext, int(n_frames))
+            *chain_tensors(chain, engine.device), out_ext, int(n_frames),
+            graphs=engine.align_graphs)
         score, best = float(score), int(best)
     return align_backtrace(chain, bp.cpu().numpy(), best, int(n_frames),
                            score, word_ids, engine.voca)

@@ -15,7 +15,9 @@ inside it.  On the CPU `pass1_batch` calls it once a frame.  On a CUDA
 card it runs it as the reference's jitted `lax.scan` runs its step:
 the step is captured once as a CUDA graph (`GraphCache`, kept on the
 network) and replayed once a frame, advancing its own frame index, so
-the host makes one graph launch a frame.  Where the reference
+the host makes one graph launch a frame.  A stream's chunk
+(`pass1_stream_chunk`) runs its own frame body, `_StreamLoop.step`, the
+same way: one replay a chunk row.  Where the reference
 takes its fused Pallas kernel (`_fused_ok`: a shift-structured network,
 cross-word N-gram decoding with unigram factoring or no LM, no DFA, no
 score envelope, no per-context head emission rows) each frame picks the
@@ -58,8 +60,9 @@ MIN_T_BUCKET = 16   # the shortest frame capacity a captured step holds
 
 class GraphCache:
     """Captured CUDA graphs of one loop body: `pass1_batch`'s frame step
-    on one network (here), the device A*'s round on one set of chain
-    tables (search/pass2_device.py).
+    and a stream's chunk row on one network (here), the device A*'s
+    round on one set of chain tables (search/pass2_device.py), the
+    alignment Viterbi's frame on one engine (search/align.py).
 
     An entry of pass 1 (`_Graph`) is keyed by what fixes its addresses
     and shapes (card, B, the node axis, M, R, the branch, the config,
@@ -737,12 +740,13 @@ def pass1_batch(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
 class Pass1State(NamedTuple):
     """An in-progress stream's pass-1 state: [B, N] node scores, LM
     contexts and trellis pointers, and t, the absolute frame of the
-    segment those scores have reached."""
+    segment those scores have reached, a [1] int32 tensor on their
+    device (the reference's is a device scalar)."""
 
     score: torch.Tensor
     ctx: torch.Tensor
     prev: torch.Tensor
-    t: int
+    t: torch.Tensor
 
 
 def pass1_stream_start(dev: DeviceNetwork, cfg: Pass1Config,
@@ -751,40 +755,136 @@ def pass1_stream_start(dev: DeviceNetwork, cfg: Pass1Config,
     `pass1_init` with empty payloads at t = 0."""
     score = pass1_init(dev, cfg, out_row0)
     ctx = torch.full(score.shape, -1, dtype=torch.int32, device=score.device)
-    return Pass1State(score=score, ctx=ctx, prev=ctx.clone(), t=0)
+    return Pass1State(score=score, ctx=ctx, prev=ctx.clone(),
+                      t=torch.zeros(1, dtype=torch.int32, device=score.device))
+
+
+class _StreamLoop:
+    """pass1_stream_chunk's frame loop over fixed tensors: the [1, N]
+    state and its frame t, the chunk row i and the chunk's valid row
+    count n_valid ([1] int32 each), the outprob rows of up to `cap`
+    frames and the [cap, M] atoms.  `step` is one chunk row and writes
+    everything back in place, so a CUDA graph of it replays the chunk."""
+
+    def __init__(self, N: int, R: int, M: int, cap: int, device):
+        self.score = torch.empty((1, N), dtype=torch.float32, device=device)
+        self.ctx = torch.empty((1, N), dtype=torch.int32, device=device)
+        self.prev = torch.empty_like(self.ctx)
+        self.t = torch.empty(1, dtype=torch.int32, device=device)
+        self.i = torch.empty_like(self.t)
+        self.n_valid = torch.empty_like(self.t)
+        self.rows = torch.empty((cap, R), dtype=torch.float32, device=device)
+        self.atoms = Trellis(*[torch.empty((cap, M), dtype=dt, device=device)
+                               for dt in TRELLIS_DTYPES])
+
+    def load(self, state: Pass1State, out_chunk: torch.Tensor,
+             n_valid: int) -> None:
+        """Start a chunk: the session's state, chunk row 0, n_valid and
+        the chunk's outprob rows."""
+        for buf, x in zip((self.score, self.ctx, self.prev, self.t), state):
+            buf.copy_(x)
+        self.i.zero_()
+        self.n_valid.fill_(n_valid)
+        self.rows[:out_chunk.shape[0]].copy_(out_chunk)
+
+    def step(self, dev: DeviceNetwork, ngram: Optional[DeviceNgram],
+             cfg: Pass1Config) -> None:
+        """Chunk row i, the reference's scan step (pass1.py:697-709):
+        the atoms of the state before the step go into atom row i, not
+        masked by the row's validity (as there), and the state steps
+        through frame t + 1 on outprob row i, frozen from row n_valid
+        on, t included."""
+        atoms = _word_end_candidates(dev, ngram, cfg, self.score, self.ctx,
+                                     self.prev)
+        valid = self.i < self.n_valid                               # [1]
+        t = self.t + 1
+        row = self.rows.index_select(0, self.i)                     # [1, R]
+        new = pass1_step(dev, ngram, cfg, self.score, self.ctx, self.prev,
+                         atoms, row, valid, t)
+        at = self.i.long()
+        for buf, a in zip(self.atoms, atoms):
+            buf.index_copy_(0, at, a)
+        for buf, x in zip((self.score, self.ctx, self.prev), new):
+            buf.copy_(x)
+        self.t.copy_(torch.where(valid, t, self.t))
+        self.i.add_(1)
+
+    def result(self, C: int):
+        """Copies of the state and the chunk's [C, M] atoms."""
+        state = Pass1State(self.score.clone(), self.ctx.clone(),
+                           self.prev.clone(), self.t.clone())
+        return state, Trellis(*[a[:C].clone() for a in self.atoms])
+
+
+def _stream_eager(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
+                  cfg: Pass1Config, state: Pass1State,
+                  out_chunk: torch.Tensor, n_valid: int):
+    """pass1_stream_chunk as a Python loop of C chunk rows."""
+    C, R = out_chunk.shape
+    loop = _StreamLoop(state.score.shape[1], R, cfg.n_atoms, C,
+                       out_chunk.device)
+    loop.load(state, out_chunk, n_valid)
+    for _ in range(C):
+        loop.step(dev, ngram, cfg)
+    return loop.result(C)
+
+
+def _stream_graphed(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
+                    cfg: Pass1Config, state: Pass1State,
+                    out_chunk: torch.Tensor, n_valid: int):
+    """pass1_stream_chunk on a CUDA card: C replays of a captured chunk
+    row, keyed by the card, N, R, M, the config, the N-gram and a
+    power-of-two capacity of rows, and no chunk length, so that a
+    stream's first chunk (a row short) and the others share the graph.
+    The first chunk of a key captures the step (`_capture`) and loads
+    its inputs again; nothing falls back to the eager loop.  The cache's
+    lock is held from the copy in to the copies out, so sessions on
+    other threads share the graph."""
+    C, R = out_chunk.shape
+    N, M = state.score.shape[1], cfg.n_atoms
+    device = out_chunk.device
+    cap = 1 << (C - 1).bit_length()
+    key = ("stream", device, N, R, M, cfg, id(ngram), cap)
+    cache = dev.graphs
+    with cache.lock, torch.cuda.device(device):
+        entry = cache.entries.get(key)
+        if entry is None:
+            t0 = time.perf_counter()
+            loop = _StreamLoop(N, R, M, cap, device)
+            loop.load(state, out_chunk, n_valid)
+            graph = _capture(cache, device,
+                             lambda: loop.step(dev, ngram, cfg))
+            entry = cache.entries[key] = _Graph(graph, loop, 0, None, ngram)
+            cache.captures += 1
+            cache.capture_s += time.perf_counter() - t0
+        entry.loop.load(state, out_chunk, n_valid)
+        for _ in range(C):
+            entry.graph.replay()
+        return entry.loop.result(C)
 
 
 def pass1_stream_chunk(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
                        cfg: Pass1Config, state: Pass1State,
-                       out_chunk: torch.Tensor, n_valid: int):
+                       out_chunk: torch.Tensor, n_valid: int,
+                       eager: bool = False):
     """Advance an in-progress pass 1 of one utterance (B = 1) by a chunk
     of frames (the on-the-fly pipeline of the reference,
     realtime-1stpass.c proceed_one_frame; `julius_tpu`'s
     pass1_stream_chunk): state carries across chunks; returns the new
     state and the chunk's [C, M] trellis atoms, row i the word ends at
     absolute frame state.t + i.  Rows from n_valid on are padding: the
-    state stays frozen there and their atoms repeat the last frame's.
+    state stays frozen there, t included, and their atoms are the frozen
+    state's.
 
     Each frame takes the unfused step (`pass1_step`), as the reference's
     stream does; a stream starts with `pass1_stream_start` on the first
-    row and passes the rest of its first chunk."""
-    score, ctx, prev, t = state
-    C = out_chunk.shape[0]
-    valid = torch.ones(1, dtype=torch.bool, device=score.device)
-    rows = []
-    for i in range(C):
-        if i > n_valid:
-            rows.append(rows[-1])
-            continue
-        atoms = _word_end_candidates(dev, ngram, cfg, score, ctx, prev)
-        rows.append(atoms)
-        if i < n_valid:
-            t += 1
-            score, ctx, prev = pass1_step(dev, ngram, cfg, score, ctx, prev,
-                                          atoms, out_chunk[i:i + 1], valid,
-                                          t)
-    atoms = Trellis(*[torch.cat(f, dim=0) for f in zip(*rows)])
-    return Pass1State(score, ctx, prev, t), atoms
+    row and passes the rest of its first chunk.  On a CUDA card the rows
+    are replays of a captured step (`_stream_graphed`); eager=True runs
+    the same step once a row from Python instead, the graph's oracle.
+    The CPU always runs that loop."""
+    run = _stream_eager if out_chunk.device.type == "cpu" or eager \
+        else _stream_graphed
+    return run(dev, ngram, cfg, state, out_chunk.to(torch.float32), n_valid)
 
 
 def pass1_stream_finalize(dev: DeviceNetwork, ngram: Optional[DeviceNgram],

@@ -10,8 +10,10 @@ Audio chunks -> host VAD + streaming front end (frontend/stream.py) ->
 frames batched into fixed-size blocks -> one outprob call and one pass-1
 chunk per block on the engine's device (search/pass1.py
 `pass1_stream_chunk`, the unfused step at B = 1, as the reference's
-stream runs its XLA step) -> the block's trellis atoms come to the host
-in one copy -> segment end finalises pass 1 and runs the engine's pass 2
+stream runs its XLA step; on a CUDA card one replay of a captured frame
+graph a frame, as the reference runs its jitted scan) -> the block's
+trellis atoms come to the host in one copy, the block's only host
+synchronisation -> segment end finalises pass 1 and runs the engine's pass 2
 on the segment's outprob cache (the device A* or the host re-scan, whose
 word scans launch the scan_win kernel).  The pass-1 state lives on the
 device across blocks, so latency is one block (default 16 frames =

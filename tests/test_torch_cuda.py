@@ -18,6 +18,9 @@ counts on replays, a capture beside another thread's allocations, a
 capture that meets a host synchronisation), the device A*'s round
 captured likewise against its eager oracle (the flagship and strict
 heads, launch counts on replays, a capture that meets a host
+synchronisation), a stream's pass-1 chunk and the alignment Viterbi
+captured likewise (one capture for two streams and no more than one a
+bucket of chain sizes, one replay a frame, captures that meet a host
 synchronisation), and a decode on a second card from a thread whose
 current card is the first.
 
@@ -657,6 +660,113 @@ def test_viterbi_chain_on_card_matches_cpu(engines):
             (want.words, want.phones, want.states)
 
 
+@pytest.fixture
+def count_replays(monkeypatch):
+    """-> a list that gets one entry a CUDA graph replay."""
+    replays = []
+    real = torch.cuda.CUDAGraph.replay
+
+    def replay(self):
+        replays.append(1)
+        return real(self)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", replay)
+    return replays
+
+
+def test_stream_graph_equals_eager_oracle(engines, count_replays,
+                                          monkeypatch):
+    """Two sessions of a 10 s stream (16-frame blocks, 100 ms feeds, no
+    VAD) on the card: one capture for both; one graph replay a chunk
+    row; every chunk's atoms and state, its short last chunk included,
+    bit-equal to the eager oracle on the same inputs."""
+    from julius_tpu_torch.streaming import StreamSession
+    eng, _, _, _ = engines
+    cache = eng.dev_net.graphs
+    for key in [k for k in cache.entries if k[0] == "stream"]:
+        del cache.entries[key]
+    calls = []
+    real = tp1.pass1_stream_chunk
+
+    def chunk(*a):
+        n0 = len(count_replays)
+        out = real(*a)
+        calls.append((a, out, len(count_replays) - n0))
+        return out
+
+    monkeypatch.setattr(tp1, "pass1_stream_chunk", chunk)
+    rng = np.random.default_rng(13)
+    captures = cache.captures
+    for seconds in (10.0, 9.97):
+        wave = (rng.standard_normal(int(seconds * 16000)) * 2000) \
+            .astype(np.float32)
+        sess = StreamSession(eng, use_vad=False, block_frames=16)
+        res = []
+        for ofs in range(0, len(wave), 1600):
+            res.extend(sess.feed(wave[ofs:ofs + 1600]))
+        res.extend(sess.close())
+        assert len(res) == 1 and res[0].valid
+    assert cache.captures == captures + 1
+    assert all(n == a[4].shape[0] for a, _, n in calls)   # one a row
+    assert any(a[5] < a[4].shape[0] for a, _, _ in calls)  # a short chunk
+    assert {a[4].shape[0] for a, _, _ in calls} == {15, 16}
+    del count_replays[:]
+    for a, (state, atoms), _ in calls:
+        want_state, want_atoms = real(*a, eager=True)
+        assert all(torch.equal(x, y) for x, y in zip(state, want_state))
+        assert all(torch.equal(x, y) for x, y in zip(atoms, want_atoms))
+        assert state.t.is_cuda and want_state.t.shape == (1,)
+    assert not count_replays
+
+
+def test_align_graph_equals_eager_and_cpu(engines, count_replays):
+    """Alignments of each decoded utterance on the card through the
+    engine's graphs: no more captures than buckets, none on a second
+    pass; one replay a frame; the Viterbi bit-equal to its eager oracle
+    on the card and equal to the CPU's."""
+    from julius_tpu_torch.search import align as talign
+    eng, cpu, feats, lens = engines
+    res = eng.decode_features(feats, lens)
+    eng.align_graphs = None
+    chains, buckets = [], set()
+    for b, r in enumerate(res):
+        chain = talign.build_chain(eng.hmm, eng.voca, r.word_ids,
+                                   pseudo=eng.net.pseudo)
+        out = eng._outprob(torch.from_numpy(feats[b:b + 1]).cuda())[0]
+        for n in (int(lens[b]), int(lens[b]) - 5):
+            chains.append((chain, out, n))
+            buckets.add((talign.buckets(len(chain.score_idx),
+                                        out.shape[0]),
+                         chain.in_src.shape[1]))
+    for rnd in range(2):
+        for b, r in enumerate(res):
+            got = eng.align(feats[b], int(lens[b]), r.word_ids)
+            want = cpu.align(feats[b], int(lens[b]), r.word_ids)
+            assert (got.words, got.phones, got.states) == \
+                (want.words, want.phones, want.states)
+        if rnd == 0:
+            captures = eng.align_graphs.captures
+            assert 1 <= captures <= len(buckets)
+    assert eng.align_graphs.captures == captures
+    steps = 0
+    for chain, out, n in chains:
+        del count_replays[:]
+        gs, gbp, gbest = talign.viterbi_chain(
+            *talign.chain_tensors(chain, "cuda"), out, n,
+            graphs=eng.align_graphs)
+        assert len(count_replays) == min(out.shape[0], n) - 1
+        steps += len(count_replays)
+        es, ebp, ebest = talign.viterbi_chain(
+            *talign.chain_tensors(chain, "cuda"), out, n, eager=True)
+        ws, wbp, wbest = talign.viterbi_chain(
+            *talign.chain_tensors(chain, "cpu"), out.cpu(), n)
+        assert torch.equal(gbp, ebp) and torch.equal(gs, es)
+        assert int(gbest) == int(ebest) == int(wbest)
+        assert torch.equal(gbp.cpu(), wbp)
+        assert float(gs) == pytest.approx(float(ws), abs=1e-3)
+    assert steps > 0 and eng.align_graphs.captures == captures
+
+
 def test_native_adin_builds_into_the_package(cuda):
     """The native segmenter builds from the package's own source into
     julius_tpu_torch/_build/ and segments like the Python one."""
@@ -1233,6 +1343,52 @@ def test_astar_graph_equals_eager_oracle(request, which):
     assert cache.captures == captures + 1
     assert len(cache.entries) == 1
     assert all(r for r in got)
+
+
+def test_stream_and_align_captures_that_sync_raise(engines, monkeypatch):
+    """A stream chunk row or an alignment frame that synchronises with
+    the host cannot be captured: each raises, never runs its eager loop,
+    keeps no graph, and captures once its step is sound."""
+    from julius_tpu_torch.search import align as talign
+    eng, _, feats, lens = engines
+    dev = dataclasses.replace(eng.dev_net)
+    out = eng._outprob(torch.from_numpy(feats[:1]).cuda())[0]
+    state = tp1.pass1_stream_start(dev, eng.p1_cfg, out[:1])
+    chunk = (dev, eng.ngram_dev, eng.p1_cfg, state, out[1:17], 16)
+    chain = talign.build_chain(eng.hmm, eng.voca, [eng.net.head_word,
+                                                  eng.net.tail_word],
+                               pseudo=eng.net.pseudo)
+    cache = tp1.GraphCache()
+    vit = (*talign.chain_tensors(chain, "cuda"), out, int(lens[0]))
+    real_ends, real_step = tp1._word_end_candidates, talign._Viterbi.step
+
+    def syncing_ends(d, ng, cfg, score, *a):
+        float(score.max())                  # a host synchronisation
+        return real_ends(d, ng, cfg, score, *a)
+
+    def syncing_step(self):
+        float(self.score.max())
+        return real_step(self)
+
+    monkeypatch.setattr(tp1, "_word_end_candidates", syncing_ends)
+    monkeypatch.setattr(talign._Viterbi, "step", syncing_step)
+    monkeypatch.setattr(tp1, "_stream_eager", None)
+    monkeypatch.setattr(talign, "_eager", None)
+    with pytest.raises(RuntimeError):
+        tp1.pass1_stream_chunk(*chunk)
+    with pytest.raises(RuntimeError):
+        talign.viterbi_chain(*vit, graphs=cache)
+    assert not dev.graphs.entries and dev.graphs.captures == 0
+    assert not cache.entries and cache.captures == 0
+    monkeypatch.undo()
+    got = tp1.pass1_stream_chunk(*chunk)
+    want = tp1.pass1_stream_chunk(*chunk, eager=True)
+    assert all(torch.equal(x, y) for x, y in zip(got[0], want[0]))
+    assert all(torch.equal(x, y) for x, y in zip(got[1], want[1]))
+    got = talign.viterbi_chain(*vit, graphs=cache)
+    want = talign.viterbi_chain(*vit, eager=True)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert dev.graphs.captures == cache.captures == 1
 
 
 def test_astar_capture_that_syncs_raises(engines, monkeypatch):

@@ -132,7 +132,7 @@ def stream_trellis_port(eng, out_ext, block):
             blocks.append(([a.numpy() for a in atoms], n))
     final = tp1.pass1_stream_finalize(eng.dev_net, eng.ngram_dev,
                                       eng.p1_cfg, state)
-    return blocks, [a.numpy() for a in final], state.t
+    return blocks, [a.numpy() for a in final], int(state.t)
 
 
 def assert_same_atoms(got, want):
