@@ -164,7 +164,14 @@ Phases, one line each, in order (any failure exits non-zero):
      exactly against the plain version and timed at W = T;
  24. parallel: on meshes that repeat the card, sharded_pass1 at S = 1,
      2, 4 on one flagship utterance (the shards equal to one shard, the
-     words to the truth and to the single-device pass 1's),
+     words to the truth and to the single-device pass 1's); each S as a
+     sharded_graph line: the frames replayed from the captured step (one
+     graph a one-card row, one replay a frame) bit-equal to the eager
+     oracle in all six trellis fields, ms a frame graphed and eager, one
+     capture on the key's first call and none on the second; once more
+     at S = 2 with the utterance padded past n_frames by 32 frames of
+     the next one (its first n_frames rows equal to the unpadded
+     trellis, sharing its graph);
      parallel_decode_fn with dp = 2 on 16 x 3 s against the engine's
      own unfused pass 1, and the DNN split over tp = 2 by shard_engine
      against the unsplit one;
@@ -173,9 +180,9 @@ Phases, one line each, in order (any failure exits non-zero):
      the port's readers, then 4 generative utterances as spliced
      feature files decoded by recognize.main on the exported files;
  26. a summary of the pass1_graph lines, one of the astar_graph lines,
-     one of the stream_graph lines, one of the align_graph lines, the
-     kernels' JSON line (one entry per kernel and path), the card line,
-     and the result line last.
+     one of the stream_graph lines, one of the align_graph lines, one of
+     the sharded_graph lines, the kernels' JSON line (one entry per
+     kernel and path), the card line, and the result line last.
 
 Pass 1 runs on the card as replays of its captured frame step (a CUDA
 graph, search/pass1.py), and every path that calls pass1_batch holds it
@@ -3453,24 +3460,101 @@ def full_scan_phase(eng, feats, card):
         launches=launches, max_abs_err=err, **t)})
 
 
+#: every sharded_graph line of the run, for the summary
+SHARDED_LINES = []
+
+
+def sharded_vs_eager(label, S, snet, eng, out_ext, n_frames, captures,
+                     card):
+    """sharded_pass1 of one utterance on a mesh that repeats the card S
+    times, three ways: its first call (which captures the key's graph
+    unless an earlier call did: `captures` is what it must take), again
+    from the cached graph (replays counted by wrapping
+    CUDAGraph.replay), and its eager oracle (eager=True: the same step
+    once a frame from Python).  The three trellises must be bit-equal in
+    all six fields, the second call must capture nothing and replay the
+    graph once a frame.  Prints a sharded_graph line (ms a frame of each
+    call, replays a frame, captures and their seconds) and returns its
+    fields and the cached call's trellis."""
+    from julius_tpu_torch.parallel import mesh as pm
+    from julius_tpu_torch.parallel import sharded_pass1 as sp
+
+    mesh = pm.make_mesh(devices=[DEVICE] * S, tp=S)
+    T = out_ext.shape[0]
+
+    def counts():
+        cache = snet.caches.graphs.get(mesh.devices[0][0])
+        return (cache.captures, cache.capture_s) if cache else (0, 0.0)
+
+    def run(**kw):
+        return sp.sharded_pass1(mesh, snet, eng.ngram_dev, eng.p1_cfg,
+                                out_ext, n_frames, **kw)
+
+    c0 = counts()
+    first, first_s = timed(run)
+    c1 = counts()
+    replays, real = [0], torch.cuda.CUDAGraph.replay
+
+    def replay(self):
+        replays[0] += 1
+        return real(self)
+
+    torch.cuda.CUDAGraph.replay = replay
+    try:
+        graphed, graphed_s = timed(run)
+    finally:
+        torch.cuda.CUDAGraph.replay = real
+    c2 = counts()
+    eager, eager_s = timed(lambda: run(eager=True))
+    fields = dict(
+        path=label, shards=S, frames=T, n_frames=int(n_frames),
+        cards=len(set(mesh.devices[0])),
+        bit_equal=same_tensors(graphed, eager) and same_tensors(first, eager),
+        graph_replays=replays[0], graph_replays_per_frame=replays[0] / T,
+        first_call_ms_per_frame=first_s * 1e3 / T,
+        graphed_ms_per_frame=graphed_s * 1e3 / T,
+        eager_ms_per_frame=eager_s * 1e3 / T,
+        eager_over_graphed=eager_s / graphed_s,
+        captures_first_call=c1[0] - c0[0], capture_s=c1[1] - c0[1],
+        captures_second_call=c2[0] - c1[0])
+    phase("sharded_graph", **fields, card=card)
+    SHARDED_LINES.append(fields)
+    if not fields["bit_equal"] or replays[0] != T \
+            or fields["captures_first_call"] != captures \
+            or fields["captures_second_call"]:
+        raise RuntimeError(f"{label}: the graphed sharded pass 1 differs "
+                           f"from its eager oracle, or captured other than "
+                           f"once: {fields}")
+    return fields, graphed
+
+
 def parallel_phase(eng, feats, lens_np, truths, card):
     """parallel/ on the one card, as meshes that repeat it: sharded_pass1
-    with S = 2 and 4 on one flagship utterance, against one shard (the
-    same trellis) and the single-device unfused pass 1 (the same words);
-    parallel_decode_fn with dp = 2 on 16 waveforms against the engine's
-    own front end, DNN and unfused pass 1 (the same trellis); the DNN
-    split over tp = 2 by shard_engine against the unsplit DNN (within
-    the bf16 rule's atol 2e-2).  Every path here runs pass 1's unfused
-    step, as the reference's does, so pass1_step is launched no time."""
+    with S = 1, 2 and 4 on one flagship utterance, graphed against its
+    eager oracle (sharded_vs_eager: a sharded_graph line each, and one
+    more at S = 2 with the utterance padded past n_frames by 32 frames
+    of the next, in the S = 2 graph's frame bucket), against one shard (the same trellis) and the
+    single-device unfused pass 1 (the same words); parallel_decode_fn
+    with dp = 2 on 16 waveforms against the engine's own front end, DNN
+    and unfused pass 1 (the same trellis); the DNN split over tp = 2 by
+    shard_engine against the unsplit DNN (within the bf16 rule's atol
+    2e-2).  Every path here runs pass 1's unfused step, as the
+    reference's does, so pass1_step is launched no time."""
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.parallel import mesh as pm
     from julius_tpu_torch.parallel import sharded_pass1 as sp
     from julius_tpu_torch.search import pass1 as p1
 
     t_phase = time.perf_counter()
-    n0 = int(lens_np[0])
+    n0, n1 = int(lens_np[0]), int(lens_np[1])
     with torch.no_grad():
-        out1 = eng._outprob(feats[:1])[0, :n0]
+        out2 = eng._outprob(feats[:2])
+    out1 = out2[0, :n0]
+    # the utterance padded past n_frames with 32 real frames (the next
+    # utterance's); in the S = 2 graph's frame bucket, it captures none
+    padded = torch.cat([out1, out2[1, :min(32, n1)]])
+    bucket = [max(p1.MIN_T_BUCKET, 1 << (t - 1).bit_length())
+              for t in (n0, padded.shape[0])]
     pk.LAUNCHES = 0
     single = p1.pass1_batch(eng.dev_net, eng.ngram_dev, eng.p1_cfg,
                             out1[None], torch.tensor([n0]), use_kernel=False)
@@ -3481,25 +3565,26 @@ def parallel_phase(eng, feats, lens_np, truths, card):
                          eng.net.tail_word)
         return [eng.voca.names[w] for w in r["words"]] if r else None
 
-    sharded, ref = {}, None
+    sharded, snets, ref = {}, {}, None
     for S in (1, 2, 4):
-        mesh = pm.make_mesh(devices=[DEVICE] * S, tp=S)
-        snet = sp.partition_network(eng.net, eng.dev_net, S)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tr = sp.sharded_pass1(mesh, snet, eng.ngram_dev, eng.p1_cfg, out1,
-                              n0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        snets[S] = sp.partition_network(eng.net, eng.dev_net, S)
+        line, tr = sharded_vs_eager("parallel", S, snets[S], eng, out1, n0,
+                                    1, card)
         if ref is None:
             ref = tr
         sharded[S] = dict(
-            ms_per_frame=wall * 1e3 / n0,
+            ms_per_frame=line["first_call_ms_per_frame"],
+            graphed_ms_per_frame=line["graphed_ms_per_frame"],
+            eager_ms_per_frame=line["eager_ms_per_frame"],
             equal_to_one_shard=all(torch.equal(a, b)
                                    for a, b in zip(tr, ref)),
             frames_differing_from_single_device=int(
                 (tr.word != single.word).any(dim=1).sum()),
             words_equal_truth=words(tr) == truths[0])
+    line, tr = sharded_vs_eager("parallel_padded", 2, snets[2], eng, padded,
+                                n0, int(bucket[0] != bucket[1]), card)
+    padded_same = same_tensors([a[:n0] for a in tr], ref) \
+        and bool((tr.word[n0:] == -1).all())
     single_words = words(single)
 
     # dp = 2: 16 waveforms of 3 s split over two rows of the card
@@ -3536,6 +3621,8 @@ def parallel_phase(eng, feats, lens_np, truths, card):
     launches = pk.LAUNCHES
     phase("parallel", device_count=torch.cuda.device_count(),
           sharded=sharded, utterance_frames=n0,
+          padded=dict(frames=int(padded.shape[0]),
+                      equal_to_unpadded=padded_same),
           single_device_words_equal_truth=single_words == truths[0],
           dp2=dict(utterances=N_UTTS, frames=int(tr.word.shape[1]),
                    wall_s=dp_s, trellis_equal_to_engine=dp_same),
@@ -3544,10 +3631,11 @@ def parallel_phase(eng, feats, lens_np, truths, card):
           pass1_step_launches=launches,
           phase_s=time.perf_counter() - t_phase, card=card)
     if not all(v["equal_to_one_shard"] and v["words_equal_truth"]
-               for v in sharded.values()) \
+               for v in sharded.values()) or not padded_same \
             or single_words != truths[0] or not dp_same \
             or tp_err > 2e-2 or collectives > budget or launches:
-        raise RuntimeError(f"parallel: sharded {sharded}, dp2 {dp_same}, "
+        raise RuntimeError(f"parallel: sharded {sharded}, padded "
+                           f"{padded_same}, dp2 {dp_same}, "
                            f"tp2 {tp_err} / {collectives}, "
                            f"{launches} pass1_step launches")
 
@@ -4076,6 +4164,15 @@ def main() -> int:
               "eager_ms_per_utterance", "eager_over_graphed",
               "wall_split_ms_per_utterance")} for g in ALIGN_LINES],
           card=card)
+    phase("sharded_graph_summary", note="the sharded pass 1 a frame on "
+          "meshes that repeat the card, graphed (one replay a frame of the "
+          "one-card step) beside its eager oracle on the same utterance",
+          paths=[{k: g[k] for k in (
+              "path", "shards", "frames", "n_frames",
+              "graph_replays_per_frame", "captures_first_call", "capture_s",
+              "graphed_ms_per_frame", "eager_ms_per_frame",
+              "eager_over_graphed")}
+              for g in SHARDED_LINES], card=card)
     print(json.dumps({"kernels": flagship + kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

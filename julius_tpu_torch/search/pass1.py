@@ -62,7 +62,9 @@ class GraphCache:
     """Captured CUDA graphs of one loop body: `pass1_batch`'s frame step
     and a stream's chunk row on one network (here), the device A*'s
     round on one set of chain tables (search/pass2_device.py), the
-    alignment Viterbi's frame on one engine (search/align.py).
+    alignment Viterbi's frame on one engine (search/align.py), and the
+    sharded pass 1's frame step on one card of a sharded network
+    (parallel/sharded_pass1.py).
 
     An entry of pass 1 (`_Graph`) is keyed by what fixes its addresses
     and shapes (card, B, the node axis, M, R, the branch, the config,

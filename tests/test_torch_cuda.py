@@ -21,8 +21,11 @@ heads, launch counts on replays, a capture that meets a host
 synchronisation), a stream's pass-1 chunk and the alignment Viterbi
 captured likewise (one capture for two streams and no more than one a
 bucket of chain sizes, one replay a frame, captures that meet a host
-synchronisation), and a decode on a second card from a thread whose
-current card is the first.
+synchronisation), the sharded pass 1's frame step captured likewise
+(one graph on a mesh that repeats the card, against its eager oracle
+and the CPU; two graphs a card, the gather between them, on two
+cards; a capture that meets a host synchronisation), and a decode on a
+second card from a thread whose current card is the first.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference package, so it also runs where
@@ -1082,6 +1085,108 @@ def test_parallel_on_card_matches_one_device(engines):
     with torch.no_grad():
         err = (eng.mesh_replicas[0]._outprob(x) - eng._outprob(x)).abs()
     assert float(err.max()) <= 2e-2
+
+
+
+def sharded_case(eng, S, devices=None):
+    """(mesh, sharded network) for S shards of `eng` on one mesh row."""
+    from julius_tpu_torch.parallel import mesh as pm
+    from julius_tpu_torch.parallel import sharded_pass1 as sp
+    return (pm.make_mesh(devices=devices or [eng.device] * S, tp=S),
+            sp.partition_network(eng.net, eng.dev_net, S))
+
+
+def sharded_run(eng, case, out, n, **kw):
+    from julius_tpu_torch.parallel import sharded_pass1 as sp
+    tr = sp.sharded_pass1(*case, eng.ngram_dev, eng.p1_cfg, out, n, **kw)
+    return tp1.Trellis(*[a.cpu() for a in tr])
+
+
+def same_trellis(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_sharded_graph_equals_eager_and_cpu(engines, count_replays, S):
+    """sharded_pass1 on a mesh that repeats the card, with n_frames = T
+    and n_frames < T (the rows past it real frames): all six trellis
+    fields equal to the eager oracle's and the CPU's; one capture (one
+    graph) for the key, none on later calls, one replay a frame; no
+    pass1_step launch."""
+    eng, cpu, feats, _ = engines
+    with torch.no_grad():
+        out = eng._outprob(torch.from_numpy(feats[:1]).cuda())[0]
+    T = out.shape[0]
+    case, cpu_case = sharded_case(eng, S), sharded_case(cpu, S)
+    before = tpk.LAUNCHES
+    for i, n in enumerate((T, 2 * T // 3)):
+        del count_replays[:]
+        got = [sharded_run(eng, case, out, n) for _ in range(2)]
+        assert len(count_replays) == 2 * T - (i == 0)
+        want = sharded_run(eng, case, out, n, eager=True)
+        on_cpu = sharded_run(cpu, cpu_case, out.cpu(), n)
+        for g in got:
+            assert same_trellis(g, want) and same_trellis(g, on_cpu)
+        assert (want.word[n:] == -1).all()
+    cache, = case[1].caches.graphs.values()
+    assert cache.captures == 1 and len(cache.entries) == 1
+    entry, = cache.entries.values()
+    assert len(entry.graphs) == 1
+    assert tpk.LAUNCHES == before
+
+
+def test_sharded_graph_on_two_cards(engines, count_replays):
+    """Shards alternating between cuda:0 and cuda:1: phase A's and phase
+    C's graph on each card with the gather copied between the replays
+    (four replays a frame), equal to the one-card row's trellis at
+    n_frames = T and < T; one capture for the key, none after."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    eng, _, feats, _ = engines
+    with torch.no_grad():
+        out = eng._outprob(torch.from_numpy(feats[:1]).cuda())[0]
+    T = out.shape[0]
+    for S in (2, 4):
+        case = sharded_case(eng, S, ["cuda:0", "cuda:1"] * (S // 2))
+        one = sharded_case(eng, S)
+        for i, n in enumerate((T, 2 * T // 3)):
+            del count_replays[:]
+            got = [sharded_run(eng, case, out, n) for _ in range(2)]
+            assert len(count_replays) == 4 * (2 * T - (i == 0))
+            want = sharded_run(eng, one, out, n)
+            assert all(same_trellis(g, want) for g in got)
+        caches = case[1].caches.graphs
+        assert caches[torch.device("cuda:0")].captures == 1
+        entry, = caches[torch.device("cuda:1")].entries.values()
+        assert len(entry.graphs) == 4 and entry.loop.copies
+
+
+def test_sharded_capture_that_syncs_raises(engines, monkeypatch):
+    """A sharded frame step that synchronises with the host cannot be
+    captured: sharded_pass1 raises, never runs the eager loop, keeps no
+    graph, and captures once its step is sound."""
+    from julius_tpu_torch.parallel import sharded_pass1 as sp
+    eng, _, feats, lens = engines
+    with torch.no_grad():
+        out = eng._outprob(torch.from_numpy(feats[:1]).cuda())[0]
+    n = int(lens[0])
+    case = sharded_case(eng, 2)
+    real = sp._local_candidates
+
+    def syncing(sh, cfg, score, *a):
+        float(score.max())                  # a host synchronisation
+        return real(sh, cfg, score, *a)
+
+    monkeypatch.setattr(sp, "_local_candidates", syncing)
+    monkeypatch.setattr(sp, "_eager", None)
+    with pytest.raises(RuntimeError):
+        sharded_run(eng, case, out, n)
+    cache, = case[1].caches.graphs.values()
+    assert not cache.entries and cache.captures == 0
+    monkeypatch.undo()
+    got = sharded_run(eng, case, out, n)
+    assert same_trellis(got, sharded_run(eng, case, out, n, eager=True))
+    assert cache.captures == 1
 
 
 # ---- pass 1's frame step as a CUDA graph
