@@ -16,6 +16,11 @@ Phases, one line each, in order (any failure exits non-zero):
      A*'s shape, two of the host re-scan's window buckets, and its edges:
      one frame, a chunk less and more one frame, the whole utterance, and
      chains of 45 nodes);
+     word_end (pass 1's word-end stage) is checked on the decodes'
+     own states instead: every path's word_end_check line holds each
+     recorded shape's kept states bit-equal to word_end_plain, and its
+     kernel_path line times it there ((a) and (c) as pass1_step's,
+     torch.topk of the same exit scores beside it, the byte bound);
   4. slice: the full-width flagship engine (5000-word 2-gram, 2004
      senones, 5 x 2048 sigmoid DNN) with the reference's search
      configuration decodes 16 generative utterances through
@@ -182,7 +187,8 @@ Phases, one line each, in order (any failure exits non-zero):
  26. a summary of the pass1_graph lines, one of the astar_graph lines,
      one of the stream_graph lines, one of the align_graph lines, one of
      the sharded_graph lines, the kernels' JSON line (one entry per
-     kernel and path), the card line, and the result line last.
+     kernel and path: pass1_step, scan_win and word_end), the card
+     line, and the result line last.
 
 Pass 1 runs on the card as replays of its captured frame step (a CUDA
 graph, search/pass1.py), and every path that calls pass1_batch holds it
@@ -193,7 +199,12 @@ such check prints a pass1_graph line: the trellises bit-equal, the
 kernel launches equal (counted on the graph's replays), the wall and ms
 a frame of each, and the network's graphs and capture seconds so far.
 The kernel's recorded calls (path_kernels) come from the oracle, since
-a graph calls the wrapper only at capture.
+a graph calls the wrapper only at capture; so do the word-end kernel's
+(one launch a frame on every pass-1 path, fused or not; a stream's also
+from its chunk oracles, its segment-end flushes and each chunk-graph
+capture's eager first row), which every path holds bit-equal to the
+plain version on those states (word_end_check lines: slice, lvcsr,
+waveform and every path that records calls).
 
 The device A* runs on the card as replays of its captured round (a CUDA
 graph, search/pass2_device.py), the host reading its stop flag once
@@ -526,6 +537,7 @@ def lvcsr_phase(card):
     from julius_tpu_torch.ops import gmm
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.ops.dnn import dnn_scores
     from julius_tpu_torch.search import pass1 as p1
     from julius_tpu_torch.search import pass2_device as p2d
@@ -614,16 +626,18 @@ def lvcsr_phase(card):
         spot.append(eng._p2d_spot_ok)
         retried.append(eng.last_pass2["retried"])
     torch.cuda.synchronize()
-    pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+    pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
     t0 = time.perf_counter()
     res = eng.decode_features(feats, lens_np)
     e2e_s = time.perf_counter() - t0
     launches, scan_launches, chunks = pk.LAUNCHES, sk.LAUNCHES, p2r.CHUNKS
+    we_launches = we.LAUNCHES
     stats = dict(p2d.LAST_STATS)
     spot.append(eng._p2d_spot_ok)
     retried.append(eng.last_pass2["retried"])
-    if launches != T:
-        raise RuntimeError(f"{launches} pass1_step launches for {T} frames")
+    if launches != T or we_launches != T:
+        raise RuntimeError(f"{launches} pass1_step and {we_launches} "
+                           f"word_end launches for {T} frames")
     if scan_launches != stats["replayed"] + chunks or scan_launches == 0:
         raise RuntimeError(f"{scan_launches} scan_win launches for "
                            f"{stats['replayed']} A* rounds run + {chunks} "
@@ -651,8 +665,10 @@ def lvcsr_phase(card):
             t0 = time.perf_counter()
             staged = eng._results(trellis, lens_np, out_ext=out_ext)
             p2_s = time.perf_counter() - t0
+        states = {}
         graph = graph_vs_eager("lvcsr", dev, eng.ngram_dev, eng.p1_cfg,
-                               out_ext, lens_np, got=trellis, card=card)
+                               out_ext, lens_np, got=trellis, card=card,
+                               record=lambda: recorded_word_end(states))
         astar = astar_vs_eager("lvcsr", staged_astar, card)
         stop_every_sweep("lvcsr", staged_astar["calls"][0], card)
         astar_profile("lvcsr", staged_astar["calls"][0], card)
@@ -680,8 +696,8 @@ def lvcsr_phase(card):
           astar_replayed=stats["replayed"], astar_waits=stats["waits"],
           astar_captured=stats["captured"],
           astar_n_pops=stats["n_pops"], astar_loop_wall_s=stats["wall_loop"],
-          kernel_launches=launches, scan_win_launches=scan_launches,
-          rescan_chunks=chunks, card=card)
+          kernel_launches=launches, word_end_launches=we_launches,
+          scan_win_launches=scan_launches, rescan_chunks=chunks, card=card)
     if exact < N_LVCSR - 2:
         raise RuntimeError(f"only {exact}/{N_LVCSR} exact lvcsr transcripts")
 
@@ -706,7 +722,9 @@ def lvcsr_phase(card):
         "pass1_step": dict(launches=launches, max_abs_err=step_err,
                            **step_t),
         "scan_win": dict(launches=scan_launches, max_abs_err=scan_err,
-                         **scan_t)}) + rc_entries
+                         **scan_t),
+        "word_end": word_end_path("lvcsr", states["word_end"], we_launches,
+                                  card)}) + rc_entries
 
 
 def waveform_phase(eng, card, step_t):
@@ -716,6 +734,7 @@ def waveform_phase(eng, card, step_t):
     from julius_tpu_torch.frontend import mfcc as fe
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
 
     L = int(WAVE_S * 16000)
     g = torch.Generator(device=DEVICE).manual_seed(0)
@@ -725,15 +744,17 @@ def waveform_phase(eng, card, step_t):
     with torch.no_grad():
         eng._decode_device(wave, lengths)                  # warm-up
         torch.cuda.synchronize()
-        pk.LAUNCHES = sk.LAUNCHES = 0
+        pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = 0
         t0 = time.perf_counter()
         trellis, nfr, out_ext = eng._decode_device(wave, lengths)
         torch.cuda.synchronize()
         one_s = time.perf_counter() - t0
         launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
-        if launches != T or scan_launches:
-            raise RuntimeError(f"{launches} pass1_step and {scan_launches} "
-                               f"scan_win launches for {T} frames")
+        we_launches = we.LAUNCHES
+        if launches != T or we_launches != T or scan_launches:
+            raise RuntimeError(f"{launches} pass1_step, {we_launches} "
+                               f"word_end and {scan_launches} scan_win "
+                               f"launches for {T} frames")
         if not (nfr == T).all():
             raise RuntimeError(f"frame counts {nfr.tolist()}, expected {T}")
         if not (torch.isfinite(out_ext).all()
@@ -759,9 +780,11 @@ def waveform_phase(eng, card, step_t):
         staged = eng._pass1(out_ext, mask.sum(dim=1).int())
         torch.cuda.synchronize()
         p1_s = time.perf_counter() - t0
+        states = {}
         graph = graph_vs_eager("waveform", eng.dev_net, eng.ngram_dev,
                                eng.p1_cfg, out_ext, mask.sum(dim=1),
-                               got=staged, card=card)
+                               got=staged, card=card,
+                               record=lambda: recorded_word_end(states))
         del out_ext, trellis, staged
         # the front end on the card against the CPU front end
         cpu_feats, cpu_mask = fe.extract_features(
@@ -788,12 +811,15 @@ def waveform_phase(eng, card, step_t):
           frontend_splice_wall_s=fe_s, dnn_wall_s=dnn_s, pass1_wall_s=p1_s,
           pass1_eager_wall_s=graph["eager_wall_s"],
           pass1_kernel_s=launches * step_t["ms"] * 1e-3,
-          kernel_launches=launches, frontend_card_vs_cpu_max_err=fe_err,
+          kernel_launches=launches, word_end_launches=we_launches,
+          frontend_card_vs_cpu_max_err=fe_err,
           recognize_batch=[dict(words=r.words, score=r.score,
                                 from_pass=r.from_pass) for r in rb],
           card=card)
-    return kernel_entries("waveform", {"pass1_step": dict(step_t,
-                                                          launches=launches)})
+    return kernel_entries("waveform", {
+        "pass1_step": dict(step_t, launches=launches),
+        "word_end": word_end_path("waveform", states["word_end"],
+                                  we_launches, card)})
 
 
 def gauss_cost(BT, D, G):
@@ -825,15 +851,18 @@ def kept_loops():
     eager oracle on the same inputs after the block.  Each alignment's
     wall is split into the host's chain build, the outprob (to the
     Viterbi's start, synchronised), the Viterbi (synchronised), the read
-    back and the host backtrace.  Yields {"streams": [...], "aligns":
-    [...]}."""
+    back and the host backtrace.  A stream's segment-end flush
+    (`pass1_stream_finalize`, one word-end launch outside any graph)
+    keeps its arguments.  Yields {"streams": [...], "aligns": [...],
+    "finals": [...]}."""
     from julius_tpu_torch.search import align as al
     from julius_tpu_torch.search import pass1 as p1
 
-    kept = {"streams": [], "aligns": []}
+    kept = {"streams": [], "aligns": [], "finals": []}
     replays, marks = [0], {}
     real = (p1.pass1_stream_chunk, al.viterbi_chain, al.build_chain,
-            al.align_backtrace, torch.cuda.CUDAGraph.replay)
+            al.align_backtrace, torch.cuda.CUDAGraph.replay,
+            p1.pass1_stream_finalize)
 
     def replay(self):
         replays[0] += 1
@@ -847,6 +876,11 @@ def kept_loops():
             replays=replays[0] - n0, captured=dev.graphs.captures - c0,
             capture_s=dev.graphs.capture_s - s0))
         return got
+
+    def finalize(dev, ngram, cfg, state):
+        kept["finals"].append((dev, ngram, cfg, p1.Pass1State(
+            *[x.clone() for x in state])))
+        return real[5](dev, ngram, cfg, state)
 
     def build_chain(*a, **kw):
         t0 = time.perf_counter()
@@ -879,11 +913,13 @@ def kept_loops():
     p1.pass1_stream_chunk, al.viterbi_chain = chunk, viterbi
     al.build_chain, al.align_backtrace = build_chain, backtrace
     torch.cuda.CUDAGraph.replay = replay
+    p1.pass1_stream_finalize = finalize
     try:
         yield kept
     finally:
         p1.pass1_stream_chunk, al.viterbi_chain, al.build_chain, \
-            al.align_backtrace, torch.cuda.CUDAGraph.replay = real
+            al.align_backtrace, torch.cuda.CUDAGraph.replay, \
+            p1.pass1_stream_finalize = real
 
 
 #: every stream_graph and align_graph line of the run, for the summaries
@@ -903,25 +939,31 @@ def same_tensors(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def stream_vs_eager(label, calls, card):
+def stream_vs_eager(label, calls, card, record=None):
     """Each kept stream chunk of one path (`kept_loops`), run again
     graphed (replays of the network's cached graph) and as its eager
     oracle (the same chunk row once a row from Python) on the same
     inputs: the atoms and the state after the chunk must be bit-equal to
     the run's, and the run must have made one graph launch a chunk row.
+    The oracle runs inside `record` (a context) where given; the
+    word-end launches of both runs are taken back out of LAUNCHES.
     Prints a stream_graph line: ms a block and a frame of both, the
     run's graph launches a row, captures and their seconds; returns its
     fields."""
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass1 as p1
 
-    per = []
+    per, w0 = [], we.LAUNCHES
     for c in calls:
         g, g_s = timed(lambda: p1.pass1_stream_chunk(*c["args"]))
-        e, e_s = timed(lambda: p1.pass1_stream_chunk(*c["args"], eager=True))
+        with record() if record else contextlib.nullcontext():
+            e, e_s = timed(lambda: p1.pass1_stream_chunk(*c["args"],
+                                                         eager=True))
         per.append(dict(rows=c["args"][4].shape[0], valid=c["args"][5],
                         graphed_s=g_s, eager_s=e_s,
                         equal=all(same_tensors(x[i], c["got"][i])
                                   for x in (g, e) for i in (0, 1))))
+    we.LAUNCHES = w0
 
     def total(k, src=per):
         return sum(x[k] for x in src)
@@ -1007,16 +1049,62 @@ def align_vs_eager(label, calls, card):
     return fields
 
 
-def loops_vs_eager(label, kept, card):
+def loops_vs_eager(label, kept, card, record=None):
     """The stream_graph and align_graph lines of one path's kept loops
-    (`kept_loops`), for the kinds it ran."""
+    (`kept_loops`), for the kinds it ran; the stream chunks' oracles run
+    inside `record` where given."""
     if kept["streams"]:
-        stream_vs_eager(label, kept["streams"], card)
+        stream_vs_eager(label, kept["streams"], card, record)
     if kept["aligns"]:
         align_vs_eager(label, kept["aligns"], card)
 
 
 KEEP_CALL = 64    # besides the first, the call of a shape whose arguments are kept
+
+
+def keep_calls(store, name, fn, plain, shape_of):
+    """`fn` wrapped so that each call's shape is counted in store[name]
+    and the arguments of the first and the KEEP_CALL-th call at each
+    shape are copied: store[name] = {shape: [count, [args, ...]]}.  The
+    arguments are named as those of `plain`, the plain version, whose
+    signature the wrapper shares."""
+    params = list(inspect.signature(plain).parameters)
+
+    def wrapped(*a, **kw):
+        args = dict(zip(params, a), **kw)
+        entry = store[name].setdefault(shape_of(args), [0, []])
+        entry[0] += 1
+        if entry[0] in (1, KEEP_CALL):
+            entry[1].append({k: v.clone() if torch.is_tensor(v) else v
+                             for k, v in args.items()})
+        return fn(*a, **kw)
+    return wrapped
+
+
+def word_end_key(dev, ngram, cfg, score, winner) -> tuple:
+    """The shape a word_end call is recorded by: [B, N, Ex, M, LM (0
+    none, 1 narrow 2-gram keys, 2 wide), factoring, winner asked]."""
+    lm = 0 if not (cfg.use_lm and ngram is not None) else 1 + ngram.wide
+    return (*score.shape, int(dev.exit_nodes.shape[0]), cfg.n_atoms, lm,
+            int(cfg.factoring), int(bool(winner)))
+
+
+@contextlib.contextmanager
+def recorded_word_end(store):
+    """Record the word-end kernel's calls into store["word_end"]
+    (`keep_calls`) while the block runs; yields the store."""
+    from julius_tpu_torch.ops import word_end_kernel as we
+
+    store.setdefault("word_end", {})
+    real = we.word_end
+    we.word_end = keep_calls(
+        store, "word_end", real, we.word_end_plain,
+        lambda a: word_end_key(a["dev"], a["ngram"], a["cfg"], a["score"],
+                               a.get("t") is not None))
+    try:
+        yield store
+    finally:
+        we.word_end = real
 
 
 @contextlib.contextmanager
@@ -1030,7 +1118,11 @@ def recorded_calls(pk, sk, p2d, scan_mod):
     eager oracle on the same batch.  Yields calls[kernel] = {shape:
     [count, [args, ...]]}, with calls["batches"] the kept pass1_batch
     calls and calls["record_step"] the context that records pass1_step;
-    the wrappers' own launch counts are untouched.  The device A*'s
+    the wrappers' own launch counts are untouched.  The word-end stage
+    (ops/word_end_kernel.py `word_end`) runs in the same graphs, so
+    record_step records its calls too (calls["word_end"]), from the eager
+    oracles of the batches and of the stream chunks, and from the
+    segment-end flushes kept by kept_loops.  The device A*'s
     round runs from a CUDA graph too, so its scans are recorded from its
     eager oracle likewise: calls["astar"] is the block's
     `counted_astar`, and calls["record_astar"] the context that records
@@ -1038,24 +1130,13 @@ def recorded_calls(pk, sk, p2d, scan_mod):
     chunks and alignment Viterbis, run from graphs too)."""
     from julius_tpu_torch.search import pass1 as p1
 
-    calls = {"pass1_step": {}, "scan_win": {}, "batches": []}
+    calls = {"pass1_step": {}, "scan_win": {}, "word_end": {},
+             "batches": []}
 
     def wrap(name, fn, shape_of):
-        # the arguments are named as the plain version's, which the
-        # wrapper shares
         plain = pk.fused_step_plain if name == "pass1_step" \
             else sk.scan_core_win_plain
-        params = list(inspect.signature(plain).parameters)
-
-        def wrapped(*a, **kw):
-            args = dict(zip(params, a), **kw)
-            entry = calls[name].setdefault(shape_of(args), [0, []])
-            entry[0] += 1
-            if entry[0] in (1, KEEP_CALL):
-                entry[1].append({k: v.clone() if torch.is_tensor(v) else v
-                                 for k, v in args.items()})
-            return fn(*a, **kw)
-        return wrapped
+        return keep_calls(calls, name, fn, plain, shape_of)
 
     def step_shape(a):
         return (*a["score"].shape, a["loc_lp"].shape[0], a["row"].shape[-1])
@@ -1078,7 +1159,8 @@ def recorded_calls(pk, sk, p2d, scan_mod):
     def record_step():
         pk.fused_step = wrap("pass1_step", real[0], step_shape)
         try:
-            yield
+            with recorded_word_end(calls):
+                yield
         finally:
             pk.fused_step = real[0]
 
@@ -1114,24 +1196,26 @@ def graph_vs_eager(label, dev, ngram, cfg, out_ext, n_frames,
     step) and as its eager oracle (the same step once a frame from
     Python), each timed by the host clock around a synchronised run: the
     two trellises, and `got` (the trellis the path produced) where
-    given, must be equal bit for bit, with equal kernel launches.  The
-    oracle runs inside `record` (a context) where given; the launches of
-    both runs are taken back out of LAUNCHES.  Prints a pass1_graph line
+    given, must be equal bit for bit, with equal kernel launches (and
+    one word-end launch a frame in each).  The oracle runs inside
+    `record` (a context) where given; the launches of both runs are
+    taken back out of LAUNCHES.  Prints a pass1_graph line
     (with the network's graphs captured so far and their capture
     seconds) and returns its fields."""
     from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass1 as p1
 
     B, T = out_ext.shape[:2]
     nfr = torch.as_tensor(n_frames).to(out_ext.device, torch.int32)
-    n0, captures = pk.LAUNCHES, dev.graphs.captures
+    n0, w0, captures = pk.LAUNCHES, we.LAUNCHES, dev.graphs.captures
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     graphed = p1.pass1_batch(dev, ngram, cfg, out_ext, nfr,
                              use_kernel=use_kernel)
     torch.cuda.synchronize()
     graphed_s = time.perf_counter() - t0
-    n_graphed = pk.LAUNCHES - n0
+    n_graphed, w_graphed = pk.LAUNCHES - n0, we.LAUNCHES - w0
     with record() if record else contextlib.nullcontext():
         t0 = time.perf_counter()
         eager = p1.pass1_batch(dev, ngram, cfg, out_ext, nfr,
@@ -1139,7 +1223,8 @@ def graph_vs_eager(label, dev, ngram, cfg, out_ext, n_frames,
         torch.cuda.synchronize()
         eager_s = time.perf_counter() - t0
     n_eager = pk.LAUNCHES - n0 - n_graphed
-    pk.LAUNCHES = n0
+    w_eager = we.LAUNCHES - w0 - w_graphed
+    pk.LAUNCHES, we.LAUNCHES = n0, w0
     same = all(torch.equal(a, b) for a, b in zip(graphed, eager))
     same_run = got is None or all(torch.equal(a, b)
                                   for a, b in zip(got, eager))
@@ -1151,13 +1236,15 @@ def graph_vs_eager(label, dev, ngram, cfg, out_ext, n_frames,
         eager_ms_per_frame=eager_s * 1e3 / T,
         eager_over_graphed=eager_s / graphed_s,
         launches_graphed=n_graphed, launches_eager=n_eager,
+        word_end_graphed=w_graphed, word_end_eager=w_eager,
         captured_in_this_call=dev.graphs.captures - captures,
         network_graphs=dev.graphs.captures,
         network_capture_s=dev.graphs.capture_s,
         bit_equal=same, equal_to_the_run=same_run)
     phase("pass1_graph", **fields, card=card)
     GRAPH_LINES.append(fields)
-    if not (same and same_run) or n_graphed != n_eager:
+    if not (same and same_run) or n_graphed != n_eager \
+            or not w_graphed == w_eager == T:
         raise RuntimeError(f"{label}: graphed pass 1 differs from its eager "
                            f"oracle: {fields}")
     return fields
@@ -1183,7 +1270,19 @@ def path_kernels(label, calls, launches, eng, card):
 
     dev = eng.dev_net
     # the stream chunks and alignment Viterbis against their oracles
-    loops_vs_eager(label, calls.pop("loops"), card)
+    kept = calls.pop("loops")
+    loops_vs_eager(label, kept, card, record=calls["record_step"])
+    # a stream's segment-end flushes (a word-end launch each), and the
+    # eager first row that each capture of its chunk step ran
+    with calls["record_step"]():
+        for args in kept["finals"]:
+            p1.pass1_stream_finalize(*args)
+    for c in kept["streams"]:
+        if c["captured"]:
+            d, ng, cfg, state = c["args"][:4]
+            key = word_end_key(d, ng, cfg, state.score,
+                               p1._scalar_winner(d, ng, cfg))
+            calls["word_end"][key][0] += c["captured"]
     # pass1_step's calls, from the eager oracle of each graphed batch
     for b in calls.pop("batches"):
         graph_vs_eager(label, b["dev"], b["ngram"], b["cfg"], b["out_ext"],
@@ -1245,6 +1344,113 @@ def path_kernels(label, calls, launches, eng, card):
               shape_is=("[B, N, K+1, R]" if name == "pass1_step"
                         else "[K, W, N, K+1, B, T, R]"),
               shapes=shapes, **out[name], library_ms=None, card=card)
+    if calls["word_end"] or launches.get("word_end"):
+        out["word_end"] = word_end_path(label, calls["word_end"],
+                                        launches.get("word_end", 0), card)
+    return out
+
+
+def bits_equal(a, b) -> bool:
+    """Equal dtypes and shapes, and floats equal bit for bit."""
+    if a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def word_end_fields(out):
+    """A word_end result, (atoms, winner or None), as a flat list."""
+    return [*out[0], *(out[1] or ())]
+
+
+def word_end_bytes(B, Ex, k, M, lm, winner):
+    """Least bytes one word-end call must move: each row's exit scores
+    (4 B an exit, gathered) and the exits' node ids and ln p once; for
+    each of a row's k candidates its ctx and prev, its word, LM word,
+    unigram and transparency, and with an LM its ctx_info row and the
+    8 probe rows of the 2-gram table (2 words a row, 3 with wide keys);
+    the [B, M] atoms written once, and the [B] winner and the frame
+    index where asked."""
+    probe = 0 if lm == 0 else 8 + 8 * 4 * (1 + lm)
+    return (B * Ex * 4 + Ex * 12 + B * k * (8 + 13 + probe) + B * M * 24
+            + (B * 12 + 4 if winner else 0))
+
+
+def word_end_ops(B, Ex, k):
+    """Operations of one call, as the plain version counts them: an add
+    a gathered exit and, for each candidate, 8 probe compares and about
+    6 adds, multiplies and compares of the correction."""
+    return B * (Ex + 14 * k)
+
+
+def word_end_path(label, recorded, launches, card):
+    """The word-end kernel on one path, at the states the path gave it
+    (`recorded_word_end`: each shape's call count and kept arguments).
+    Each kept call is held bit-equal to word_end_plain (a word_end_check
+    line); then each shape is timed on its last kept call: (a) ms, the
+    median of 60 launches, (c) cold_ms, of 30 launches each after an
+    l2_flush, the plain version, and torch.topk on the same [B, Ex] exit
+    scores for the first selection alone (topk_ms: no one PyTorch call
+    computes the whole stage, so library_ms is null), beside the bound.
+    Raises unless the recorded calls equal the path's launches.  ->
+    entry fields, the times and bound launch-weighted over the shapes."""
+    from julius_tpu_torch.ops import word_end_kernel as we
+    from julius_tpu_torch.utils.cuda_timing import l2_flush, time_ms
+
+    n = sum(count for count, _ in recorded.values())
+    if n != launches or n == 0:
+        raise RuntimeError(f"{label}: {n} word_end calls recorded for "
+                           f"{launches} launches")
+    flush = l2_flush(DEVICE)
+    shapes, err = [], 0.0
+    for key, (count, kept) in sorted(recorded.items()):
+        for a in kept:
+            got = word_end_fields(we.word_end(**a))
+            want = word_end_fields(we.word_end_plain(**a))
+            torch.cuda.synchronize()
+            if not all(bits_equal(x, y) for x, y in zip(got, want)):
+                raise RuntimeError(f"{label}: word_end differs from its "
+                                   f"plain version at {key}")
+            err = max([err] + [float((x - y).abs().max()) for x, y in
+                               zip(got, want) if x.dtype == torch.float32])
+        a = kept[-1]
+        B, _, Ex, M, lm, _, winner = key
+        k = min(2 * M, Ex)
+        sc_all = a["score"][:, a["dev"].exit_nodes] + a["dev"].exit_nlp
+        t = dict(ms=time_ms(lambda: we.word_end(**a)),
+                 cold_ms=time_ms(lambda: we.word_end(**a), n=30,
+                                 before=flush),
+                 plain_ms=time_ms(lambda: we.word_end_plain(**a), n=20,
+                                  warm=2),
+                 topk_ms=time_ms(lambda: torch.topk(sc_all, k)))
+        bytes_ms = word_end_bytes(B, Ex, k, M, lm, winner) \
+            / HBM_BYTES_PER_S * 1e3
+        ops_ms = word_end_ops(B, Ex, k) / F32_OPS_PER_S * 1e3
+        shapes.append(dict(shape=list(key), launches=count,
+                           states_checked=len(kept), **t,
+                           bound_ms=max(bytes_ms, ops_ms),
+                           bound_by="bytes" if bytes_ms >= ops_ms
+                           else "operations"))
+    del flush
+    phase("word_end_check", path=label,
+          shape_is="[B, N, Ex, M, lm, factoring, winner]",
+          shapes=[{k: x[k] for k in ("shape", "launches", "states_checked")}
+                  for x in shapes], bit_equal=True, max_abs_err=err,
+          card=card)
+
+    def mean(f):
+        return sum(x[f] * x["launches"] for x in shapes) / n
+
+    by = {b: sum(x["bound_ms"] * x["launches"] for x in shapes
+                 if x["bound_by"] == b) for b in ("bytes", "operations")}
+    out = dict(launches=n, max_abs_err=err, ms=mean("ms"),
+               cold_ms=mean("cold_ms"), plain_ms=mean("plain_ms"),
+               topk_ms=mean("topk_ms"), bound_ms=mean("bound_ms"),
+               bound_by=max(by, key=by.get), n_shapes=len(shapes))
+    phase("kernel_path", path=label, kernel="word_end",
+          shape_is="[B, N, Ex, M, lm, factoring, winner]", shapes=shapes,
+          **out, library_ms=None, card=card)
     return out
 
 
@@ -1292,6 +1498,7 @@ def cli_phase(card, task_dir):
     from julius_tpu_torch.ops import gmm
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass1 as p1
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.search import pass2_rescan as p2r
@@ -1418,10 +1625,11 @@ def cli_phase(card, task_dir):
             n = len(inputs)
             results = []
             with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-                pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+                pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
                 lines, wall, built = run_cli(recognize, argv + inputs,
                                              results)
                 launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+                we_launches = we.LAUNCHES
             chunks = p2r.CHUNKS
             rounds, replayed = (calls["astar"][k]
                                 for k in ("rounds", "replayed"))
@@ -1453,7 +1661,7 @@ def cli_phase(card, task_dir):
                 sentences_per_input=sum(ln.startswith("sentence")
                                         for ln in lines) / n)
             measured = path_kernels(
-                label, calls, {"pass1_step": launches,
+                label, calls, {"pass1_step": launches, "word_end": we_launches,
                                "scan_win": scan_launches}, built[0], card)
             del calls, built
             entries += kernel_entries(label, measured)
@@ -1482,7 +1690,9 @@ def kernel_entries(path, measured):
     sources = {"pass1_step": ("julius_tpu_torch/csrc/pass1_step.cu",
                               "julius_tpu/ops/pass1_kernel.py:49"),
                "scan_win": ("julius_tpu_torch/csrc/scan_win.cu",
-                            "julius_tpu/search/scan.py:317")}
+                            "julius_tpu/search/scan.py:317"),
+               "word_end": ("julius_tpu_torch/csrc/word_end.cu",
+                            "julius_tpu/search/pass1.py:267")}
     return [{"name": name, "path": path, "route": "cuda",
              "source": sources[name][0], "replaces": sources[name][1],
              **fields, "library_ms": None}
@@ -1662,6 +1872,7 @@ def grammar_phase(eng, protos, card):
     from julius_tpu_torch.engine import Engine
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.search import pass2_rescan as p2r
     from julius_tpu_torch.search import scan as scan_mod
@@ -1694,11 +1905,12 @@ def grammar_phase(eng, protos, card):
     geng.decode_features(feats[:2], lens_np[:2])        # warm-up
     torch.cuda.synchronize()
     with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-        pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+        pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
         t0 = time.perf_counter()
         res = geng.decode_features(feats, lens_np)
         wall = time.perf_counter() - t0
         launches, scan_launches, chunks = pk.LAUNCHES, sk.LAUNCHES, p2r.CHUNKS
+        we_launches = we.LAUNCHES
     if launches != 0 or scan_launches != chunks or scan_launches == 0:
         raise RuntimeError(f"grammar: {launches} pass1_step and "
                            f"{scan_launches} scan_win launches for {chunks} "
@@ -1720,6 +1932,7 @@ def grammar_phase(eng, protos, card):
     finally:
         geng.search_cfg = base
     measured = path_kernels("grammar", calls, {"pass1_step": launches,
+                                               "word_end": we_launches,
                                                "scan_win": scan_launches},
                             geng, card)
     exact_f = sum(r.texts == t for r, t in zip(res_f, truths[side]))
@@ -1752,6 +1965,7 @@ def isolated_phase(eng, protos, card):
     from julius_tpu_torch.engine import Engine
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.tools import synth
 
     ieng = Engine(eng.hmm, eng.voca, dnn=eng.dnn_params, frontend=eng.fe_cfg,
@@ -1764,14 +1978,16 @@ def isolated_phase(eng, protos, card):
     T = feats.shape[1]
     ieng.decode_features(feats[:2], lens_np[:2])        # warm-up
     torch.cuda.synchronize()
-    pk.LAUNCHES = sk.LAUNCHES = 0
+    pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = 0
     t0 = time.perf_counter()
     res = ieng.decode_features(feats, lens_np)
     wall = time.perf_counter() - t0
     launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
-    if launches or scan_launches:
-        raise RuntimeError(f"isolated: {launches} pass1_step and "
-                           f"{scan_launches} scan_win launches")
+    we_launches = we.LAUNCHES
+    if launches or scan_launches or we_launches != T:
+        raise RuntimeError(f"isolated: {launches} pass1_step, "
+                           f"{scan_launches} scan_win and {we_launches} "
+                           f"word_end launches for {T} frames")
     exact = sum(r.word_ids == w for r, w in zip(res, words))
     with torch.no_grad():
         out_ext = ieng._outprob(feats)
@@ -1785,7 +2001,7 @@ def isolated_phase(eng, protos, card):
           pass1_wall_s=p1_s, pass1_ms_per_frame=p1_s * 1e3 / T,
           pass1_eager_ms_per_frame=graph["eager_ms_per_frame"],
           pass1_step_launches=launches, scan_win_launches=scan_launches,
-          card=card)
+          word_end_launches=we_launches, card=card)
     if exact < N_UTTS - 1 or any(r.from_pass != 1 for r in res):
         raise RuntimeError(f"isolated: {exact}/{N_UTTS} exact")
 
@@ -1798,6 +2014,7 @@ def unfused_run(label, ueng, fused_eng, feats, lens_np, truths, card):
     kernel entries)."""
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass1 as p1
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.search import pass2_rescan as p2r
@@ -1809,11 +2026,12 @@ def unfused_run(label, ueng, fused_eng, feats, lens_np, truths, card):
     ueng.decode_features(feats[:2], lens_np[:2])        # warm-up
     torch.cuda.synchronize()
     with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-        pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+        pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
         t0 = time.perf_counter()
         res = ueng.decode_features(feats, lens_np)
         wall = time.perf_counter() - t0
         launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+        we_launches = we.LAUNCHES
     chunks = p2r.CHUNKS
     rounds, replayed = (calls["astar"][k] for k in ("rounds", "replayed"))
     if launches or scan_launches != replayed + chunks or not scan_launches:
@@ -1827,6 +2045,7 @@ def unfused_run(label, ueng, fused_eng, feats, lens_np, truths, card):
         unfused_s = timed_pass1(ueng, out_ext, lens_np)
         fused_s = timed_pass1(fused_eng, out_ext, lens_np)
     measured = path_kernels(label, calls, {"pass1_step": launches,
+                                           "word_end": we_launches,
                                            "scan_win": scan_launches},
                             ueng, card)
     fields = dict(utterances=B, frames=T, e2e_wall_s=wall,
@@ -2068,6 +2287,7 @@ def align_phase(eng, protos, card):
     entries for the JSON line."""
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import align as al
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.search import pass2_rescan as p2r
@@ -2095,11 +2315,12 @@ def align_phase(eng, protos, card):
         torch.cuda.synchronize()
         walls.clear()
         with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
             t0 = time.perf_counter()
             res = eng.decode_features(feats, lens_np)
             wall = time.perf_counter() - t0
             launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+            we_launches = we.LAUNCHES
         chunks = p2r.CHUNKS
         rounds, replayed = (calls["astar"][k] for k in ("rounds", "replayed"))
     finally:
@@ -2146,6 +2367,7 @@ def align_phase(eng, protos, card):
                              and int(gbest) == int(wbest))
             vit_err = max(vit_err, abs(float(gs) - float(ws)))
     measured = path_kernels("align", calls, {"pass1_step": launches,
+                                             "word_end": we_launches,
                                              "scan_win": scan_launches},
                             eng, card)
     phase("align", utterances=N_UTTS, frames=T,
@@ -2180,6 +2402,7 @@ def stream_phase(eng, card):
     from julius_tpu_torch.frontend.stream import StreamingFrontend
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass1 as p1
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.search import pass2_rescan as p2r
@@ -2252,10 +2475,11 @@ def stream_phase(eng, card):
         torch.cuda.synchronize()
         res = []
         with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
             for u in range(N_STREAM):
                 res.append(one_stream(waves[u], timed=True))
             launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+            we_launches = we.LAUNCHES
         chunks = p2r.CHUNKS
         rounds, replayed = (calls["astar"][k] for k in ("rounds", "replayed"))
     finally:
@@ -2283,6 +2507,7 @@ def stream_phase(eng, card):
                for r, b in zip(res, batch))
     full = [ms for n, ms in blocks if n == BLOCK]
     measured = path_kernels("stream", calls, {"pass1_step": launches,
+                                              "word_end": we_launches,
                                               "scan_win": scan_launches},
                             eng, card)
     phase("stream", waveforms=N_STREAM, seconds_each=STREAM_S,
@@ -2487,6 +2712,7 @@ def cli_live_phase(card, files, live):
     Returns the kernels' entries."""
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.search import pass2_rescan as p2r
     from julius_tpu_torch.search import scan as scan_mod
@@ -2506,9 +2732,10 @@ def cli_live_phase(card, files, live):
     for label, extra in plan:
         results = []
         with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
             lines, wall, built = run_cli(recognize, models + extra, results)
             launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+            we_launches = we.LAUNCHES
         chunks = p2r.CHUNKS
         rounds, replayed = (calls["astar"][k] for k in ("rounds", "replayed"))
         if scan_launches != replayed + chunks or not scan_launches \
@@ -2529,7 +2756,7 @@ def cli_live_phase(card, files, live):
             astar_replayed=replayed,
             rescan_chunks=chunks)
         entries += kernel_entries(label, path_kernels(
-            label, calls, {"pass1_step": launches,
+            label, calls, {"pass1_step": launches, "word_end": we_launches,
                            "scan_win": scan_launches}, built[0], card))
         del calls, built
     phase("cli_live", runs=runs, card=card)
@@ -2669,6 +2896,7 @@ def server_phase(eng, card, stream_in, live):
 
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass1 as p1
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.search import pass2_rescan as p2r
@@ -2703,7 +2931,7 @@ def server_phase(eng, card, stream_in, live):
             control_s = sum(command(f, sock, c, w) for c, w in control)
             cli = AdinnetClient(port=aport)
             with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-                pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+                pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
                 t0 = time.perf_counter()
                 for w in waves:
                     cli.send_samples(w)
@@ -2715,6 +2943,7 @@ def server_phase(eng, card, stream_in, live):
                     end_to_result.append((t_got - marks[-1]) * 1e3)
                 wall = time.perf_counter() - t0
                 launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+                we_launches = we.LAUNCHES
             cli.close()
     finally:
         p1.pass1_stream_finalize = real_finalize
@@ -2736,8 +2965,8 @@ def server_phase(eng, card, stream_in, live):
         astar_replayed=replayed,
         rescan_chunks=chunks)
     entries += kernel_entries("server", path_kernels(
-        "server", calls, {"pass1_step": launches, "scan_win": scan_launches},
-        eng, card))
+        "server", calls, {"pass1_step": launches, "word_end": we_launches,
+                          "scan_win": scan_launches}, eng, card))
     del calls
     if same != len(batch):
         raise RuntimeError(f"server: {same}/{len(batch)} results equal to "
@@ -2756,7 +2985,7 @@ def server_phase(eng, card, stream_in, live):
     out = io.StringIO()
     with serving([eng]) as (f, sock, aport):
         with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
             real_client = adintool.AdinnetClient
             adintool.AdinnetClient = RecordingClient
             t0 = time.perf_counter()
@@ -2771,6 +3000,7 @@ def server_phase(eng, card, stream_in, live):
             msgs = [read_msg(f) for _ in sent]
             wall = time.perf_counter() - t0
             launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+            we_launches = we.LAUNCHES
     chunks = p2r.CHUNKS
     rounds, replayed = (calls["astar"][k] for k in ("rounds", "replayed"))
     said = out.getvalue().strip()
@@ -2798,6 +3028,7 @@ def server_phase(eng, card, stream_in, live):
         rescan_chunks=chunks)
     entries += kernel_entries("server_adintool", path_kernels(
         "server_adintool", calls, {"pass1_step": launches,
+                                   "word_end": we_launches,
                                    "scan_win": scan_launches}, eng, card))
     phase("server", runs=runs, phase_s=time.perf_counter() - t_phase,
           card=card)
@@ -2860,6 +3091,7 @@ def vecnet_phase(eng, card, feats, lens_np, truths, first):
     kernels' entries."""
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.search import pass2_rescan as p2r
     from julius_tpu_torch.search import scan as scan_mod
@@ -2884,11 +3116,12 @@ def vecnet_phase(eng, card, feats, lens_np, truths, first):
         decode = eng.decode_outprob if outprob else eng.decode_features
         torch.cuda.synchronize()
         with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
             t0 = time.perf_counter()
             res = decode(batch, lens)
             decode_s = time.perf_counter() - t0
             launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+            we_launches = we.LAUNCHES
         chunks = p2r.CHUNKS
         rounds, replayed = (calls["astar"][k] for k in ("rounds", "replayed"))
         if launches != lens.max() or scan_launches != replayed + chunks \
@@ -2908,7 +3141,7 @@ def vecnet_phase(eng, card, feats, lens_np, truths, first):
             pass1_step_launches=launches, scan_win_launches=scan_launches,
             astar_rounds=rounds, astar_replayed=replayed, rescan_chunks=chunks)
         entries += kernel_entries(label, path_kernels(
-            label, calls, {"pass1_step": launches,
+            label, calls, {"pass1_step": launches, "word_end": we_launches,
                            "scan_win": scan_launches}, eng, card))
         del calls
         if exact < N_UTTS - 1 or equal != N_UTTS:
@@ -2936,6 +3169,7 @@ def server_grammar_phase(card, files):
     from julius_tpu_torch.io.htk_param import read_htk_param
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.search import pass2_rescan as p2r
     from julius_tpu_torch.search import scan as scan_mod
@@ -3002,11 +3236,12 @@ def server_grammar_phase(card, files):
             feats[u, :len(x)] = x
         torch.cuda.synchronize()
         with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
             t0 = time.perf_counter()
             res = eng.decode_features(feats, lens)
             decode_s = time.perf_counter() - t0
             launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+            we_launches = we.LAUNCHES
         chunks = p2r.CHUNKS
         sock.sendall(b"DIE\n")
         t.join(timeout=MODULE_TIMEOUT_S)
@@ -3024,7 +3259,8 @@ def server_grammar_phase(card, files):
                                             for w in r.word_ids])
                    for r in res)
     measured = path_kernels("server_grammar", calls, {
-        "pass1_step": launches, "scan_win": scan_launches}, eng, card)
+        "pass1_step": launches, "word_end": we_launches,
+        "scan_win": scan_launches}, eng, card)
     phase("server_grammar", engine_build_s=build_s, words=n_w,
           dfa_states=n_s, nodes=int(geng.dev_net.score_idx.shape[0]),
           reply_s=walls, utterances=len(res),
@@ -3086,6 +3322,7 @@ def tools_phase(eng, card, files):
 
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.search import pass2_rescan as p2r
     from julius_tpu_torch.search import scan as scan_mod
@@ -3120,10 +3357,11 @@ def tools_phase(eng, card, files):
                 "triphone", "-plugindir", pdir] + files["utts"][:N_SIDE]
         results = []
         with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
             p2d.LAST_STATS.clear()
             lines, wall, built = run_cli(recognize, argv, results)
             launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+            we_launches = we.LAUNCHES
         with open(best_path) as fh:
             best = json.load(fh)
     finally:
@@ -3134,7 +3372,7 @@ def tools_phase(eng, card, files):
     check = json.loads(lines[0].split(": ", 1)[1]) \
         if lines and lines[0].startswith("-check triphone: ") else None
     entries = kernel_entries("cli_plugin", path_kernels(
-        "cli_plugin", calls, {"pass1_step": launches,
+        "cli_plugin", calls, {"pass1_step": launches, "word_end": we_launches,
                               "scan_win": scan_launches}, built[0], card))
     del calls, built
 
@@ -3180,6 +3418,7 @@ def backward_phase(eng, feats, lens_np, truths, res, card, files):
     from julius_tpu_torch.io.htk_param import read_htk_param
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass1 as p1
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.search import pass2_rescan as p2r
@@ -3203,11 +3442,12 @@ def backward_phase(eng, feats, lens_np, truths, res, card, files):
     beng.decode_features(feats[:2], lens_np[:2])        # warm-up
     torch.cuda.synchronize()
     with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-        pk.LAUNCHES = sk.LAUNCHES = 0
+        pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = 0
         t0 = time.perf_counter()
         bres = beng.decode_features(feats, lens_np)
         wall = time.perf_counter() - t0
         launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+        we_launches = we.LAUNCHES
     if launches != T or scan_launches != 0:
         raise RuntimeError(f"backward: {launches} pass1_step launches for "
                            f"{T} frames, {scan_launches} scan_win")
@@ -3232,6 +3472,7 @@ def backward_phase(eng, feats, lens_np, truths, res, card, files):
     if [r.word_ids for r in staged] != [r.word_ids for r in bres]:
         raise RuntimeError("backward: staged decode differs")
     measured = path_kernels("backward", calls, {"pass1_step": launches,
+                                                "word_end": we_launches,
                                                 "scan_win": scan_launches},
                             beng, card)
     entries = kernel_entries("backward", measured)
@@ -3265,9 +3506,10 @@ def backward_phase(eng, feats, lens_np, truths, res, card, files):
                 str(N_SIDE)] + inputs
         results = []
         with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-            pk.LAUNCHES = sk.LAUNCHES = 0
+            pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = 0
             lines, cli_wall, built = run_cli(recognize, argv, results)
             cli_launches, cli_scan = pk.LAUNCHES, sk.LAUNCHES
+            cli_we = we.LAUNCHES
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     t_run = max(read_htk_param(f).data.shape[0] for f in inputs)
@@ -3286,7 +3528,7 @@ def backward_phase(eng, feats, lens_np, truths, res, card, files):
         from_pass2=sum(r.from_pass == 2 for r in results),
         pass1_step_launches=cli_launches, scan_win_launches=cli_scan)
     entries += kernel_entries("cli_nrl", path_kernels(
-        "cli_nrl", calls, {"pass1_step": cli_launches,
+        "cli_nrl", calls, {"pass1_step": cli_launches, "word_end": cli_we,
                            "scan_win": cli_scan}, built[0], card))
     del calls, built
 
@@ -3302,11 +3544,12 @@ def backward_phase(eng, feats, lens_np, truths, res, card, files):
     if not beng._rescan_ok() or beng._device_astar_ok():
         raise RuntimeError("user LM: pass 2 is not the host re-scan")
     with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-        pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+        pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
         t0 = time.perf_counter()
         ures = beng.decode_features(feats[side], lens_np[side])
         user_wall = time.perf_counter() - t0
         u_launches, u_scan, u_chunks = pk.LAUNCHES, sk.LAUNCHES, p2r.CHUNKS
+        u_we = we.LAUNCHES
     if u_launches != T or u_scan != u_chunks or u_scan == 0:
         raise RuntimeError(f"user LM: {u_launches} pass1_step launches for "
                            f"{T} frames, {u_scan} scan_win for {u_chunks} "
@@ -3320,8 +3563,8 @@ def backward_phase(eng, feats, lens_np, truths, res, card, files):
                            words_equal_to_forward_decode=user_same,
                            from_pass2=sum(r.from_pass == 2 for r in ures))
     entries += kernel_entries("user_lm", path_kernels(
-        "user_lm", calls, {"pass1_step": u_launches, "scan_win": u_scan},
-        beng, card))
+        "user_lm", calls, {"pass1_step": u_launches, "word_end": u_we,
+                           "scan_win": u_scan}, beng, card))
     del calls
     audio_s = float(lens_np.sum()) / 100.0
     phase("backward", utterances=N_UTTS, frames=T, audio_s=audio_s,
@@ -3665,6 +3908,7 @@ def refexport_phase(card):
     from julius_tpu_torch.io.htk_param import HTKParam, write_htk_param
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.search import pass2_rescan as p2r
     from julius_tpu_torch.search import scan as scan_mod
@@ -3765,10 +4009,11 @@ def refexport_phase(card):
                 "-batchsize", str(N_SIDE)] + inputs
         results = []
         with recorded_calls(pk, sk, p2d, scan_mod) as calls:
-            pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+            pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
             p2d.LAST_STATS.clear()
             lines, wall, built = run_cli(recognize, argv, results)
             launches, scan_launches = pk.LAUNCHES, sk.LAUNCHES
+            we_launches = we.LAUNCHES
         walls["cli_s"] = wall
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3780,6 +4025,7 @@ def refexport_phase(card):
     exact = sum(a == b for a, b in zip(got, want))
     entries = kernel_entries("refexport_cli", path_kernels(
         "refexport_cli", calls, {"pass1_step": launches,
+                                 "word_end": we_launches,
                                  "scan_win": scan_launches}, built[0], card))
     phase("refexport", walls=walls, checks=checks, files=N_SIDE,
           exact_transcripts=f"{exact}/{N_SIDE}",
@@ -3798,6 +4044,7 @@ def main() -> int:
     from julius_tpu_torch.ops import cuda_build
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass1 as p1
     from julius_tpu_torch.search import pass2 as p2
     from julius_tpu_torch.search import pass2_device as p2d
@@ -3812,14 +4059,14 @@ def main() -> int:
           cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    cuda_build.compile_all([pk.SOURCE, sk.SOURCE])
-    pk.build()
-    sk.build()
+    cuda_build.compile_all([pk.SOURCE, sk.SOURCE, we.SOURCE])
+    for m in (pk, sk, we):
+        m.build()
     build_s = time.perf_counter() - t0
     ptxas = {m.SOURCE.name: cuda_build.ptxas_report(m.SOURCE)
-             for m in (pk, sk)}
+             for m in (pk, sk, we)}
     phase("build", seconds=round(build_s, 3),
-          kernels=["pass1_step", "scan_win"], ptxas=ptxas)
+          kernels=["pass1_step", "scan_win", "word_end"], ptxas=ptxas)
     for source, report in ptxas.items():
         check_no_spills(report, source)
 
@@ -3932,16 +4179,17 @@ def main() -> int:
         raise RuntimeError("flagship_engine does not take the device A*")
     eng.decode_features(feats[:2], lens_np[:2])     # warm-up
     torch.cuda.synchronize()
-    pk.LAUNCHES = sk.LAUNCHES = p2r.CHUNKS = 0
+    pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
     t0 = time.perf_counter()
     res = eng.decode_features(feats, lens_np)
     e2e_s = time.perf_counter() - t0
-    launches = pk.LAUNCHES
+    launches, we_launches = pk.LAUNCHES, we.LAUNCHES
     scan_launches, chunks = sk.LAUNCHES, p2r.CHUNKS
     stats = dict(p2d.LAST_STATS)
     net = dict(eng.last_pass2)
-    if launches != T:
-        raise RuntimeError(f"{launches} kernel launches for {T} frames")
+    if launches != T or we_launches != T:
+        raise RuntimeError(f"{launches} pass1_step and {we_launches} "
+                           f"word_end launches for {T} frames")
     if scan_launches != stats["replayed"] + chunks or scan_launches == 0:
         raise RuntimeError(f"{scan_launches} scan_win launches for "
                            f"{stats['replayed']} A* rounds run + {chunks} "
@@ -3965,9 +4213,13 @@ def main() -> int:
     staged_net = dict(eng.last_pass2)
     if [r.word_ids for r in staged] != [r.word_ids for r in res]:
         raise RuntimeError("staged decode differs from decode_features")
+    states = {}
     slice_graph = graph_vs_eager("slice", eng.dev_net, eng.ngram_dev,
                                  eng.p1_cfg, out_ext, lens_np,
-                                 got=tr_kernel, card=card)
+                                 got=tr_kernel, card=card,
+                                 record=lambda: recorded_word_end(states))
+    slice_word_end = word_end_path("slice", states.pop("word_end"),
+                                   we_launches, card)
     slice_astar = astar_vs_eager("slice", staged_astar, card)
     stop_every_sweep("slice", staged_astar["calls"][0], card)
     astar_profile("slice", staged_astar["calls"][0], card)
@@ -4052,8 +4304,9 @@ def main() -> int:
           astar_captured=stats["captured"],
           astar_n_pops=stats["n_pops"], astar_loop_wall_s=stats["wall_loop"],
           max_rounds=stats["max_rounds"], CAPP=stats["CAPP"],
-          kernel_launches=launches, scan_win_launches=scan_launches,
-          rescan_chunks=chunks, dnn_card_vs_cpu_max_err=dnn_err, card=card)
+          kernel_launches=launches, word_end_launches=we_launches,
+          scan_win_launches=scan_launches, rescan_chunks=chunks,
+          dnn_card_vs_cpu_max_err=dnn_err, card=card)
     if exact < N_UTTS - 1:
         raise RuntimeError(f"only {exact}/{N_UTTS} exact transcripts")
 
@@ -4132,7 +4385,8 @@ def main() -> int:
         "pass1_step": dict(timings[N_UTTS], launches=launches,
                            max_abs_err=max_err),
         "scan_win": dict(scan_t[tabs.nmax, K_A, W_A], launches=scan_launches,
-                         max_abs_err=scan_err)})
+                         max_abs_err=scan_err),
+        "word_end": slice_word_end})
     phase("pass1_graph_summary", note="pass 1 a frame, graphed (replays "
           "of the captured step) beside its eager oracle on the same batch",
           paths=[{k: g[k] for k in (

@@ -10,8 +10,9 @@ counterpart is easy to find:
   adin/    - the native audio-input segmenter, decimator and capture
              (C++, adin/native/adin.cpp, built with g++)
   ops/     - DNN and GMM senone scoring (torch), the pass-1 beam-update
-             kernel and the pass-2 word-scan kernel (hand-written CUDA,
-             csrc/pass1_step.cu, csrc/scan_win.cu)
+             and word-end kernels and the pass-2 word-scan kernel
+             (hand-written CUDA, csrc/pass1_step.cu, csrc/word_end.cu,
+             csrc/scan_win.cu)
   search/  - flat decode network, device N-gram hash, pass-1 Viterbi
              (kernel path, unfused step, stream chunks), pass 2 (device
              A*, host re-scan, frozen N-gram and DFA searches), word

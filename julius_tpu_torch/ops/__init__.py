@@ -1,1 +1,2 @@
-"""Compute: DNN senone scorer and the pass-1 beam-update kernel."""
+"""Compute: DNN and GMM senone scorers and the hand-written kernels
+(pass 1's beam update and word-end stage, pass 2's word scan)."""

@@ -9,10 +9,14 @@ payload (LM context word, trellis backpointer); each frame
   * advances every node: in-word arcs, the cross-word entry from the
     atoms, the emission, frozen past each utterance's end.
 
-One frame is `_frame`, over a batch written out as a leading [B] axis,
-with the frame index a device tensor and no host synchronisation
-inside it.  On the CPU `pass1_batch` calls it once a frame.  On a CUDA
-card it runs it as the reference's jitted `lax.scan` runs its step:
+Each frame's word-end stage (the top 2M exits, their 2-gram probes,
+the re-rank to M and the cross-word winner) is one call of
+ops/word_end_kernel.py `word_end`, a hand-written kernel on a CUDA card
+(`word_end_plain` on the CPU).  One frame is `_frame`, over a batch
+written out as a leading [B] axis, with the frame index a device tensor
+and no host synchronisation inside it.  On the CPU `pass1_batch` calls
+it once a frame.  On a CUDA card it runs it as the reference's jitted
+`lax.scan` runs its step:
 the step is captured once as a CUDA graph (`GraphCache`, kept on the
 network) and replayed once a frame, advancing its own frame index, so
 the host makes one graph launch a frame.  A stream's chunk
@@ -31,10 +35,10 @@ score envelope.  Each reduction the reference makes inside `jax.vmap` is
 per utterance here (over a row's own axis, never the batch).
 
 Tie order is part of the result (trellis slot order fixes `prev` ids):
-every top-k here is a stable descending sort and every winner a first
-maximum, so ties go to the lowest index as `lax.top_k` and `argmax`
-give them, and payloads are selected by index gathers, not by one-hot
-products.
+every top-k here and in the word-end stage is a stable descending sort
+and every winner a first maximum, so ties go to the lowest index as
+`lax.top_k` and `argmax` give them, and payloads are selected by index
+gathers, not by one-hot products.
 """
 
 from __future__ import annotations
@@ -48,9 +52,11 @@ import numpy as np
 import torch
 
 from julius_tpu_torch.ops import pass1_kernel as pk
+from julius_tpu_torch.ops import word_end_kernel as we
+from julius_tpu_torch.ops.word_end_kernel import (TRELLIS_DTYPES, Trellis,
+                                                  topk_stable)
 from julius_tpu_torch.search.network import DecodeNetwork
-from julius_tpu_torch.search.ngram_device import (DeviceNgram, bigram_score,
-                                                  bigram_score_fast)
+from julius_tpu_torch.search.ngram_device import DeviceNgram, bigram_score
 from julius_tpu_torch.utils.logadd import LOG_ZERO
 
 NEG_HALF = LOG_ZERO / 2
@@ -270,18 +276,6 @@ class Pass1Config:
     expand_k: int = 8
 
 
-class Trellis(NamedTuple):
-    """Word-end records (reference TRELLIS_ATOM, trellis.h:28-41);
-    [B, T, M] from `pass1_batch`, [T, M] per utterance."""
-
-    word: torch.Tensor    # int32 vocab word id (-1 invalid)
-    score: torch.Tensor   # f32 accumulated Viterbi score at word end
-    lm: torch.Tensor      # f32 LM score of this word (weighted, + penalty)
-    prev: torch.Tensor    # int32 flattened atom id of predecessor word end
-    begin: torch.Tensor   # int32 first frame of the word
-    ectx: torch.Tensor    # int32 effective LM context for what follows
-
-
 def fused_ok(dev: DeviceNetwork, cfg: Pass1Config) -> bool:
     """True for the configurations the beam-update kernel serves (the
     reference's `_fused_ok` `supported` expression, pass1.py:581-583)."""
@@ -313,94 +307,21 @@ def kernel_tables(dev: DeviceNetwork):
             padded(dev.score_idx, 0))
 
 
-def topk_stable(x: torch.Tensor, k: int):
-    """Top-k along the last axis, ties to the lowest index (lax.top_k's
-    order; torch.topk promises none on CUDA)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
-def _word_end_candidates(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
-                         cfg: Pass1Config, score: torch.Tensor,
-                         ctx: torch.Tensor, prev: torch.Tensor) -> Trellis:
-    """Corrected word-end records [B, M] from the current [B, N] node
-    state: the top 2M exits get the exact 2-gram swap for their entry
-    unigram (reference beam.c beam_inter_word), then the best M stay."""
-    M = cfg.n_atoms
-    sc_all = score[:, dev.exit_nodes] + dev.exit_nlp           # [B, Ex]
-    Ex = sc_all.shape[-1]
-    k = min(2 * M, Ex)
-    sc, sel = topk_stable(sc_all, k)                          # [B, k]
-    ctx_all = ctx[:, dev.exit_nodes]
-    prev_k = prev[:, dev.exit_nodes].gather(1, sel)
-    ctx_k = ctx_all.gather(1, sel)
-    # transparent words pass their inherited LM context onward
-    ectx_k = torch.where(dev.exit_transp, ctx_all, dev.exit_w).gather(1, sel)
-    w_k = dev.exit_w[sel]
-    wlm_k = dev.exit_wlm[sel]
-    uni_k = dev.exit_uni[sel]
-    if cfg.use_lm and ngram is not None:
-        vrow = dev.ctx_info[ctx_k.clamp(min=0).long()]          # [B, k, 2]
-        v_lm = torch.where(ctx_k >= 0, vrow[..., 0].to(torch.int32), -1)
-        bi = bigram_score_fast(ngram, v_lm, vrow[..., 1], wlm_k, uni_k)
-        if cfg.factoring >= 2:
-            # the entry already applied the exact 2-gram: no swap
-            delta = torch.zeros_like(sc)
-        else:
-            delta = torch.where(wlm_k >= 0, cfg.lm_weight * (bi - uni_k),
-                                0.0)
-        lm_sc = torch.where(wlm_k >= 0, cfg.lm_weight * bi + cfg.lm_penalty,
-                            cfg.lm_penalty)
-    else:
-        delta = torch.zeros_like(sc)
-        lm_sc = torch.full_like(sc, cfg.lm_penalty)
-    corrected = torch.where(sc > NEG_HALF, sc + delta, LOG_ZERO)
-    m_eff = min(M, k)
-    csc, order = topk_stable(corrected, m_eff)                # [B, m]
-    prev_sel = prev_k.gather(1, order)
-    atoms = Trellis(
-        word=torch.where(csc > NEG_HALF, w_k.gather(1, order), -1),
-        score=csc,
-        lm=lm_sc.gather(1, order),
-        prev=prev_sel,
-        begin=torch.where(prev_sel >= 0,
-                          torch.div(prev_sel, M, rounding_mode="floor") + 1,
-                          0).to(torch.int32),
-        ectx=ectx_k.gather(1, order),
-    )
-    if m_eff < M:
-        pad = M - m_eff
-        fills = Trellis(word=-1, score=LOG_ZERO, lm=0.0, prev=-1, begin=0,
-                        ectx=-1)
-        atoms = Trellis(*[
-            torch.nn.functional.pad(a, (0, pad), value=f)
-            for a, f in zip(atoms, fills)])
-    return atoms
-
-
-def _scalar_entry_batched(atoms: Trellis, t, M: int):
-    """Batched single-best corrected word-end (the factoring-1
-    cross-word winner): [B] score, LM context, trellis pointer.  Ties
-    go to the lowest slot, as argmax gives them.  t, the step (an int or
-    a [1] int32 tensor), places the pointer in frame t-1's atoms."""
-    valid = atoms.word >= 0
-    sc = torch.where(valid, atoms.score, LOG_ZERO)
-    slots = torch.arange(sc.shape[-1], device=sc.device)
-    best = torch.where(sc == sc.max(dim=-1, keepdim=True).values,
-                       slots, sc.shape[-1]).min(dim=-1).values     # [B]
-    bidx = best[:, None]
-    bvalid = valid.gather(1, bidx)[:, 0]
-    ent = torch.where(bvalid, sc.gather(1, bidx)[:, 0], LOG_ZERO)
-    ectx = torch.where(bvalid, atoms.ectx.gather(1, bidx)[:, 0], -1)
-    eprev = ((t - 1) * M + best).to(torch.int32)
-    return ent, ectx.to(torch.int32), eprev
+def _scalar_winner(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
+                   cfg: Pass1Config) -> bool:
+    """True where the cross-word winner is the single best word end
+    (`_entry_scores`' last branch: N-gram mode under unigram factoring,
+    or no LM, without a DFA), which the word-end stage then gives."""
+    return (cfg.crossword and not (cfg.use_dfa and dev.cpair is not None)
+            and not (cfg.use_lm and cfg.factoring >= 2 and ngram is not None))
 
 
 def _entry_scores(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
-                  cfg: Pass1Config, atoms: Trellis, t):
+                  cfg: Pass1Config, atoms: Trellis, t, entry=None):
     """Cross-word expansion: each word-head node's entry score, LM
     context and trellis pointer ([B, N] each, or [B, 1] when the winner
-    is the same for every word).
+    is the same for every word).  `entry` is the word-end stage's [B]
+    winner where it gave one (`_scalar_winner`).
 
     N-gram mode under unigram factoring (or no LM): the single best
     corrected word end wins every entry.  DFA mode: one winner per
@@ -437,7 +358,9 @@ def _entry_scores(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
         return (sc.amax(dim=1)[:, wq],
                 aw.gather(1, k_best).clamp(min=-1),
                 ((t - 1) * M + k_best).to(torch.int32))
-    ent, ectx, eprev = _scalar_entry_batched(atoms, t, M)
+    if entry is None:
+        entry = we.scalar_entry_batched(atoms, t, M)
+    ent, ectx, eprev = entry
     return ent[:, None], ectx[:, None], eprev[:, None]
 
 
@@ -470,12 +393,13 @@ def pass1_init(dev: DeviceNetwork, cfg: Pass1Config,
 def pass1_step(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
                cfg: Pass1Config, score: torch.Tensor, ctx: torch.Tensor,
                prev: torch.Tensor, atoms: Trellis, out_row: torch.Tensor,
-               frame_valid: torch.Tensor, t):
+               frame_valid: torch.Tensor, t, entry=None):
     """One frame of the reference's unfused `pass1_step` (pass1.py:458)
     over the batch: [B, N] state, the [B, M] atoms of frame t-1, the
     [B, R] outprob rows of frame t, [B] frame_valid -> the new state,
     frozen where frame_valid is False.  t is an int or a [1] int32
-    tensor."""
+    tensor; `entry` the atoms' [B] winner where the word-end stage gave
+    it."""
     if dev.local_k >= 0:
         # K+1 shifted adds; ties keep the smallest span k
         cands = [_shift(score, k, LOG_ZERO) + dev.loc_lp[k]
@@ -500,7 +424,7 @@ def pass1_step(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
         nctx, nprev = ctx.gather(1, src), prev.gather(1, src)
 
     if cfg.crossword:
-        ent, ectx, eprev = _entry_scores(dev, ngram, cfg, atoms, t)
+        ent, ectx, eprev = _entry_scores(dev, ngram, cfg, atoms, t, entry)
         wq = dev.entry_word.clamp(min=0).long()
         cand_e = torch.where(dev.entry_word >= 0,
                              ent + dev.entry_lp + dev.word_entry_lm[wq],
@@ -544,18 +468,18 @@ def _frame(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
     holds the T frames and a zero frame after them).  `tabs` are the
     kernel's `kernel_tables`, or None for the unfused step.  Returns
     the new (score, ctx, prev)."""
-    M = cfg.n_atoms
     row = rows.index_select(1, t)[:, 0]                           # [B, R]
     frame_valid = t < n_frames                                     # [B]
-    atoms = _word_end_candidates(dev, ngram, cfg, score, ctx, prev)
+    winner = tabs is not None or _scalar_winner(dev, ngram, cfg)
+    atoms, entry = we.word_end(dev, ngram, cfg, score, ctx, prev,
+                               t if winner else None)
     if tabs is not None:
         loc, etot, sidx = tabs
-        ent_s, ectx_s, eprev_s = _scalar_entry_batched(atoms, t, M)
-        new = pk.fused_step(score, ctx, prev, loc, etot, row, sidx,
-                            ent_s, ectx_s, eprev_s, frame_valid)
+        new = pk.fused_step(score, ctx, prev, loc, etot, row, sidx, *entry,
+                            frame_valid)
     else:
         new = pass1_step(dev, ngram, cfg, score, ctx, prev, atoms, row,
-                         frame_valid, t)
+                         frame_valid, t, entry)
     # atoms describe frame t-1, valid while t-1 < n_frames
     atom_ok = ((t - 1) < n_frames)[:, None] & (atoms.word >= 0)
     atoms = atoms._replace(
@@ -565,11 +489,6 @@ def _frame(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
     for buf, a in zip(trellis, atoms):
         buf.index_copy_(1, at, a[:, None])
     return new
-
-
-#: Trellis field dtypes, in field order
-TRELLIS_DTYPES = (torch.int32, torch.float32, torch.float32, torch.int32,
-                  torch.int32, torch.int32)
 
 
 class _Loop:
@@ -663,17 +582,40 @@ def _capture(cache: GraphCache, device, step) -> torch.cuda.CUDAGraph:
     return graph
 
 
+#: the kernels' wrappers a captured step calls, whose launches a replay
+#: counts
+KERNELS = (pk, we)
+
+
 class _Graph(NamedTuple):
     """A captured frame step: the graph, the fixed tensors it reads and
-    writes, the kernel launches one replay makes, and the tables it
-    reads that the network does not hold (the kernel's padded tables and
-    the N-gram, whose id is part of the key)."""
+    writes, the launches one replay makes of each of `KERNELS`, and the
+    tables it reads that the network does not hold (the kernel's padded
+    tables and the N-gram, whose id is part of the key)."""
 
     graph: torch.cuda.CUDAGraph
-    loop: _Loop
-    launches: int
+    loop: object
+    launches: tuple
     tabs: Optional[tuple]
     ngram: Optional[DeviceNgram]
+
+    def replay(self, n: int) -> None:
+        """Replay the graph n times and count its launches."""
+        for _ in range(n):
+            self.graph.replay()
+        for m, k in zip(KERNELS, self.launches):
+            m.LAUNCHES += k * n
+
+
+def _capture_graph(cache: GraphCache, device, loop, step, tabs,
+                   ngram) -> _Graph:
+    """`_capture` of `step` over `loop`'s fixed tensors, with the
+    launches the captured step holds."""
+    before = [m.CAPTURED for m in KERNELS]
+    graph = _capture(cache, device, step)
+    return _Graph(graph, loop, tuple(m.CAPTURED - b
+                                     for m, b in zip(KERNELS, before)),
+                  tabs, ngram)
 
 
 def _graphed(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
@@ -695,20 +637,16 @@ def _graphed(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
             t0 = time.perf_counter()
             loop = _Loop(B, Np, R, cap, M, device)
             loop.load(score0, out_ext, n_frames)
-            before = pk.CAPTURED
-            graph = _capture(cache, device,
-                             lambda: loop.step(dev, ngram, cfg, tabs))
-            entry = cache.entries[key] = _Graph(
-                graph, loop, pk.CAPTURED - before, tabs, ngram)
+            entry = cache.entries[key] = _capture_graph(
+                cache, device, loop, lambda: loop.step(dev, ngram, cfg, tabs),
+                tabs, ngram)
             cache.captures += 1
             cache.capture_s += time.perf_counter() - t0
             replays = T - 1
         else:
             entry.loop.load(score0, out_ext, n_frames)
             replays = T
-        for _ in range(replays):
-            entry.graph.replay()
-        pk.LAUNCHES += entry.launches * replays
+        entry.replay(replays)
         return Trellis(*[a[:, :T].clone() for a in entry.loop.trellis])
 
 
@@ -796,13 +734,14 @@ class _StreamLoop:
         masked by the row's validity (as there), and the state steps
         through frame t + 1 on outprob row i, frozen from row n_valid
         on, t included."""
-        atoms = _word_end_candidates(dev, ngram, cfg, self.score, self.ctx,
-                                     self.prev)
         valid = self.i < self.n_valid                               # [1]
         t = self.t + 1
+        atoms, entry = we.word_end(
+            dev, ngram, cfg, self.score, self.ctx, self.prev,
+            t if _scalar_winner(dev, ngram, cfg) else None)
         row = self.rows.index_select(0, self.i)                     # [1, R]
         new = pass1_step(dev, ngram, cfg, self.score, self.ctx, self.prev,
-                         atoms, row, valid, t)
+                         atoms, row, valid, t, entry)
         at = self.i.long()
         for buf, a in zip(self.atoms, atoms):
             buf.index_copy_(0, at, a)
@@ -854,14 +793,13 @@ def _stream_graphed(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
             t0 = time.perf_counter()
             loop = _StreamLoop(N, R, M, cap, device)
             loop.load(state, out_chunk, n_valid)
-            graph = _capture(cache, device,
-                             lambda: loop.step(dev, ngram, cfg))
-            entry = cache.entries[key] = _Graph(graph, loop, 0, None, ngram)
+            entry = cache.entries[key] = _capture_graph(
+                cache, device, loop, lambda: loop.step(dev, ngram, cfg),
+                None, ngram)
             cache.captures += 1
             cache.capture_s += time.perf_counter() - t0
         entry.loop.load(state, out_chunk, n_valid)
-        for _ in range(C):
-            entry.graph.replay()
+        entry.replay(C)
         return entry.loop.result(C)
 
 
@@ -893,8 +831,8 @@ def pass1_stream_finalize(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
                           cfg: Pass1Config, state: Pass1State) -> Trellis:
     """The [M] word ends at the final frame of a finished stream segment
     (the decode_end flush, pass1.c:457)."""
-    atoms = _word_end_candidates(dev, ngram, cfg, state.score, state.ctx,
-                                 state.prev)
+    atoms, _ = we.word_end(dev, ngram, cfg, state.score, state.ctx,
+                           state.prev)
     return Trellis(*[a[0] for a in atoms])
 
 

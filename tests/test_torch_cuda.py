@@ -24,8 +24,11 @@ bucket of chain sizes, one replay a frame, captures that meet a host
 synchronisation), the sharded pass 1's frame step captured likewise
 (one graph on a mesh that repeats the card, against its eager oracle
 and the CPU; two graphs a card, the gather between them, on two
-cards; a capture that meets a host synchronisation), and a decode on a
-second card from a thread whose current card is the first.
+cards; a capture that meets a host synchronisation), a decode on a
+second card from a thread whose current card is the first, and pass 1's
+word-end stage (csrc/word_end.cu) bit-equal to its plain version at the
+flagship's and the 20k-word configuration's widths, on rows of ties,
+with narrow and wide 2-gram keys, at B = 1 and through whole decodes.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference package, so it also runs where
@@ -36,6 +39,7 @@ JAX is not installed:
 
 import dataclasses
 import math
+import types
 
 import numpy as np
 import pytest
@@ -43,12 +47,14 @@ import torch
 
 from julius_tpu_torch.ops import pass1_kernel as tpk
 from julius_tpu_torch.ops import scan_kernel as tsk
+from julius_tpu_torch.ops import word_end_kernel as twe
 from julius_tpu_torch.search import pass1 as tp1
 from julius_tpu_torch.search import pass2 as tp2
 from julius_tpu_torch.search import pass2_device as tp2d
 from julius_tpu_torch.tools import synth
 
-from torch_fixtures import assert_same_step, make_step_inputs, run_step
+from torch_fixtures import (LOG_ZERO, assert_same_step, make_step_inputs,
+                            make_word_end_inputs, run_step, word_end_args)
 
 pytestmark = pytest.mark.cuda
 
@@ -198,6 +204,138 @@ def test_scan_kernel_rejects_bad_arguments(cuda):
     wide = make_scan_inputs(0, 2, 10, 1025, 2)
     with pytest.raises(ValueError, match="1025 nodes"):
         tsk.scan_core_win(*[torch.from_numpy(a).to(cuda) for a in wide])
+
+
+#: name -> (make_word_end_inputs arguments, Pass1Config fields); the
+#: first two are the flagship's (B = 16, 5000 exits, M = 32) and the
+#: 20k-word configuration's (B = 32, 20,000 exits, M = 128) widths
+WORD_END_CASES = {
+    "flagship": (dict(B=16, N=74968, Ex=5000, M=32, V=600, n_lm=400), {}),
+    "lvcsr": (dict(B=32, N=299720, Ex=20000, M=128, V=2000, n_lm=400), {}),
+    "lvcsr_wide": (dict(B=32, N=299720, Ex=20000, M=128, V=2000, n_lm=400,
+                        wide=True), {}),
+    "lvcsr_b1": (dict(B=1, N=299720, Ex=20000, M=128, V=2000, n_lm=400), {}),
+    "flagship_b1": (dict(B=1, N=74968, Ex=5000, M=32, V=600, n_lm=400), {}),
+    "ties": (dict(B=4, N=3000, Ex=700, M=32), {}),
+    "ties_wide": (dict(B=4, N=3000, Ex=700, M=32, wide=True), {}),
+    "factoring2": (dict(B=4, N=3000, Ex=700, M=32), dict(factoring=2)),
+    "no_lm": (dict(B=4, N=3000, Ex=700, M=32, lm=False),
+              dict(use_lm=False, lm_penalty=-2.5)),
+    "weights": (dict(B=3, N=2000, Ex=600, M=24),
+                dict(lm_weight=6.7, lm_penalty=-3.25)),
+    "ex_below_2m": (dict(B=3, N=400, Ex=40, M=32), {}),
+    "ex_below_m": (dict(B=2, N=300, Ex=20, M=32), {}),
+    "m1": (dict(B=2, N=500, Ex=100, M=1, straddle=False), {}),
+    "wide_row": (dict(B=2, N=120000, Ex=45000, M=128, V=2000, n_lm=400),
+                 {}),
+}
+
+
+def bits_equal(a, b) -> bool:
+    """Equal dtypes and shapes, and floats equal bit for bit."""
+    if a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", list(WORD_END_CASES))
+def test_word_end_kernel_matches_plain(cuda, case):
+    """The kernel against its plain version on the card, bit for bit,
+    with and without the winner, and against the CPU path; one launch a
+    call.  `wide_row` keeps its keys in global scratch."""
+    shape, cfg_kw = WORD_END_CASES[case]
+    d = make_word_end_inputs(len(case), **shape)
+    cfg = tp1.Pass1Config(n_atoms=shape["M"], **cfg_kw)
+    dev, ng, score, ctx, prev = word_end_args(d, cuda)
+    t = torch.tensor([9], dtype=torch.int32, device=cuda)
+    before = twe.LAUNCHES
+    got, got_e = twe.word_end(dev, ng, cfg, score, ctx, prev, t)
+    torch.cuda.synchronize()
+    assert twe.LAUNCHES == before + 1
+    want, want_e = twe.word_end_plain(dev, ng, cfg, score, ctx, prev, t)
+    for name, a, b in zip(tp1.Trellis._fields, got, want):
+        assert bits_equal(a, b), name
+    assert all(bits_equal(a, b) for a, b in zip(got_e, want_e))
+    alone, none = twe.word_end(dev, ng, cfg, score, ctx, prev)
+    assert none is None and all(bits_equal(a, b) for a, b in zip(alone, got))
+    cdev, cng, cs, cc, cp = word_end_args(d)
+    on_cpu, cpu_e = twe.word_end_plain(cdev, cng, cfg, cs, cc, cp,
+                                       torch.tensor([9], dtype=torch.int32))
+    for a, b in zip((*got, *got_e), (*on_cpu, *cpu_e)):
+        if a.dtype == torch.float32:
+            assert torch.allclose(a.cpu(), b, atol=1e-5, rtol=0)
+        else:
+            assert torch.equal(a.cpu(), b)
+    assert (got.word >= 0).sum() >= min(shape["Ex"], shape["M"])
+
+
+def test_word_end_kernel_global_keys_and_strided_rows(cuda, monkeypatch):
+    """Keys in global scratch instead of shared memory, and a state that
+    is a view of wider rows (as pass 1 pads its node axis): equal to the
+    plain version; the library's shared-memory size is the wrapper's."""
+    shape = WORD_END_CASES["lvcsr"][0]
+    d = make_word_end_inputs(5, **shape)
+    cfg = tp1.Pass1Config(n_atoms=shape["M"])
+    dev, ng, score, ctx, prev = word_end_args(d, cuda)
+    want = twe.word_end_plain(dev, ng, cfg, score, ctx, prev)[0]
+    monkeypatch.setattr(twe, "SMEM_KEYS_MAX", 0)
+    got = twe.word_end(dev, ng, cfg, score, ctx, prev)[0]
+    assert all(bits_equal(a, b) for a, b in zip(got, want))
+    monkeypatch.undo()
+    pad = [torch.nn.functional.pad(x, (0, 8), value=v)
+           for x, v in ((score, LOG_ZERO), (ctx, -1), (prev, -1))]
+    got = twe.word_end(dev, ng, cfg, *[x[:, :-8] for x in pad])[0]
+    assert all(bits_equal(a, b) for a, b in zip(got, want))
+    lib = twe.build()
+    for Ex, M, shared in ((5000, 32, 1), (20000, 128, 1), (45000, 128, 0),
+                          (20, 32, 1), (100, 1, 1)):
+        assert lib.word_end_smem_bytes(Ex, min(2 * M, Ex), shared) == \
+            twe.smem_bytes(Ex, M, bool(shared))
+
+
+def test_word_end_kernel_rejects_bad_arguments(cuda):
+    d = make_word_end_inputs(2, B=2, N=600, Ex=100, M=8)
+    dev, ng, score, ctx, prev = word_end_args(d, cuda)
+    cfg = tp1.Pass1Config(n_atoms=8)
+    with pytest.raises(TypeError, match="ctx"):
+        twe.word_end(dev, ng, cfg, score, ctx.long(), prev)
+    with pytest.raises(ValueError, match="t on cpu"):
+        twe.word_end(dev, ng, cfg, score, ctx, prev,
+                     torch.tensor([3], dtype=torch.int32))
+    no_info = types.SimpleNamespace(**dict(vars(dev), ctx_info=None))
+    with pytest.raises(ValueError, match="ctx_info"):
+        twe.word_end(no_info, ng, cfg, score, ctx, prev)
+    # 2M = 16,384 candidates outgrow a block's shared memory
+    d = make_word_end_inputs(2, B=1, N=30000, Ex=20000, M=8)
+    dev, ng, score, ctx, prev = word_end_args(d, cuda)
+    with pytest.raises(ValueError, match="M = 8192"):
+        twe.word_end(dev, ng, tp1.Pass1Config(n_atoms=8192), score, ctx,
+                     prev)
+
+
+def test_pass1_word_end_kernel_path_matches_plain_path(engines, monkeypatch):
+    """The engine's graphed pass 1, the word-end kernel in it, against
+    the eager loop with the word-end stage's plain version in it, on the
+    kernel path and the unfused step: bit-equal trellises, one word-end
+    launch a frame."""
+    eng, _, feats, lens = engines
+    out = eng._outprob(torch.from_numpy(feats).cuda())
+    T = feats.shape[1]
+    for use_kernel in (True, False):
+        before = twe.LAUNCHES
+        got = tp1.pass1_batch(eng.dev_net, eng.ngram_dev, eng.p1_cfg, out,
+                              torch.from_numpy(lens), use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        assert twe.LAUNCHES == before + T
+        with monkeypatch.context() as m:
+            m.setattr(twe, "word_end", twe.word_end_plain)
+            want = tp1.pass1_batch(eng.dev_net, eng.ngram_dev, eng.p1_cfg,
+                                   out, torch.from_numpy(lens),
+                                   use_kernel=use_kernel, eager=True)
+        for name, a, b in zip(tp1.Trellis._fields, got, want):
+            assert bits_equal(a, b), name
 
 
 @pytest.fixture(scope="module")
@@ -1259,17 +1397,21 @@ def assert_same_trellis(a, b):
 def test_pass1_graph_equals_eager_oracle(graph_cases, branch):
     """The graphed trellis is bit-equal to the eager loop's; a second
     batch of other lengths and values replays the same graph and equals
-    its own eager loop; the kernel launches, counted on replays, are one
-    a frame on the kernel path and none elsewhere."""
+    its own eager loop; the beam-update kernel's launches, counted on
+    replays, are one a frame on the kernel path and none elsewhere, the
+    word-end kernel's one a frame on every branch."""
     case = graph_cases[branch]
     net, _, cfg, use_kernel, out, lens = case
     T = out.shape[1]
     fused = use_kernel and tp1.fused_ok(net, cfg)
     assert fused == (branch == "fused")
+    w0 = twe.LAUNCHES
     got, n = graph_run(case, out, lens)
+    w_graphed = twe.LAUNCHES - w0
     want, n_eager = graph_run(case, out, lens, eager=True)
     assert_same_trellis(got, want)
     assert n == n_eager == (T if fused else 0)
+    assert w_graphed == twe.LAUNCHES - w0 - w_graphed == T
     assert (want.word >= 0).sum() > 20
     captures = net.graphs.captures
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -1465,7 +1607,7 @@ def test_stream_and_align_captures_that_sync_raise(engines, monkeypatch):
                                pseudo=eng.net.pseudo)
     cache = tp1.GraphCache()
     vit = (*talign.chain_tensors(chain, "cuda"), out, int(lens[0]))
-    real_ends, real_step = tp1._word_end_candidates, talign._Viterbi.step
+    real_ends, real_step = twe.word_end, talign._Viterbi.step
 
     def syncing_ends(d, ng, cfg, score, *a):
         float(score.max())                  # a host synchronisation
@@ -1475,7 +1617,7 @@ def test_stream_and_align_captures_that_sync_raise(engines, monkeypatch):
         float(self.score.max())
         return real_step(self)
 
-    monkeypatch.setattr(tp1, "_word_end_candidates", syncing_ends)
+    monkeypatch.setattr(twe, "word_end", syncing_ends)
     monkeypatch.setattr(talign._Viterbi, "step", syncing_step)
     monkeypatch.setattr(tp1, "_stream_eager", None)
     monkeypatch.setattr(talign, "_eager", None)
@@ -1534,13 +1676,13 @@ def test_pass1_capture_that_syncs_raises(graph_cases, monkeypatch):
     case = graph_cases["fused"]
     net, out, lens = case[0], case[4], case[5]
     dev = dataclasses.replace(net)
-    real = tp1._word_end_candidates
+    real = twe.word_end
 
     def syncing(d, ng, cfg, score, *a):
         float(score.max())                  # a host synchronisation
         return real(d, ng, cfg, score, *a)
 
-    monkeypatch.setattr(tp1, "_word_end_candidates", syncing)
+    monkeypatch.setattr(twe, "word_end", syncing)
     with pytest.raises(RuntimeError):
         graph_run(case, out, lens, dev=dev)
     assert not dev.graphs.entries and dev.graphs.captures == 0
