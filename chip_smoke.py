@@ -6,8 +6,9 @@
 Phases, one line each, in order (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel of the main path from this checkout,
-     one nvcc process per source, all at once; ptxas must report no stack
-     and no spills for any kernel;
+     and word_end's phase-stamp build (-DWORD_END_PHASES), one nvcc
+     process per library, all at once; ptxas must report no stack and
+     no spills for any kernel;
   3. kernel: each kernel against its plain PyTorch version on the card at
      the main path's shapes (scores within atol 1e-5, integers equal),
      then timed with CUDA events (median of 60 launches after warm-up)
@@ -20,7 +21,9 @@ Phases, one line each, in order (any failure exits non-zero):
      own states instead: every path's word_end_check line holds each
      recorded shape's kept states bit-equal to word_end_plain, and its
      kernel_path line times it there ((a) and (c) as pass1_step's,
-     torch.topk of the same exit scores beside it, the byte bound);
+     torch.topk of the same exit scores beside it, the byte bound, the
+     cluster plan (C, threads) each shape took; on the slice and lvcsr
+     also each shape's phase split from the phase-stamp build);
   4. slice: the full-width flagship engine (5000-word 2-gram, 2004
      senones, 5 x 2048 sigmoid DNN) with the reference's search
      configuration decodes 16 generative utterances through
@@ -724,7 +727,7 @@ def lvcsr_phase(card):
         "scan_win": dict(launches=scan_launches, max_abs_err=scan_err,
                          **scan_t),
         "word_end": word_end_path("lvcsr", states["word_end"], we_launches,
-                                  card)}) + rc_entries
+                                  card, phases=True)}) + rc_entries
 
 
 def waveform_phase(eng, card, step_t):
@@ -1384,7 +1387,7 @@ def word_end_ops(B, Ex, k):
     return B * (Ex + 14 * k)
 
 
-def word_end_path(label, recorded, launches, card):
+def word_end_path(label, recorded, launches, card, phases=False):
     """The word-end kernel on one path, at the states the path gave it
     (`recorded_word_end`: each shape's call count and kept arguments).
     Each kept call is held bit-equal to word_end_plain (a word_end_check
@@ -1392,10 +1395,14 @@ def word_end_path(label, recorded, launches, card):
     median of 60 launches, (c) cold_ms, of 30 launches each after an
     l2_flush, the plain version, and torch.topk on the same [B, Ex] exit
     scores for the first selection alone (topk_ms: no one PyTorch call
-    computes the whole stage, so library_ms is null), beside the bound.
-    Raises unless the recorded calls equal the path's launches.  ->
-    entry fields, the times and bound launch-weighted over the shapes."""
+    computes the whole stage, so library_ms is null), beside the bound,
+    with the cluster plan (C, threads) the wrapper took there, and with
+    `phases` the phase split of 40 launches of the phase-stamp build on
+    the same call (tools/time_word_end.py `phase_split`).  Raises unless
+    the recorded calls equal the path's launches.  -> entry fields, the
+    times and bound launch-weighted over the shapes."""
     from julius_tpu_torch.ops import word_end_kernel as we
+    from julius_tpu_torch.tools import time_word_end as twe
     from julius_tpu_torch.utils.cuda_timing import l2_flush, time_ms
 
     n = sum(count for count, _ in recorded.values())
@@ -1427,8 +1434,11 @@ def word_end_path(label, recorded, launches, card):
         bytes_ms = word_end_bytes(B, Ex, k, M, lm, winner) \
             / HBM_BYTES_PER_S * 1e3
         ops_ms = word_end_ops(B, Ex, k) / F32_OPS_PER_S * 1e3
+        if phases:
+            t["phases"] = twe.phase_split(twe.phase_lib(), a)
         shapes.append(dict(shape=list(key), launches=count,
-                           states_checked=len(kept), **t,
+                           states_checked=len(kept),
+                           plan=list(we.cluster_plan(B, Ex)), **t,
                            bound_ms=max(bytes_ms, ops_ms),
                            bound_by="bytes" if bytes_ms >= ops_ms
                            else "operations"))
@@ -4058,13 +4068,19 @@ def main() -> int:
     phase("device", name=name, nvidia_smi=card, torch=torch.__version__,
           cuda=torch.version.cuda)
 
+    from julius_tpu_torch.tools.time_word_end import PHASES_FLAG
+
     t0 = time.perf_counter()
-    cuda_build.compile_all([pk.SOURCE, sk.SOURCE, we.SOURCE])
+    # the three kernels and word_end's phase-stamp build, one nvcc each
+    cuda_build.compile_all([pk.SOURCE, sk.SOURCE, we.SOURCE,
+                            (we.SOURCE, (PHASES_FLAG,))])
     for m in (pk, sk, we):
         m.build()
     build_s = time.perf_counter() - t0
     ptxas = {m.SOURCE.name: cuda_build.ptxas_report(m.SOURCE)
              for m in (pk, sk, we)}
+    ptxas[f"{we.SOURCE.name} {PHASES_FLAG}"] = cuda_build.ptxas_report(
+        we.SOURCE, (PHASES_FLAG,))
     phase("build", seconds=round(build_s, 3),
           kernels=["pass1_step", "scan_win", "word_end"], ptxas=ptxas)
     for source, report in ptxas.items():
@@ -4219,7 +4235,7 @@ def main() -> int:
                                  got=tr_kernel, card=card,
                                  record=lambda: recorded_word_end(states))
     slice_word_end = word_end_path("slice", states.pop("word_end"),
-                                   we_launches, card)
+                                   we_launches, card, phases=True)
     slice_astar = astar_vs_eager("slice", staged_astar, card)
     stop_every_sweep("slice", staged_astar["calls"][0], card)
     astar_profile("slice", staged_astar["calls"][0], card)

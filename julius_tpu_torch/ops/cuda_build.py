@@ -4,7 +4,9 @@ Each source under `julius_tpu_torch/csrc/` compiles on its own into a
 shared library with a plain C interface, for `sm_90a`, into the
 git-ignored `julius_tpu_torch/_build/`, named by a hash of the source
 and the flags, so a changed source builds anew and an unchanged one is
-loaded as it is.  The ptxas report (registers, spills) lands beside each
+loaded as it is.  A source may be built a second time with extra flags
+(a measurement build, e.g. `-DWORD_END_PHASES`) into a library of its
+own.  The ptxas report (registers, spills) lands beside each
 library as `.log`.  `compile_all` starts one nvcc per missing library,
 all at once, and waits for them together.  A launch through such a
 library runs on the CUDA runtime's current device, so the wrappers make
@@ -20,7 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple, Union
 
 import torch
 
@@ -30,7 +32,9 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_loaded: Dict[Path, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[Path, Tuple[str, ...]], ctypes.CDLL] = {}
+#: a source, or a source and the extra nvcc flags of its build
+Job = Union[Path, Tuple[Path, Sequence[str]]]
 
 
 def _nvcc() -> str:
@@ -44,25 +48,28 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(source: Path) -> Path:
+def library_path(source: Path, extra: Sequence[str] = ()) -> Path:
     """Where `source`'s library lives, keyed by source and flags."""
+    flags = [*NVCC_FLAGS, *extra]
     tag = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                         + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{source.stem}_{tag[:16]}.so"
 
 
-def compile_all(sources: Iterable[Path]) -> None:
-    """Compile every source whose library is missing, one nvcc process
-    each, all started together.  Raises with nvcc's output on failure."""
+def compile_all(jobs_in: Iterable[Job]) -> None:
+    """Compile every source (or (source, extra flags)) whose library is
+    missing, one nvcc process each, all started together.  Raises with
+    nvcc's output on failure."""
     jobs = []
-    for src in sources:
-        so = library_path(src)
+    for job in jobs_in:
+        src, extra = (job, ()) if isinstance(job, Path) else job
+        so = library_path(src, extra)
         if so.exists():
             continue
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((src, so, tmp, proc))
     errors = []
@@ -78,20 +85,22 @@ def compile_all(sources: Iterable[Path]) -> None:
         raise RuntimeError("\n".join(errors))
 
 
-def load(source: Path) -> ctypes.CDLL:
-    """The loaded library of `source`, compiled first if missing."""
-    lib = _loaded.get(source)
+def load(source: Path, extra: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of `source` (built with the `extra` nvcc
+    flags), compiled first if missing."""
+    key = (source, tuple(extra))
+    lib = _loaded.get(key)
     if lib is None:
-        compile_all([source])
-        lib = ctypes.CDLL(str(library_path(source)))
-        _loaded[source] = lib
+        compile_all([(source, tuple(extra))])
+        lib = ctypes.CDLL(str(library_path(source, extra)))
+        _loaded[key] = lib
     return lib
 
 
-def ptxas_report(source: Path) -> str:
+def ptxas_report(source: Path, extra: Sequence[str] = ()) -> str:
     """nvcc's ptxas report for `source`'s library ('' if not built
     here)."""
-    log = library_path(source).with_suffix(".log")
+    log = library_path(source, extra).with_suffix(".log")
     return log.read_text().strip() if log.exists() else ""
 
 

@@ -12,7 +12,8 @@ index also the [B] winner.
 
 `word_end` runs the plain version only for CPU tensors.  For CUDA
 tensors it launches the kernel (csrc/word_end.cu, built with nvcc at
-first use, ops/cuda_build.py) on their card or raises; `LAUNCHES`
+first use, ops/cuda_build.py) on their card or raises, a thread-block
+cluster of C blocks a row as `cluster_plan` picks it; `LAUNCHES`
 counts launches.  Called while its stream captures a CUDA graph (pass
 1's frame step and a stream's chunk row, search/pass1.py), it records
 the launch into the graph instead, counted in `CAPTURED`; whoever
@@ -41,9 +42,14 @@ NEG_HALF = LOG_ZERO / 2
 SOURCE = cuda_build.CSRC / "word_end.cu"
 
 SMEM_MAX = 232448       # shared memory a block may take on an H100
-#: most exits a row whose keys the kernel keeps in shared memory; a
-#: wider row keeps them in a [B, Ex] scratch tensor
-SMEM_KEYS_MAX = 40000
+#: most exits a block whose keys (and their compact list) the kernel
+#: keeps in shared memory; a wider block keeps the keys in a [B, Ex]
+#: scratch tensor
+SMEM_KEYS_MAX = 24000
+#: SMs of an H100 SXM: a launch of B rows takes at most this many blocks
+SMS = 132
+#: fewest exits a block of a cluster walks
+MIN_BLOCK_EXITS = 1024
 
 #: kernel launches made through `word_end` in this process, a launch a
 #: CUDA graph holds counted at each replay of the graph
@@ -180,20 +186,60 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                          ctypes.c_float)
     lib.word_end_launch.argtypes = [
         vp, vp, vp, i64, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32,
-        i32, i32, i32, f32, f32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-        vp, vp]
+        i32, i32, i32, f32, f32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp,
+        vp, vp, vp, vp, vp]
     lib.word_end_launch.restype = i32
-    lib.word_end_smem_bytes.argtypes = [i32, i32, i32]
+    lib.word_end_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
     lib.word_end_smem_bytes.restype = ctypes.c_size_t
+    lib.word_end_max_clusters.argtypes = [i32, i32, i64]
+    lib.word_end_max_clusters.restype = i32
     return lib
 
 
-def smem_bytes(Ex: int, M: int, keys_in_shared: bool) -> int:
-    """Shared memory of one block, as csrc/word_end.cu lays it out: 32
-    bytes for each of k = min(2M, Ex) candidates, 1280 of histogram and
-    block state, and the row's keys, 4 bytes an exit, where they are
-    kept there."""
-    return 32 * min(2 * M, Ex) + 1280 + (4 * Ex if keys_in_shared else 0)
+def cluster_plan(B: int, Ex: int):
+    """(C, threads) of a launch over B rows of Ex exits: the largest
+    cluster size C of 8, 4 and 2 whose B * C blocks fit the card's SMs
+    and whose blocks each walk at least MIN_BLOCK_EXITS exits, with 512
+    threads a block (two can share an SM, so all B clusters run at once:
+    of 1024-thread blocks an H100 runs 15 clusters of 8); else C = 1,
+    one block of 1024 threads a row.  Below MIN_BLOCK_EXITS a block's
+    shorter walk no longer pays for a cluster launch's extra cost
+    (tools/time_word_end.py --plans, PERF.md)."""
+    for C in (8, 4, 2):
+        if B * C <= SMS and Ex >= C * MIN_BLOCK_EXITS:
+            return C, 512
+    return 1, 1024
+
+
+def smem_bytes(Ex: int, M: int, C: int, threads: int,
+               keys_in_shared: bool) -> int:
+    """Shared memory of one block of `threads` threads in a cluster of
+    C, as csrc/word_end.cu lays it out: for each of k = min(2M, Ex)
+    candidates a 32-byte record and an int (rounded to 16 bytes), the
+    local histogram, a receive buffer of C histograms for each of four
+    passes, state and mbarriers, and, where the keys are kept there,
+    the block's nb = ceil(Ex / C) keys and their compact list (nb
+    rounded up to a multiple of the threads), 4 bytes each."""
+    k = min(2 * M, Ex)
+    fixed = 32 * k + (4 * k + 15) // 16 * 16 + 1024 + 4096 * C + 512 + 64
+    nb = -(-Ex // C)
+    return fixed + (4 * (nb + -(-nb // threads) * threads)
+                    if keys_in_shared else 0)
+
+
+#: (card, C, threads, shared bytes) -> clusters the card runs at once
+_CLUSTERS: dict = {}
+
+
+def max_clusters(lib, d: torch.device, C: int, threads: int,
+                 smem: int) -> int:
+    """How many clusters of C blocks (threads and shared bytes each) card
+    `d` runs at once, asked of the runtime once per configuration."""
+    key = (d.index, C, threads, smem)
+    if key not in _CLUSTERS:
+        with cuda_build.on_device(d):
+            _CLUSTERS[key] = lib.word_end_max_clusters(C, threads, smem)
+    return _CLUSTERS[key]
 
 
 def word_end(dev, ngram, cfg, score, ctx, prev, t=None):
@@ -241,11 +287,19 @@ def word_end(dev, ngram, cfg, score, ctx, prev, t=None):
             raise ValueError("ctx_info and bi_rows must be contiguous")
     if t is not None:
         cuda_build.check_arg("t", t, i32, (1,), d)
-    keys_in_shared = Ex <= SMEM_KEYS_MAX
-    if smem_bytes(Ex, M, keys_in_shared) > SMEM_MAX:
+    C, threads = cluster_plan(B, Ex)
+    keys_in_shared = -(-Ex // C) <= SMEM_KEYS_MAX
+    smem = smem_bytes(Ex, M, C, threads, keys_in_shared)
+    if smem > SMEM_MAX:
         raise ValueError(f"word_end takes at most {SMEM_MAX} bytes of "
-                         f"shared memory a row: M = {M} is too large")
+                         f"shared memory a block: M = {M} is too large")
     lib = build()
+    n = max_clusters(lib, d, C, threads, smem)
+    if n < 1:
+        raise RuntimeError(
+            f"word_end: a cluster of {C} blocks of {threads} threads and "
+            f"{smem} bytes of shared memory cannot be scheduled on {d} "
+            f"({'CUDA error ' + str(-n) if n < 0 else 'none fits'})")
     atoms = Trellis(*[torch.empty((B, M), dtype=dt, device=d)
                       for dt in TRELLIS_DTYPES])
     ent = torch.empty(B, dtype=f32, device=d)
@@ -265,7 +319,7 @@ def word_end(dev, ngram, cfg, score, ctx, prev, t=None):
             dev.exit_transp.data_ptr(), ptr(info), ptr(rows), H,
             int(lm_on and ngram.wide), ngram.n_words if lm_on else 0,
             int(lm_on), int(lm_on and cfg.factoring < 2), cfg.lm_weight,
-            cfg.lm_penalty, M, ptr(t), ptr(keys),
+            cfg.lm_penalty, M, C, threads, ptr(t), ptr(keys),
             *[a.data_ptr() for a in atoms], ent.data_ptr(),
             ectx_e.data_ptr(), eprev.data_ptr(),
             torch.cuda.current_stream(d).cuda_stream)

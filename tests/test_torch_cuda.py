@@ -28,7 +28,11 @@ cards; a capture that meets a host synchronisation), a decode on a
 second card from a thread whose current card is the first, and pass 1's
 word-end stage (csrc/word_end.cu) bit-equal to its plain version at the
 flagship's and the 20k-word configuration's widths, on rows of ties,
-with narrow and wide 2-gram keys, at B = 1 and through whole decodes.
+with narrow and wide 2-gram keys, at B = 1 and through whole decodes;
+at every cluster size its plan can pick (ties across block edges, rows
+that are nearly all LOG_ZERO or all one score, fewer exits than
+blocks, keys in global scratch, a captured and replayed graph), and a
+cluster that cannot be scheduled raising.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference package, so it also runs where
@@ -244,7 +248,7 @@ def bits_equal(a, b) -> bool:
 def test_word_end_kernel_matches_plain(cuda, case):
     """The kernel against its plain version on the card, bit for bit,
     with and without the winner, and against the CPU path; one launch a
-    call.  `wide_row` keeps its keys in global scratch."""
+    call, at the wrapper's cluster plan."""
     shape, cfg_kw = WORD_END_CASES[case]
     d = make_word_end_inputs(len(case), **shape)
     cfg = tp1.Pass1Config(n_atoms=shape["M"], **cfg_kw)
@@ -290,9 +294,132 @@ def test_word_end_kernel_global_keys_and_strided_rows(cuda, monkeypatch):
     assert all(bits_equal(a, b) for a, b in zip(got, want))
     lib = twe.build()
     for Ex, M, shared in ((5000, 32, 1), (20000, 128, 1), (45000, 128, 0),
-                          (20, 32, 1), (100, 1, 1)):
-        assert lib.word_end_smem_bytes(Ex, min(2 * M, Ex), shared) == \
-            twe.smem_bytes(Ex, M, bool(shared))
+                          (20, 32, 1), (100, 1, 1), (33, 5, 1)):
+        for C, threads in ((1, 1024), (2, 512), (4, 256), (8, 512)):
+            assert lib.word_end_smem_bytes(Ex, min(2 * M, Ex), C, threads,
+                                           shared) == \
+                twe.smem_bytes(Ex, M, C, threads, bool(shared))
+
+
+def edge_rows(d, C):
+    """Rows 2 and 3 of make_word_end_inputs arrays rewritten so that the
+    k-th key's ties straddle every block edge of a cluster of C: row 2
+    nearly all LOG_ZERO (a few live exits at the ends of each block's
+    range), row 3 every exit at one score but a few above it at block
+    edges."""
+    nodes, nlp = d["exit_nodes"], d["exit_nlp"]
+    Ex = len(nodes)
+    edges = sorted({min(r * Ex // C + o, Ex - 1) for r in range(C)
+                    for o in (-2, -1, 0, 1)} - {-2, -1})
+    d["score"][2, nodes] = LOG_ZERO
+    d["score"][2, nodes[edges]] = -3.0 - nlp[edges]
+    d["score"][3, nodes] = -7.0 - nlp
+    d["score"][3, nodes[edges[::3]]] = -1.0 - nlp[edges[::3]]
+    return d
+
+
+#: (make_word_end_inputs arguments, Pass1Config fields) of the cluster
+#: cases: the paths' widths at B = 16, 32 and 1, ties, wide keys,
+#: factoring 2, no LM, Ex not a multiple of C, and fewer exits than C * 32
+CLUSTER_CASES = {
+    "flagship": (dict(B=16, N=74968, Ex=5000, M=32, V=600, n_lm=400), {}),
+    "lvcsr": (dict(B=32, N=299720, Ex=20000, M=128, V=2000, n_lm=400), {}),
+    "flagship_b1": (dict(B=1, N=74968, Ex=5000, M=32, V=600, n_lm=400), {}),
+    "lvcsr_b1": (dict(B=1, N=299720, Ex=20000, M=128, V=2000, n_lm=400), {}),
+    "edges": (dict(B=4, N=3000, Ex=701, M=32), {}),
+    "edges_wide": (dict(B=4, N=3000, Ex=997, M=24, wide=True), {}),
+    "factoring2": (dict(B=4, N=3000, Ex=700, M=32), dict(factoring=2)),
+    "no_lm": (dict(B=4, N=3000, Ex=700, M=32, lm=False),
+              dict(use_lm=False, lm_penalty=-2.5)),
+    "few_exits": (dict(B=4, N=400, Ex=90, M=32), {}),
+    "tiny": (dict(B=4, N=300, Ex=13, M=4), {}),
+}
+
+
+@pytest.mark.parametrize("C,threads", [(1, 1024), (1, 256), (2, 512),
+                                       (2, 1024), (4, 512), (4, 1024),
+                                       (8, 512), (8, 256)])
+@pytest.mark.parametrize("case", list(CLUSTER_CASES))
+def test_word_end_kernel_at_every_cluster_size(cuda, monkeypatch, case, C,
+                                               threads):
+    """The kernel forced to a cluster of C blocks of `threads` threads a
+    row (the C entry's explicit C) is bit-equal to its plain version,
+    with and without the winner, on rows whose ties straddle the block
+    edges, and with its keys in global scratch; one launch a call."""
+    shape, cfg_kw = CLUSTER_CASES[case]
+    d = make_word_end_inputs(C + len(case), **shape)
+    if shape["B"] >= 4:
+        d = edge_rows(d, C)
+    cfg = tp1.Pass1Config(n_atoms=shape["M"], **cfg_kw)
+    dev, ng, score, ctx, prev = word_end_args(d, cuda)
+    t = torch.tensor([5], dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(twe, "cluster_plan", lambda B, Ex: (C, threads))
+    want = twe.word_end_plain(dev, ng, cfg, score, ctx, prev, t)
+    for keys_max in (twe.SMEM_KEYS_MAX, 0):
+        monkeypatch.setattr(twe, "SMEM_KEYS_MAX", keys_max)
+        before = twe.LAUNCHES
+        got = twe.word_end(dev, ng, cfg, score, ctx, prev, t)
+        alone, none = twe.word_end(dev, ng, cfg, score, ctx, prev)
+        torch.cuda.synchronize()
+        assert twe.LAUNCHES == before + 2 and none is None
+        for name, a, b in zip(tp1.Trellis._fields, got[0], want[0]):
+            assert bits_equal(a, b), (name, keys_max)
+        assert all(bits_equal(a, b) for a, b in zip(got[1], want[1]))
+        assert all(bits_equal(a, b) for a, b in zip(alone, want[0]))
+
+
+def test_word_end_cluster_kernel_in_a_graph(cuda, monkeypatch):
+    """A cluster launch captured into a CUDA graph and replayed on new
+    states equals the plain version on them; CAPTURED counts the
+    capture and LAUNCHES no launch.  The wrapper's first call of a plan
+    (its occupancy query) may come under capture, as a decode's first
+    frame graph makes it."""
+    shape = CLUSTER_CASES["flagship"][0]
+    d = make_word_end_inputs(3, **shape)
+    cfg = tp1.Pass1Config(n_atoms=shape["M"])
+    dev, ng, score, ctx, prev = word_end_args(d, cuda)
+    assert twe.cluster_plan(shape["B"], shape["Ex"])[0] > 1
+    t = torch.tensor([4], dtype=torch.int32, device=cuda)
+    static = [x.clone() for x in (score, ctx, prev)]
+    monkeypatch.setattr(twe, "_CLUSTERS", {})
+    graph = torch.cuda.CUDAGraph()
+    launches, captured = twe.LAUNCHES, twe.CAPTURED
+    with torch.cuda.graph(graph):
+        out = twe.word_end(dev, ng, cfg, *static, t)
+    assert twe.CAPTURED == captured + 1 and twe.LAUNCHES == launches
+    for seed in (4, 5):
+        e = make_word_end_inputs(seed, **shape)
+        _, _, s2, c2, p2 = word_end_args(e, cuda)
+        for x, y in zip(static, (s2, c2, p2)):
+            x.copy_(y)
+        t.fill_(seed)
+        graph.replay()
+        want = twe.word_end_plain(dev, ng, cfg, s2, c2, p2, t)
+        torch.cuda.synchronize()
+        for a, b in zip((*out[0], *out[1]), (*want[0], *want[1])):
+            assert bits_equal(a, b)
+
+
+def test_word_end_unschedulable_cluster_raises(cuda, monkeypatch):
+    """Where the runtime says no cluster of the plan fits, the wrapper
+    raises instead of launching one block a row; at the paths' recorded
+    shapes every plan fits its B clusters at once."""
+    d = make_word_end_inputs(2, B=2, N=6000, Ex=2048, M=16)
+    dev, ng, score, ctx, prev = word_end_args(d, cuda)
+    cfg = tp1.Pass1Config(n_atoms=16)
+    lib = twe.build()
+    for B, Ex, M in ((16, 5000, 32), (64, 5000, 32), (1, 5000, 32),
+                     (32, 20000, 128), (8, 20000, 128), (1, 20000, 128),
+                     (4, 5000, 64)):
+        C, threads = twe.cluster_plan(B, Ex)
+        smem = twe.smem_bytes(Ex, M, C, threads, True)
+        assert twe.max_clusters(lib, cuda, C, threads, smem) >= B, (B, Ex)
+    monkeypatch.setattr(twe, "cluster_plan", lambda B, Ex: (4, 1024))
+    monkeypatch.setattr(twe, "max_clusters", lambda *a: 0)
+    before = twe.LAUNCHES
+    with pytest.raises(RuntimeError, match="cannot be scheduled"):
+        twe.word_end(dev, ng, cfg, score, ctx, prev)
+    assert twe.LAUNCHES == before
 
 
 def test_word_end_kernel_rejects_bad_arguments(cuda):
