@@ -631,7 +631,7 @@ def lvcsr_phase(card):
     torch.cuda.synchronize()
     pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
     t0 = time.perf_counter()
-    res = eng.decode_features(feats, lens_np)
+    res, spans = traced(eng.decode_features, feats, lens_np)
     e2e_s = time.perf_counter() - t0
     launches, scan_launches, chunks = pk.LAUNCHES, sk.LAUNCHES, p2r.CHUNKS
     we_launches = we.LAUNCHES
@@ -678,8 +678,10 @@ def lvcsr_phase(card):
         walls["pass1_eager_wall_s"] = graph["eager_wall_s"]
         frame_profile("lvcsr", eng, out_ext, lens_np, card)
     net = dict(eng.last_pass2)
-    walls.update(astar_wall_s=net["astar_s"], retry_net_wall_s=net["retry_s"],
-                 assembly_wall_s=p2_s - net["astar_s"] - net["retry_s"],
+    staged_s = sum(astar_wall(c["stats"]["spans"])
+                   for c in staged_astar["calls"])
+    walls.update(astar_wall_s=staged_s, retry_net_wall_s=net["retry_s"],
+                 assembly_wall_s=p2_s - staged_s - net["retry_s"],
                  **astar_split(astar))
     if [r.word_ids for r in staged] != [r.word_ids for r in res]:
         raise RuntimeError("staged lvcsr decode differs from decode_features")
@@ -698,7 +700,8 @@ def lvcsr_phase(card):
           retried_in_each_decode=retried, astar_rounds=stats["rounds"],
           astar_replayed=stats["replayed"], astar_waits=stats["waits"],
           astar_captured=stats["captured"],
-          astar_n_pops=stats["n_pops"], astar_loop_wall_s=stats["wall_loop"],
+          astar_n_pops=stats["n_pops"],
+          astar_loop_wall_s=spans["astar.rounds"].total_s,
           kernel_launches=launches, word_end_launches=we_launches,
           scan_win_launches=scan_launches, rescan_chunks=chunks, card=card)
     if exact < N_LVCSR - 2:
@@ -1592,13 +1595,15 @@ def cli_phase(card, task_dir):
             torch.cuda.synchronize()
             walls["pass1_wall_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            staged = eng._results(trellis, lens_np, out_ext=out_ext)
+            staged, spans = traced(eng._results, trellis, lens_np,
+                                   out_ext=out_ext)
             p2_s = time.perf_counter() - t0
             del out_ext, trellis
         net = dict(eng.last_pass2)
-        walls.update(astar_wall_s=net["astar_s"],
+        walls.update(astar_wall_s=astar_wall(spans),
                      retry_net_wall_s=net["retry_s"],
-                     assembly_wall_s=p2_s - net["astar_s"] - net["retry_s"])
+                     assembly_wall_s=p2_s - astar_wall(spans)
+                     - net["retry_s"])
         del eng
 
         # ---- the command line: all files in one batch, then -lattice
@@ -2156,15 +2161,17 @@ def counted_astar(p2d):
     the rounds searched, the rounds the card ran (the gated rounds past
     the end included, one scan_win launch each), and each call that
     searched (its arguments, its outprob cache copied, its N-best lists
-    as `nbest_tuples` and LAST_STATS) for `astar_vs_eager`."""
+    as `nbest_tuples`, and LAST_STATS with the call's span totals under
+    "spans", the port's tracer on around it) for `astar_vs_eager`."""
     total = {"rounds": 0, "replayed": 0, "calls": []}
     real = p2d.run_batch
 
     def run_batch(*a, **kw):
         p2d.LAST_STATS.clear()
-        out = real(*a, **kw)
+        out, spans = traced(real, *a, **kw)
         stats = dict(p2d.LAST_STATS)
         if stats:
+            stats["spans"] = spans
             total["rounds"] += stats["rounds"]
             total["replayed"] += stats["replayed"]
             a = list(a)
@@ -2183,6 +2190,30 @@ def counted_astar(p2d):
 
 #: every astar_graph line of the run, for the summary before the kernels
 ASTAR_LINES = []
+#: the spans of the device A*'s wall: set-up (with `prepare`), the
+#: rounds, the read-back
+ASTAR_SPANS = ("astar.setup", "astar.rounds", "astar.collect")
+
+
+def traced(fn, *a, **kw):
+    """fn(*a, **kw) with the port's tracer on: (its result, the spans'
+    `trace.Totals` by name).  Not nested: an inner call would drain the
+    outer one's spans."""
+    from julius_tpu_torch.utils import trace
+    if trace.enabled():
+        raise RuntimeError("traced calls do not nest")
+    trace.drain()
+    trace.enable(True)
+    try:
+        out = fn(*a, **kw)
+    finally:
+        trace.enable(False)
+    return out, trace.totals(trace.drain())
+
+
+def astar_wall(spans):
+    """The host seconds of the device A*'s calls among `spans`."""
+    return sum(spans[k].total_s for k in ASTAR_SPANS if k in spans)
 
 
 def nbest_tuples(lists):
@@ -2196,10 +2227,11 @@ def astar_vs_eager(label, astar, card, record=None):
     must be equal bit for bit, with equal rounds and pops.  The oracle
     runs inside `record` (a context) where given; its launches are taken
     back out of LAUNCHES.  Prints one astar_graph line: both loop walls
-    (host clock, first round to the scores on the host), the rounds, the
-    rounds the card ran, the host waits, captures and their seconds, G,
-    and the A* wall split into prepare, loop and readback; returns its
-    fields."""
+    (the `astar.rounds` spans: the cache lookup to the last read of the
+    stop flag), the rounds, the rounds the card ran, the host waits,
+    captures and their seconds, G, and the A* wall split into set-up
+    (`astar.setup`, with prepare), loop and read-back (`astar.collect`);
+    returns its fields."""
     from julius_tpu_torch.ops import scan_kernel as sk
     from julius_tpu_torch.search import pass2_device as p2d
 
@@ -2208,14 +2240,18 @@ def astar_vs_eager(label, astar, card, record=None):
     for c in astar["calls"]:
         torch.cuda.synchronize()
         with record() if record else contextlib.nullcontext():
-            eager = p2d.run_batch(*c["args"], **c["kw"], eager=True)
+            eager, e_spans = traced(p2d.run_batch, *c["args"], **c["kw"],
+                                    eager=True)
         e, g = dict(p2d.LAST_STATS), c["stats"]
+        spans = g["spans"]
         per.append(dict(
             batch=g["B"], frames=g["T"], atoms=g["NA"], rounds=g["rounds"],
             replayed=g["replayed"], waits=g["waits"], captured=g["captured"],
-            capture_s=g["capture_s"], graphed_loop_s=g["wall_loop"],
-            eager_loop_s=e["wall_loop"], prepare_s=g["wall_prepare"],
-            readback_s=g["wall_readback"],
+            capture_s=g["capture_s"],
+            graphed_loop_s=spans["astar.rounds"].total_s,
+            eager_loop_s=e_spans["astar.rounds"].total_s,
+            prepare_s=spans["astar.setup"].total_s,
+            readback_s=spans["astar.collect"].total_s,
             bit_equal=(nbest_tuples(eager) == c["got"]
                        and e["rounds"] == g["rounds"]
                        and e["n_pops"] == g["n_pops"] and g["graphed"]
@@ -2273,10 +2309,11 @@ def stop_every_sweep(label, call, card):
         for G in SWEEP_G + SWEEP_G[::-1]:
             p2d.STOP_EVERY = G
             torch.cuda.synchronize()
-            got = p2d.run_batch(*call["args"], **call["kw"])
+            got, spans = traced(p2d.run_batch, *call["args"], **call["kw"])
             st = dict(p2d.LAST_STATS)
             runs.append(dict(
-                stop_every=G, loop_s=st["wall_loop"], waits=st["waits"],
+                stop_every=G, loop_s=spans["astar.rounds"].total_s,
+                waits=st["waits"],
                 past_end=st["replayed"] - st["rounds"],
                 captured=st["captured"],
                 equal=nbest_tuples(got) == call["got"]))
@@ -4197,7 +4234,7 @@ def main() -> int:
     torch.cuda.synchronize()
     pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
     t0 = time.perf_counter()
-    res = eng.decode_features(feats, lens_np)
+    res, spans = traced(eng.decode_features, feats, lens_np)
     e2e_s = time.perf_counter() - t0
     launches, we_launches = pk.LAUNCHES, we.LAUNCHES
     scan_launches, chunks = sk.LAUNCHES, p2r.CHUNKS
@@ -4227,6 +4264,8 @@ def main() -> int:
         staged = eng._results(tr_kernel, lens_np, out_ext=out_ext)
         p2_s = time.perf_counter() - t0
     staged_net = dict(eng.last_pass2)
+    staged_s = sum(astar_wall(c["stats"]["spans"])
+                   for c in staged_astar["calls"])
     if [r.word_ids for r in staged] != [r.word_ids for r in res]:
         raise RuntimeError("staged decode differs from decode_features")
     states = {}
@@ -4282,7 +4321,7 @@ def main() -> int:
     with torch.no_grad():
         t0 = time.perf_counter()
         nb_kernel = p2d.run_batch(*astar_args, best_in=eng._p2d_best_in)
-        astar_s = time.perf_counter() - t0
+        rerun_s = time.perf_counter() - t0
         p2d.scan_core_win = sk.scan_core_win_plain
         try:
             t0 = time.perf_counter()
@@ -4302,11 +4341,11 @@ def main() -> int:
     phase("slice", utterances=N_UTTS, frames=T, audio_s=audio_s,
           dnn_wall_s=dnn_s, pass1_wall_s=p1_s,
           pass2_and_results_wall_s=p2_s,
-          astar_wall_s=staged_net["astar_s"],
+          astar_wall_s=staged_s,
           retry_net_wall_s=staged_net["retry_s"],
-          assembly_wall_s=p2_s - staged_net["astar_s"]
-          - staged_net["retry_s"], **astar_split(slice_astar),
-          astar_rerun_wall_s=astar_s, astar_plain_scan_wall_s=astar_plain_s,
+          assembly_wall_s=p2_s - staged_s - staged_net["retry_s"],
+          **astar_split(slice_astar),
+          astar_rerun_wall_s=rerun_s, astar_plain_scan_wall_s=astar_plain_s,
           pass1_plain_wall_s=p1_plain_s,
           pass1_eager_wall_s=slice_graph["eager_wall_s"],
           pass1_graphs=eng.dev_net.graphs.captures,
@@ -4318,7 +4357,8 @@ def main() -> int:
           retried=net["retried"], astar_rounds=stats["rounds"],
           astar_replayed=stats["replayed"], astar_waits=stats["waits"],
           astar_captured=stats["captured"],
-          astar_n_pops=stats["n_pops"], astar_loop_wall_s=stats["wall_loop"],
+          astar_n_pops=stats["n_pops"],
+          astar_loop_wall_s=spans["astar.rounds"].total_s,
           max_rounds=stats["max_rounds"], CAPP=stats["CAPP"],
           kernel_launches=launches, word_end_launches=we_launches,
           scan_win_launches=scan_launches, rescan_chunks=chunks,

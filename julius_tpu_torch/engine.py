@@ -64,6 +64,7 @@ from julius_tpu_torch.search.network import DecodeNetwork, build_network
 from julius_tpu_torch.search.scan import ChainCache, DeviceChainTables
 from julius_tpu_torch.search.ngram_device import (DeviceNgram,
                                                   build_device_ngram)
+from julius_tpu_torch.utils import trace
 from julius_tpu_torch.utils.callback import CallbackRegistry
 from julius_tpu_torch.utils.device import resolve_device
 from julius_tpu_torch.utils.jlog import LogLevel, jlog
@@ -234,9 +235,9 @@ class Engine:
         self._rescan_warned = False
         self._p2d_best_in = None    # cached pass2_device._best_lm_in
         self._p2d_spot_ok = 0       # device-A* spot-checks passed
-        # walls of the last batch's device A* and retry net, and how
-        # many utterances the net re-ran on the host path
-        self.last_pass2 = {"astar_s": 0.0, "retry_s": 0.0, "retried": 0}
+        # the wall of the last batch's retry net, and how many
+        # utterances the net re-ran on the host path
+        self.last_pass2 = {"retry_s": 0.0, "retried": 0}
 
     # -- setup helpers ----------------------------------------------------
 
@@ -406,7 +407,8 @@ class Engine:
 
     def _outprob(self, feats: torch.Tensor) -> torch.Tensor:
         """[B, T, D] features -> [B, T, R] extended outprob rows."""
-        return self._extend(self._senones(feats))
+        with trace.span("dnn"):
+            return self._extend(self._senones(feats))
 
     def _extend(self, rows: torch.Tensor) -> torch.Tensor:
         """[B, T, S] senone rows -> [B, T, S + Q'] with the pseudo
@@ -464,32 +466,35 @@ class Engine:
         return self.gmm_frontend is not None or self.power_thres > 0.0
 
     def _pass1(self, out_ext: torch.Tensor, n_frames) -> p1.Trellis:
-        nfr = torch.as_tensor(n_frames, dtype=torch.int32,
-                              device=self.device)
-        return p1.pass1_batch(self.dev_net, self.ngram_dev, self.p1_cfg,
-                              out_ext, nfr)
+        with trace.span("pass1"):
+            nfr = torch.as_tensor(n_frames, dtype=torch.int32,
+                                  device=self.device)
+            return p1.pass1_batch(self.dev_net, self.ngram_dev, self.p1_cfg,
+                                  out_ext, nfr)
 
     def decode_features(self, feats, n_frames) -> List[Result]:
         """Decode pre-extracted features [B, T, D] (numpy or torch) with
         [B] valid frame counts (reference mfcfile / vecnet feature input
         paths)."""
-        feats = torch.as_tensor(feats, dtype=torch.float32,
-                                device=self.device)
-        nfr = np.asarray(torch.as_tensor(n_frames).cpu())
-        # rejection hooks see the base features (mfcfile input passes
-        # through GMM verification in the reference too); DNN-spliced
-        # rows have the wrong width for the GMM's own models
-        feats_rej = None
-        if self._want_rejection_features() and self.dnn_scorer is None:
-            feats_rej = feats.cpu().numpy()
-        with torch.no_grad():
-            # out_ext doubles as the pass-2 outprob cache
-            out_ext = self._outprob(feats)
-            trellis = self._pass1(out_ext, n_frames)
-            results = self._results(trellis, nfr, feats_rej,
-                                    out_ext=out_ext)
-        self._maybe_align(results, feats, nfr)
-        return results
+        with trace.span("decode"):
+            with trace.span("features.h2d"):
+                feats = torch.as_tensor(feats, dtype=torch.float32,
+                                        device=self.device)
+            nfr = np.asarray(torch.as_tensor(n_frames).cpu())
+            # rejection hooks see the base features (mfcfile input passes
+            # through GMM verification in the reference too); DNN-spliced
+            # rows have the wrong width for the GMM's own models
+            feats_rej = None
+            if self._want_rejection_features() and self.dnn_scorer is None:
+                feats_rej = feats.cpu().numpy()
+            with torch.no_grad():
+                # out_ext doubles as the pass-2 outprob cache
+                out_ext = self._outprob(feats)
+                trellis = self._pass1(out_ext, n_frames)
+                results = self._results(trellis, nfr, feats_rej,
+                                        out_ext=out_ext)
+            self._maybe_align(results, feats, nfr)
+            return results
 
     def _maybe_align(self, results: List[Result], feats,
                      nfr: np.ndarray) -> None:
@@ -526,8 +531,9 @@ class Engine:
     def decode_outprob(self, rows, n_frames) -> List[Result]:
         """Decode directly from state output probabilities [B, T, S]
         (reference SP_OUTPROBFILE input / vecnet outprob_p mode)."""
-        rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
-        with torch.no_grad():
+        with trace.span("decode"), torch.no_grad():
+            rows = torch.as_tensor(rows, dtype=torch.float32,
+                                   device=self.device)
             out_ext = self._extend(rows)
             trellis = self._pass1(out_ext, n_frames)
             return self._results(trellis, np.asarray(torch.as_tensor(
@@ -542,9 +548,10 @@ class Engine:
     def recognize_batch(self, wave, lengths) -> List[Result]:
         """Batched file-input recognition: [B, L] int16/float waveforms
         with [B] sample counts."""
-        wave = torch.as_tensor(wave, device=self.device).to(torch.float32)
-        lengths = torch.as_tensor(lengths, device=self.device)
-        with torch.no_grad():
+        with trace.span("decode"), torch.no_grad():
+            wave = torch.as_tensor(wave, device=self.device).to(
+                torch.float32)
+            lengths = torch.as_tensor(lengths, device=self.device)
             trellis, nfr, out_ext = self._decode_device(wave, lengths)
             feats = None
             if self._want_rejection_features():
@@ -558,13 +565,14 @@ class Engine:
             if sc.align_word or sc.align_phoneme or sc.align_state:
                 self._maybe_align(results, self._features(wave, lengths)[0],
                                   nfr)
-        return results
+            return results
 
     def _results(self, trellis: p1.Trellis, nfr: np.ndarray,
                  feats: Optional[np.ndarray] = None,
                  out_ext: Optional[torch.Tensor] = None) -> List[Result]:
         B = nfr.shape[0]
-        host = p1.Trellis(*[a.cpu().numpy() for a in trellis])
+        with trace.span("pass1.readback"):
+            host = p1.Trellis(*[a.cpu().numpy() for a in trellis])
         out: List[Optional[Result]] = [None] * B
         tbs: List[Optional[p1.Trellis]] = [None] * B
         want_p2 = self.search_cfg.enable_pass2 and self.lmtype != "word"
@@ -620,16 +628,28 @@ class Engine:
         the first few batches is SPOT-CHECKED on the host instead, and a
         clear host win fails the whole batch over to the host path."""
         sc = self.search_cfg
-        if self._p2d_best_in is None:
-            # LM-dependent, batch-independent: computed once per engine
-            self._p2d_best_in = p2d._best_lm_in(
-                self._rescan_strategy(), self.device_chains.loc.shape[0])
-        t0 = time.perf_counter()
-        nbest_lists = p2d.run_batch(
-            lattices, self.device_chains, self.ngram_dev, self._wid2lm_p2,
-            self._cprob_arr(), out_ext, self._rescan_strategy(), sc,
-            best_in=self._p2d_best_in, iwcd2=self.iwcd2_tables)
-        t1 = time.perf_counter()
+        with trace.span("astar"):
+            if self._p2d_best_in is None:
+                # LM-dependent, batch-independent: computed once per engine
+                self._p2d_best_in = p2d._best_lm_in(
+                    self._rescan_strategy(), self.device_chains.loc.shape[0])
+            nbest_lists = p2d.run_batch(
+                lattices, self.device_chains, self.ngram_dev,
+                self._wid2lm_p2, self._cprob_arr(), out_ext,
+                self._rescan_strategy(), sc, best_in=self._p2d_best_in,
+                iwcd2=self.iwcd2_tables)
+            t1 = time.perf_counter()
+            with trace.span("astar.retry"):
+                retried = self._retry_net(lattices, nbest_lists, out_ext)
+            self.last_pass2 = {"retry_s": time.perf_counter() - t1,
+                               "retried": retried}
+            return nbest_lists
+
+    def _retry_net(self, lattices, nbest_lists, out_ext) -> int:
+        """`_device_astar`'s robustness net over the device A*'s N-best
+        lists, replaced in place where the host re-scan wins; returns
+        the number of utterances re-run."""
+        sc = self.search_cfg
         B = len(lattices)
         retry = [None] * B
         comparable = (sc.lm_weight == sc.lm_weight2
@@ -681,10 +701,7 @@ class Engine:
                             or host_lists[b][0].score
                             > nbest_lists[b][0].score):
                         nbest_lists[b] = host_lists[b]
-        self.last_pass2 = {
-            "astar_s": t1 - t0, "retry_s": time.perf_counter() - t1,
-            "retried": sum(lat is not None for lat in retry)}
-        return nbest_lists
+        return sum(lat is not None for lat in retry)
 
     def _pass1_result(self, tb, n_frames: int) -> Result:
         r = p1.backtrace(tb, n_frames, self.net.tail_word,

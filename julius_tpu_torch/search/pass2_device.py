@@ -88,6 +88,7 @@ from julius_tpu_torch.search.pass1 import _capture, topk_stable
 from julius_tpu_torch.search.pass2 import NBestResult, TrellisLattice
 from julius_tpu_torch.search.scan import (DeviceChainTables,
                                           head_substituted_sidx)
+from julius_tpu_torch.utils import trace
 from julius_tpu_torch.utils.logadd import LOG_ZERO
 
 NEG_HALF = LOG_ZERO / 2
@@ -310,28 +311,29 @@ def prepare(lattices: List[Optional[TrellisLattice]], T: int,
         # AM-only span score of the atom's word (pass-1 LM removed):
         # a CANDIDATE's estimate adds its exact pass-2 LM instead
         ainc = asc - pscore - alm
-        # the suffix estimate chains FULL pass-1 incremental scores
-        # (AM + pass-1 LM) like the host path — see _suffix_estimate_np
-        # for why tight beats admissible — with the pass-1 LM portion
-        # re-weighted into the PASS-2 scale (lw2/lw1, like
-        # _best_path_rest): exact scores accumulate lm_weight2-weighted
-        # probs, so an un-reweighted estimate is off by
-        # (lw2-lw1)*|log p| per remaining word whenever the passes use
-        # different weights (-lmp vs -lmp2)
-        lw1v = float(cfg.lm_weight)
-        ratio = (lw2v / lw1v) if lw1v else 1.0
-        inc_rw = (asc - pscore - alm) + alm * ratio
-        fm = (fmax[len(per), :lat.T] if fmax is not None else None)
-        rest = _suffix_estimate_np(ab, ae, inc_rw, lat.T, lr, fm)
-        # anchor the estimate on pass-1's own best path: a REAL path
-        # covering every frame, so its suffix curve has no holes and no
-        # compounding per-word bounds — the atom-chain DP above can
-        # only raise it where a better continuation provably exists.
-        # (LM portions re-weighted into the pass-2 scale.)
-        r1 = _best_path_rest(lat, float(cfg.lm_weight),
-                             float(cfg.lm_weight2))
-        if r1 is not None:
-            rest = np.maximum(rest, r1)
+        with trace.span("prepare.suffix"):
+            # the suffix estimate chains FULL pass-1 incremental scores
+            # (AM + pass-1 LM) like the host path — see
+            # _suffix_estimate_np for why tight beats admissible — with
+            # the pass-1 LM portion re-weighted into the PASS-2 scale
+            # (lw2/lw1, like _best_path_rest): exact scores accumulate
+            # lm_weight2-weighted probs, so an un-reweighted estimate is
+            # off by (lw2-lw1)*|log p| per remaining word whenever the
+            # passes use different weights (-lmp vs -lmp2)
+            lw1v = float(cfg.lm_weight)
+            ratio = (lw2v / lw1v) if lw1v else 1.0
+            inc_rw = (asc - pscore - alm) + alm * ratio
+            fm = (fmax[len(per), :lat.T] if fmax is not None else None)
+            rest = _suffix_estimate_np(ab, ae, inc_rw, lat.T, lr, fm)
+            # anchor the estimate on pass-1's own best path: a REAL path
+            # covering every frame, so its suffix curve has no holes and
+            # no compounding per-word bounds — the atom-chain DP above
+            # can only raise it where a better continuation provably
+            # exists.  (LM portions re-weighted into the pass-2 scale.)
+            r1 = _best_path_rest(lat, float(cfg.lm_weight),
+                                 float(cfg.lm_weight2))
+            if r1 is not None:
+                rest = np.maximum(rest, r1)
         # prune the CANDIDATE table (the suffix DP above used the FULL
         # atom set).  Within one begin frame the candidate ranking is
         # parent-independent — est0 = gb(begin) + (lm_opt + AM span +
@@ -345,36 +347,50 @@ def prepare(lattices: List[Optional[TrellisLattice]], T: int,
         # them.)  Tail-word atoms bypass the cap: completion anchors
         # must survive (the host appends the Tl-1 anchor for may_final
         # words the same way, _cand_for).
-        lm_opt_at = (lw2v * best_in[np.minimum(aw, len(best_in) - 1)]
-                     + pen2v
-                     + (cprob_np[np.minimum(aw, len(cprob_np) - 1)]
-                        if cprob_np is not None else 0.0))
-        rest_ae = rest[np.minimum(ae, lat.T - 1)]
-        indep = np.where(np.isfinite(rest_ae),
-                         ainc + lm_opt_at + rest_ae, -np.inf)
-        tailw = int(strategy.tail_word)
-        is_tail = aw == tailw
-        n_at = len(ab)
-        pos = np.arange(n_at)
-        # rank within (begin, word) groups, best-indep first
-        o2 = np.lexsort((-indep, aw, ab))
-        newg = np.r_[True, (ab[o2][1:] != ab[o2][:-1])
-                     | (aw[o2][1:] != aw[o2][:-1])]
-        rank_bw = pos - np.maximum.accumulate(np.where(newg, pos, 0))
-        keep = np.zeros(n_at, bool)
-        keep[o2] = rank_bw < A_ENDS
-        # rank within begin frames among survivors
-        ind2 = np.where(keep, indep, -np.inf)
-        o3 = np.lexsort((-ind2, ab))
-        newb = np.r_[True, ab[o3][1:] != ab[o3][:-1]]
-        rank_b = pos - np.maximum.accumulate(np.where(newb, pos, 0))
-        keep2 = np.zeros(n_at, bool)
-        keep2[o3] = rank_b < Q_PER_FRAME
-        keep &= keep2 | is_tail
-        keep &= np.isfinite(indep) | is_tail
-        ab, ae, aw, ainc = ab[keep], ae[keep], aw[keep], ainc[keep]
+        with trace.span("prepare.prune"):
+            lm_opt_at = (lw2v * best_in[np.minimum(aw, len(best_in) - 1)]
+                         + pen2v
+                         + (cprob_np[np.minimum(aw, len(cprob_np) - 1)]
+                            if cprob_np is not None else 0.0))
+            rest_ae = rest[np.minimum(ae, lat.T - 1)]
+            indep = np.where(np.isfinite(rest_ae),
+                             ainc + lm_opt_at + rest_ae, -np.inf)
+            tailw = int(strategy.tail_word)
+            is_tail = aw == tailw
+            n_at = len(ab)
+            pos = np.arange(n_at)
+            # rank within (begin, word) groups, best-indep first
+            o2 = np.lexsort((-indep, aw, ab))
+            newg = np.r_[True, (ab[o2][1:] != ab[o2][:-1])
+                         | (aw[o2][1:] != aw[o2][:-1])]
+            rank_bw = pos - np.maximum.accumulate(np.where(newg, pos, 0))
+            keep = np.zeros(n_at, bool)
+            keep[o2] = rank_bw < A_ENDS
+            # rank within begin frames among survivors
+            ind2 = np.where(keep, indep, -np.inf)
+            o3 = np.lexsort((-ind2, ab))
+            newb = np.r_[True, ab[o3][1:] != ab[o3][:-1]]
+            rank_b = pos - np.maximum.accumulate(np.where(newb, pos, 0))
+            keep2 = np.zeros(n_at, bool)
+            keep2[o3] = rank_b < Q_PER_FRAME
+            keep &= keep2 | is_tail
+            keep &= np.isfinite(indep) | is_tail
+            ab, ae, aw, ainc = ab[keep], ae[keep], aw[keep], ainc[keep]
         per.append((ab, ae, aw, ainc, rest))
         na = max(na, len(ab))
+    with trace.span("prepare.seed"):
+        return _seed(lattices, per, na, T, strategy, cfg, stack_size,
+                     cprob_np, best_in)
+
+
+def _seed(lattices, per, na: int, T: int, strategy, cfg: SearchConfig,
+          stack_size: int, cprob_np: Optional[np.ndarray],
+          best_in: np.ndarray) -> _Prepared:
+    """`prepare`'s tables from each utterance's kept atoms and suffix
+    estimate (`per`): padded to `na` atoms and T frames, the initial
+    stacks seeded from the atoms that begin at frame 0, and the packed
+    candidate columns."""
+    B = len(lattices)
     # rolling word-sequence hash (sequence identity for completion
     # dedup and the word envelope; anchor variants of one sequence
     # share it, distinct sequences collide with ~2^-32 probability)
@@ -880,8 +896,9 @@ def _setup(lattices: List[Optional[TrellisLattice]],
     fmax = out_ext.amax(dim=2).cpu().numpy()
     if best_in is None:
         best_in = _best_lm_in(strategy, tabs.loc.shape[0])
-    prep = prepare(lattices, T, strategy, cfg, S, cprob, best_in,
-                   fmax=fmax)
+    with trace.span("astar.prepare"):
+        prep = prepare(lattices, T, strategy, cfg, S, cprob, best_in,
+                       fmax=fmax)
     if not (prep.last >= 0).any():
         return None
     NA = prep.ab.shape[1]
@@ -923,12 +940,17 @@ def _eager(tabs, ng, iwcd2, d: _Dims, x: _Inputs):
     """run_batch's rounds as a Python loop: one step a round while the
     stop flag holds, read once a round.  Yields (the rounds, the run's
     statistics)."""
-    rounds = _Rounds(tabs, ng, iwcd2, d, x)
-    rounds.load(x)
-    ran = 0
-    while bool(rounds.more):
-        rounds.step()
-        ran += 1
+    with trace.span("astar.rounds"):
+        rounds = _Rounds(tabs, ng, iwcd2, d, x)
+        rounds.load(x)
+        ran = 0
+        while True:
+            with trace.span("astar.wait"):
+                more = bool(rounds.more)
+            if not more:
+                break
+            rounds.step()
+            ran += 1
     yield rounds, dict(replayed=ran, waits=ran + 1, captured=0,
                        capture_s=0.0, stop_every=1)
 
@@ -972,37 +994,41 @@ def _graphed(tabs, ng, iwcd2, d: _Dims, x: _Inputs):
     cache = tabs.graphs
     every = STOP_EVERY
     with cache.lock, torch.cuda.device(device):
-        entry = cache.entries.pop(key, None)
-        captured = entry is None
-        capture_s = 0.0
-        if captured:
-            while len(cache.entries) >= GRAPHS_KEPT:
-                del cache.entries[next(iter(cache.entries))]
-            t0 = time.perf_counter()
-            rounds = _Rounds(tabs, ng, iwcd2, d, x)
-            rounds.load(x)
-            before = sk.CAPTURED
-            graph = _capture(cache, device, rounds.step)
-            entry = _RoundGraph(graph, rounds, sk.CAPTURED - before, ng,
-                                iwcd2)
-            capture_s = time.perf_counter() - t0
-            cache.captures += 1
-            cache.capture_s += capture_s
-        else:
-            entry.rounds.load(x)
-        cache.entries[key] = entry
-        ran = int(captured)         # the capture's eager round 1
-        replays = waits = 0
-        while True:
-            if ran:
-                waits += 1
-                if not _host_flag(entry.rounds.more):
-                    break
-            for _ in range(every):
-                entry.graph.replay()
-            ran += every
-            replays += every
-        sk.LAUNCHES += entry.launches * replays
+        with trace.span("astar.rounds"):
+            entry = cache.entries.pop(key, None)
+            captured = entry is None
+            capture_s = 0.0
+            if captured:
+                while len(cache.entries) >= GRAPHS_KEPT:
+                    del cache.entries[next(iter(cache.entries))]
+                with trace.span("astar.capture"):
+                    t0 = time.perf_counter()
+                    rounds = _Rounds(tabs, ng, iwcd2, d, x)
+                    rounds.load(x)
+                    before = sk.CAPTURED
+                    graph = _capture(cache, device, rounds.step)
+                    entry = _RoundGraph(graph, rounds, sk.CAPTURED - before,
+                                        ng, iwcd2)
+                    capture_s = time.perf_counter() - t0
+                cache.captures += 1
+                cache.capture_s += capture_s
+            else:
+                entry.rounds.load(x)
+            cache.entries[key] = entry
+            ran = int(captured)         # the capture's eager round 1
+            replays = waits = 0
+            while True:
+                if ran:
+                    waits += 1
+                    with trace.span("astar.wait"):
+                        more = _host_flag(entry.rounds.more)
+                    if not more:
+                        break
+                for _ in range(every):
+                    entry.graph.replay()
+                ran += every
+                replays += every
+            sk.LAUNCHES += entry.launches * replays
         yield entry.rounds, dict(replayed=ran, waits=waits,
                                  captured=int(captured), capture_s=capture_s,
                                  stop_every=every)
@@ -1097,19 +1123,18 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
     `best_in` is LM-dependent, not batch-dependent: pass the cached
     array (engine._p2d_best_in) to avoid re-walking the whole N-gram
     dict per decode batch."""
-    t_start = time.perf_counter()
-    setup = _setup(lattices, tabs, wid2lm, cprob, out_ext, strategy, cfg,
-                   best_in)
+    with trace.span("astar.setup"):
+        setup = _setup(lattices, tabs, wid2lm, cprob, out_ext, strategy,
+                       cfg, best_in)
     if setup is None:
         return [[] for _ in range(len(lattices))]
     d, x = setup
     if iwcd2 is not None and iwcd2.n_resolved == 0:
         iwcd2 = None
     run = _eager if x.out_ext.device.type == "cpu" or eager else _graphed
-    t_loop = time.perf_counter()
-    with run(tabs, ng, iwcd2, d, x) as (rounds, info):
+    with run(tabs, ng, iwcd2, d, x) as (rounds, info), \
+            trace.span("astar.collect"):
         res_score = rounds.res_score.cpu().numpy()
-        t_read = time.perf_counter()
         n_rounds = int(rounds.round_i)
         n_pops = rounds.n_pops.cpu().numpy().tolist()
         results = _collect(rounds, res_score, lattices, cfg)
@@ -1117,7 +1142,5 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
     LAST_STATS.update(
         rounds=n_rounds, **info, max_rounds=d.max_rounds, CAPP=d.CAPP,
         P=d.P, S=d.S, CA=d.CA, CK=d.CK, B=d.B, T=d.T, NA=d.NA,
-        graphed=run is _graphed, wall_prepare=t_loop - t_start,
-        wall_loop=t_read - t_loop,
-        wall_readback=time.perf_counter() - t_read, n_pops=n_pops)
+        graphed=run is _graphed, n_pops=n_pops)
     return results
