@@ -23,7 +23,12 @@ Phases, one line each, in order (any failure exits non-zero):
      kernel_path line times it there ((a) and (c) as pass1_step's,
      torch.topk of the same exit scores beside it, the byte bound, the
      cluster plan (C, threads) each shape took; on the slice and lvcsr
-     also each shape's phase split from the phase-stamp build);
+     also each shape's phase split from the phase-stamp build); suffix
+     (the device A*'s suffix DP) likewise on the decodes' own trellises:
+     every path's suffix_check line holds each device A* call's estimate
+     bit-equal to numpy's `_suffix_estimate_np` on every utterance and
+     times the first call beside one numpy pass (on the slice at B = 16
+     and B = 1, on lvcsr, on each command-line and server path);
   4. slice: the full-width flagship engine (5000-word 2-gram, 2004
      senones, 5 x 2048 sigmoid DNN) with the reference's search
      configuration decodes 16 generative utterances through
@@ -673,6 +678,7 @@ def lvcsr_phase(card):
                                out_ext, lens_np, got=trellis, card=card,
                                record=lambda: recorded_word_end(states))
         astar = astar_vs_eager("lvcsr", staged_astar, card)
+        suffix_path("lvcsr", staged_astar, card)
         stop_every_sweep("lvcsr", staged_astar["calls"][0], card)
         astar_profile("lvcsr", staged_astar["calls"][0], card)
         walls["pass1_eager_wall_s"] = graph["eager_wall_s"]
@@ -1299,6 +1305,7 @@ def path_kernels(label, calls, launches, eng, card):
     astar = calls.pop("astar")
     if astar["calls"]:
         astar_vs_eager(label, astar, card, record=calls["record_astar"])
+        suffix_path(label, astar, card)
     for c in astar["calls"]:
         tabs, out_ext = c["args"][1], c["args"][5]
         B, T, R = out_ext.shape
@@ -2289,6 +2296,71 @@ def astar_split(fields):
                 astar_eager_loop_s=fields["eager_loop_s"],
                 astar_graphed_rounds_run=fields["replayed"],
                 astar_host_waits=fields["waits"])
+
+
+#: every suffix_check line of the run
+SUFFIX_LINES = []
+
+
+def suffix_path(label, astar, card):
+    """The A*'s suffix DP kernel (csrc/suffix.cu) alone on each device A*
+    call of one path (`counted_astar`): one launch over the call's
+    pass-1 trellis on the card (its lattices uploaded where the call had
+    none, as `prepare` uploads them) and its frames' best outprob, each
+    utterance's estimate held bit for bit to `suffix_host` (numpy's
+    `_suffix_estimate_np`).  The first call timed: the kernel (CUDA
+    events around the wrapper's call, median of 20) against one numpy
+    pass over its utterances (host clock).  Prints one suffix_check
+    line; returns its fields."""
+    from julius_tpu_torch.ops import suffix_kernel as sx
+    from julius_tpu_torch.search import pass2_device as p2d
+    from julius_tpu_torch.utils.cuda_timing import time_ms
+
+    per = []
+    for i, c in enumerate(astar["calls"]):
+        lats, out_ext, cfg = c["args"][0], c["args"][5], c["args"][7]
+        lats = [lat if lat is not None and lat.T else None for lat in lats]
+        fmax = out_ext.to(torch.float32).amax(dim=2)
+        tr = c["kw"].get("trellis")
+
+        def run():
+            return p2d._suffix_on_card(lats, tr, fmax, cfg)
+        got = run().cpu().numpy()
+        fm = fmax.cpu().numpy()
+        frames = [lat.T for lat in lats if lat is not None]
+        t0 = time.perf_counter()
+        want = [None if lat is None else p2d.suffix_host(lat, cfg,
+                                                         fm[b, :lat.T])
+                for b, lat in enumerate(lats)]
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        equal = all(w is None or (np.array_equal(got[b, :len(w)], w)
+                                  and (got[b, len(w):] == -np.inf).all())
+                    for b, w in enumerate(want))
+        M = next(lat.M for lat in lats if lat is not None)
+        x = dict(utterances=len(frames), frames=sum(frames),
+                 longest=max(frames), M=M, plan=list(sx.plan(M)),
+                 uploaded=tr is None, bit_equal=equal)
+        if i == 0:
+            ms = time_ms(run, n=20, warm=3)
+            x.update(kernel_ms=ms, numpy_ms=numpy_ms,
+                     us_per_frame=ms * 1e3 / max(frames),
+                     numpy_us_per_frame=numpy_ms * 1e3 / sum(frames),
+                     numpy_over_kernel=numpy_ms / ms)
+        per.append(x)
+    fields = dict(path=label, calls=len(per),
+                  utterances=sum(x["utterances"] for x in per),
+                  bit_equal=all(x["bit_equal"] for x in per),
+                  **({k: per[0][k] for k in (
+                      "M", "plan", "kernel_ms", "numpy_ms", "us_per_frame",
+                      "numpy_us_per_frame", "numpy_over_kernel",
+                      "longest", "uploaded")} if per else {}),
+                  per_call=per)
+    phase("suffix_check", **fields, card=card)
+    SUFFIX_LINES.append(fields)
+    if not per or not fields["bit_equal"]:
+        raise RuntimeError(f"{label}: the suffix kernel differs from "
+                           f"numpy: {fields}")
+    return fields
 
 
 #: STOP_EVERY values of the sweep, run up and back down
@@ -4091,6 +4163,7 @@ def main() -> int:
     from julius_tpu_torch.ops import cuda_build
     from julius_tpu_torch.ops import pass1_kernel as pk
     from julius_tpu_torch.ops import scan_kernel as sk
+    from julius_tpu_torch.ops import suffix_kernel as sx
     from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.search import pass1 as p1
     from julius_tpu_torch.search import pass2 as p2
@@ -4109,17 +4182,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # the three kernels and word_end's phase-stamp build, one nvcc each
-    cuda_build.compile_all([pk.SOURCE, sk.SOURCE, we.SOURCE,
+    cuda_build.compile_all([pk.SOURCE, sk.SOURCE, we.SOURCE, sx.SOURCE,
                             (we.SOURCE, (PHASES_FLAG,))])
-    for m in (pk, sk, we):
+    for m in (pk, sk, we, sx):
         m.build()
     build_s = time.perf_counter() - t0
     ptxas = {m.SOURCE.name: cuda_build.ptxas_report(m.SOURCE)
-             for m in (pk, sk, we)}
+             for m in (pk, sk, we, sx)}
     ptxas[f"{we.SOURCE.name} {PHASES_FLAG}"] = cuda_build.ptxas_report(
         we.SOURCE, (PHASES_FLAG,))
     phase("build", seconds=round(build_s, 3),
-          kernels=["pass1_step", "scan_win", "word_end"], ptxas=ptxas)
+          kernels=["pass1_step", "scan_win", "word_end", "suffix"],
+          ptxas=ptxas)
     for source, report in ptxas.items():
         check_no_spills(report, source)
 
@@ -4232,7 +4306,8 @@ def main() -> int:
         raise RuntimeError("flagship_engine does not take the device A*")
     eng.decode_features(feats[:2], lens_np[:2])     # warm-up
     torch.cuda.synchronize()
-    pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
+    pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = sx.LAUNCHES = 0
+    p2r.CHUNKS = 0
     t0 = time.perf_counter()
     res, spans = traced(eng.decode_features, feats, lens_np)
     e2e_s = time.perf_counter() - t0
@@ -4243,6 +4318,11 @@ def main() -> int:
     if launches != T or we_launches != T:
         raise RuntimeError(f"{launches} pass1_step and {we_launches} "
                            f"word_end launches for {T} frames")
+    if (sx.LAUNCHES, stats["suffix_card"], stats["suffix_host"]) != (
+            1, N_UTTS, 0):
+        raise RuntimeError(f"{sx.LAUNCHES} suffix launches, suffix DP of "
+                           f"{stats['suffix_card']} utterances on the card "
+                           f"and {stats['suffix_host']} on the host")
     if scan_launches != stats["replayed"] + chunks or scan_launches == 0:
         raise RuntimeError(f"{scan_launches} scan_win launches for "
                            f"{stats['replayed']} A* rounds run + {chunks} "
@@ -4276,6 +4356,11 @@ def main() -> int:
     slice_word_end = word_end_path("slice", states.pop("word_end"),
                                    we_launches, card, phases=True)
     slice_astar = astar_vs_eager("slice", staged_astar, card)
+    suffix_path("slice", staged_astar, card)
+    # B = 1, as the reference decodes and flagship.utt1 runs
+    with torch.no_grad(), counted_astar(p2d) as one_astar:
+        eng.decode_features(feats[:1], lens_np[:1])
+    suffix_path("slice_b1", one_astar, card)
     stop_every_sweep("slice", staged_astar["calls"][0], card)
     astar_profile("slice", staged_astar["calls"][0], card)
     capture_cost("slice", staged_astar["calls"][0], card)
@@ -4362,6 +4447,7 @@ def main() -> int:
           max_rounds=stats["max_rounds"], CAPP=stats["CAPP"],
           kernel_launches=launches, word_end_launches=we_launches,
           scan_win_launches=scan_launches, rescan_chunks=chunks,
+          suffix_launches=1, suffix_card=stats["suffix_card"],
           dnn_card_vs_cpu_max_err=dnn_err, card=card)
     if exact < N_UTTS - 1:
         raise RuntimeError(f"only {exact}/{N_UTTS} exact transcripts")

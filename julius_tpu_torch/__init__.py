@@ -10,9 +10,10 @@ counterpart is easy to find:
   adin/    - the native audio-input segmenter, decimator and capture
              (C++, adin/native/adin.cpp, built with g++)
   ops/     - DNN and GMM senone scoring (torch), the pass-1 beam-update
-             and word-end kernels and the pass-2 word-scan kernel
-             (hand-written CUDA, csrc/pass1_step.cu, csrc/word_end.cu,
-             csrc/scan_win.cu)
+             and word-end kernels, the pass-2 word-scan kernel and the
+             device A*'s suffix-estimate kernel (hand-written CUDA,
+             csrc/pass1_step.cu, csrc/word_end.cu, csrc/scan_win.cu,
+             csrc/suffix.cu)
   search/  - flat decode network, device N-gram hash, pass-1 Viterbi
              (kernel path, unfused step, stream chunks), pass 2 (device
              A*, host re-scan, frozen N-gram and DFA searches), word

@@ -597,7 +597,7 @@ class Engine:
         if rescan and any(lat is not None for lat in lattices):
             graphs = None
             if self._device_astar_ok():
-                nbest_lists = self._device_astar(lattices, out_ext)
+                nbest_lists = self._device_astar(lattices, out_ext, trellis)
             else:
                 graphs = [] if self._want_p2_graph() else None
                 nbest_lists = p2r.rescan_nbest_batch(
@@ -618,7 +618,8 @@ class Engine:
             self.callbacks.exec("result", res)
         return out
 
-    def _device_astar(self, lattices, out_ext) -> List[List[p2.NBestResult]]:
+    def _device_astar(self, lattices, out_ext, trellis=None
+                      ) -> List[List[p2.NBestResult]]:
         """Device A* over the batch, then the per-utterance robustness
         net: utterances that came back empty, or clearly below the
         pass-1 path's own total (same score scale when the pass weights
@@ -626,7 +627,9 @@ class Engine:
         the host re-scan.  Where that margin test is not sound (pseudo-
         set nets, differing pass weights) the worst-margin utterance of
         the first few batches is SPOT-CHECKED on the host instead, and a
-        clear host win fails the whole batch over to the host path."""
+        clear host win fails the whole batch over to the host path.
+        `trellis` is the batch's pass-1 trellis on the engine's device,
+        which the A*'s suffix DP reads on a card."""
         sc = self.search_cfg
         with trace.span("astar"):
             if self._p2d_best_in is None:
@@ -637,7 +640,7 @@ class Engine:
                 lattices, self.device_chains, self.ngram_dev,
                 self._wid2lm_p2, self._cprob_arr(), out_ext,
                 self._rescan_strategy(), sc, best_in=self._p2d_best_in,
-                iwcd2=self.iwcd2_tables)
+                iwcd2=self.iwcd2_tables, trellis=trellis)
             t1 = time.perf_counter()
             with trace.span("astar.retry"):
                 retried = self._retry_net(lattices, nbest_lists, out_ext)

@@ -81,10 +81,11 @@ import torch.nn.functional as F
 
 from julius_tpu_torch.config import SearchConfig
 from julius_tpu_torch.ops import scan_kernel as sk
+from julius_tpu_torch.ops import suffix_kernel
 from julius_tpu_torch.ops.scan_kernel import scan_core_win
 from julius_tpu_torch.search.ngram_device import (U32, DeviceNgram,
                                                   _mul_u32, bigram_score)
-from julius_tpu_torch.search.pass1 import _capture, topk_stable
+from julius_tpu_torch.search.pass1 import Trellis, _capture, topk_stable
 from julius_tpu_torch.search.pass2 import NBestResult, TrellisLattice
 from julius_tpu_torch.search.scan import (DeviceChainTables,
                                           head_substituted_sidx)
@@ -145,6 +146,8 @@ class _Prepared:
     last: np.ndarray      # [B] final frame per utt (-1 = skip)
     packed: np.ndarray    # [B, NA, 6] per-atom candidate columns
     stack0: Tuple[np.ndarray, ...]   # initial stack field arrays
+    suffix_card: int = 0  # utterances whose suffix DP ran on the card
+    suffix_host: int = 0  # ... and on the host
 
 
 def _suffix_estimate_np(ab, ae, inc, T, lr, fmax=None):
@@ -273,114 +276,203 @@ def _best_lm_in(strategy, n_words: int) -> np.ndarray:
     return out
 
 
+def _atom_table(lat: TrellisLattice):
+    """Every atom of one utterance's trellis, sorted by begin frame
+    (stable): begin, end and word ids (int64), and the pass-1 score, LM
+    and predecessor's score (f64)."""
+    t_idx, m_idx = np.nonzero(lat.word >= 0)
+    b = lat.begin[t_idx, m_idx].astype(np.int64)
+    order = np.argsort(b, kind="stable")
+    ab = b[order]
+    ae = t_idx[order].astype(np.int64)
+    aw = lat.word[t_idx, m_idx][order].astype(np.int64)
+    asc = lat.score[t_idx, m_idx][order].astype(np.float64)
+    alm = lat.lm[t_idx, m_idx][order].astype(np.float64)
+    prev = lat.prev[t_idx, m_idx][order]
+    pt, pm = np.divmod(np.maximum(prev, 0), lat.M)
+    pscore = np.where(prev >= 0, lat.score[pt, pm], 0.0)
+    return ab, ae, aw, asc, alm, pscore
+
+
+def _lm_ratio(cfg: SearchConfig) -> float:
+    """lm_weight2 / lm_weight (1 without a pass-1 weight): the factor
+    that moves a pass-1 LM score into the pass-2 scale."""
+    lw1 = float(cfg.lm_weight)
+    return (float(cfg.lm_weight2) / lw1) if lw1 else 1.0
+
+
+def _chain_inc(asc, pscore, alm, cfg: SearchConfig) -> np.ndarray:
+    """What the suffix DP chains for each atom: its FULL pass-1
+    incremental score (AM + pass-1 LM) like the host path — see
+    _suffix_estimate_np for why tight beats admissible — with the pass-1
+    LM portion re-weighted into the PASS-2 scale (lw2/lw1, like
+    _best_path_rest): exact scores accumulate lm_weight2-weighted probs,
+    so an un-reweighted estimate is off by (lw2-lw1)*|log p| per
+    remaining word whenever the passes use different weights (-lmp vs
+    -lmp2).  csrc/suffix.cu computes the same in the same order."""
+    return (asc - pscore - alm) + alm * _lm_ratio(cfg)
+
+
+def suffix_host(lat: TrellisLattice, cfg: SearchConfig,
+                fmax: Optional[np.ndarray] = None) -> np.ndarray:
+    """One utterance's atom-chain suffix estimate on the host, as
+    `prepare` computes it without a card: `_suffix_estimate_np` over its
+    atoms with the re-weighted increments; `fmax` the utterance's frame
+    maxima (None: no charge).  The oracle of ops/suffix_kernel.py."""
+    ab, ae, _, asc, alm, pscore = _atom_table(lat)
+    return _suffix_estimate_np(ab, ae, _chain_inc(asc, pscore, alm, cfg),
+                               lat.T, max(0, int(cfg.lookup_range)), fmax)
+
+
+def _suffix_on_card(lattices: List[Optional[TrellisLattice]], trellis,
+                    fmax_dev: torch.Tensor, cfg: SearchConfig
+                    ) -> torch.Tensor:
+    """Launch the suffix kernel over the batch: [B, T] f64 on the card,
+    read after it ends.  `trellis` is the batch's pass-1 trellis on the
+    card ([B, T, M]); without one, the lattices' rows are uploaded."""
+    B, T = fmax_dev.shape
+    if trellis is None:
+        M = next(lat.M for lat in lattices if lat is not None)
+        rows = [np.full((B, T, M), -1, np.int32)] + [
+            np.zeros((B, T, M), dt)
+            for dt in (np.float32, np.float32, np.int32, np.int32)]
+        for b, lat in enumerate(lattices):
+            if lat is not None:
+                for a, x in zip(rows, (lat.word, lat.score, lat.lm,
+                                       lat.prev, lat.begin)):
+                    a[b, :lat.T] = x
+        trellis = Trellis(*[torch.from_numpy(a).to(fmax_dev.device)
+                            for a in rows], None)
+    n = [0 if lat is None else lat.T for lat in lattices]
+    return suffix_kernel.suffix(trellis, n, fmax_dev,
+                                max(0, int(cfg.lookup_range)),
+                                _lm_ratio(cfg))
+
+
+def _prune(ab, ae, aw, ainc, rest, strategy, cfg: SearchConfig,
+           cprob_np: Optional[np.ndarray], best_in: np.ndarray):
+    """Prune one utterance's CANDIDATE table (the suffix DP used the
+    FULL atom set): the kept (begin, end, word, AM span) columns.
+
+    Within one begin frame the candidate ranking is parent-independent —
+    est0 = gb(begin) + (lm_opt + AM span + rest[end]) and gb depends only
+    on the begin — so keeping the top Q_PER_FRAME atoms per begin frame
+    provably preserves every window's true top-CHILD_KEEP children, and
+    bounds the window population to (2lr+1)*Q so the contiguous CA slice
+    in the round body never overflows.  (Round 4 sliced a fixed 768
+    atoms out of windows holding 1500+; whole words silently vanished
+    from the candidate set — the LVCSR truth path among them.)
+    Tail-word atoms bypass the cap: completion anchors must survive (the
+    host appends the Tl-1 anchor for may_final words the same way,
+    _cand_for)."""
+    lm_opt_at = (float(cfg.lm_weight2)
+                 * best_in[np.minimum(aw, len(best_in) - 1)]
+                 + float(cfg.lm_penalty2)
+                 + (cprob_np[np.minimum(aw, len(cprob_np) - 1)]
+                    if cprob_np is not None else 0.0))
+    rest_ae = rest[np.minimum(ae, len(rest) - 1)]
+    indep = np.where(np.isfinite(rest_ae),
+                     ainc + lm_opt_at + rest_ae, -np.inf)
+    is_tail = aw == int(strategy.tail_word)
+    n_at = len(ab)
+    pos = np.arange(n_at)
+    # rank within (begin, word) groups, best-indep first
+    o2 = np.lexsort((-indep, aw, ab))
+    newg = np.r_[True, (ab[o2][1:] != ab[o2][:-1])
+                 | (aw[o2][1:] != aw[o2][:-1])]
+    rank_bw = pos - np.maximum.accumulate(np.where(newg, pos, 0))
+    keep = np.zeros(n_at, bool)
+    keep[o2] = rank_bw < A_ENDS
+    # rank within begin frames among survivors
+    ind2 = np.where(keep, indep, -np.inf)
+    o3 = np.lexsort((-ind2, ab))
+    newb = np.r_[True, ab[o3][1:] != ab[o3][:-1]]
+    rank_b = pos - np.maximum.accumulate(np.where(newb, pos, 0))
+    keep2 = np.zeros(n_at, bool)
+    keep2[o3] = rank_b < Q_PER_FRAME
+    keep &= keep2 | is_tail
+    keep &= np.isfinite(indep) | is_tail
+    return ab[keep], ae[keep], aw[keep], ainc[keep]
+
+
 def prepare(lattices: List[Optional[TrellisLattice]], T: int,
             strategy, cfg: SearchConfig, stack_size: int,
             cprob_np: Optional[np.ndarray] = None,
             best_in: Optional[np.ndarray] = None,
-            fmax: Optional[np.ndarray] = None) -> _Prepared:
+            fmax: Optional[np.ndarray] = None, trellis=None,
+            fmax_dev: Optional[torch.Tensor] = None) -> _Prepared:
     """Build the per-batch atom tables, suffix estimates, and initial
     stacks (sentence-head candidates at frame 0, reference
-    get_backtrellis_words' first-word seeding, ngram_decode.c:334)."""
-    B = len(lattices)
+    get_backtrellis_words' first-word seeding, ngram_decode.c:334).
+
+    `fmax` is the [B, T] frames' best outprob.  Given `fmax_dev`, the
+    same on a CUDA card, the atom-chain suffix DP runs there
+    (ops/suffix_kernel.py, one launch a batch) over `trellis`, the
+    batch's [B, T, M] pass-1 trellis on the card (the lattices' rows
+    uploaded where None), while the host builds the atom tables, and
+    the estimates are read back before the prunes; else it runs on the
+    host, `_suffix_estimate_np` an utterance before its prune."""
     lr = max(0, int(cfg.lookup_range))
-    lw2v = float(cfg.lm_weight2)
-    pen2v = float(cfg.lm_penalty2)
     if best_in is None:
         n_vocab = 0
         for lat in lattices:
             if lat is not None and lat.T:
                 n_vocab = max(n_vocab, int(lat.word.max()) + 1)
         best_in = _best_lm_in(strategy, max(1, n_vocab))
-    na = 1
-    per = []
-    for lat in lattices:
-        if lat is None or lat.T == 0:
-            per.append(None)
+    lattices = [lat if lat is not None and lat.T else None
+                for lat in lattices]
+    n_utts = sum(lat is not None for lat in lattices)
+    rest_dev = None
+    if fmax_dev is not None and fmax_dev.device.type == "cuda" and n_utts:
+        with trace.span("prepare.suffix"):
+            rest_dev = _suffix_on_card(lattices, trellis, fmax_dev, cfg)
+    per = [None] * len(lattices)
+    waiting = []          # (utterance, atom table, best-path curve)
+    for b, lat in enumerate(lattices):
+        if lat is None:
             continue
-        t_idx, m_idx = np.nonzero(lat.word >= 0)
-        b = lat.begin[t_idx, m_idx].astype(np.int64)
-        order = np.argsort(b, kind="stable")
-        ab = b[order]
-        ae = t_idx[order].astype(np.int64)
-        aw = lat.word[t_idx, m_idx][order].astype(np.int64)
-        asc = lat.score[t_idx, m_idx][order].astype(np.float64)
-        alm = lat.lm[t_idx, m_idx][order].astype(np.float64)
-        prev = lat.prev[t_idx, m_idx][order]
-        pt, pm = np.divmod(np.maximum(prev, 0), lat.M)
-        pscore = np.where(prev >= 0, lat.score[pt, pm], 0.0)
+        ab, ae, aw, asc, alm, pscore = _atom_table(lat)
         # AM-only span score of the atom's word (pass-1 LM removed):
         # a CANDIDATE's estimate adds its exact pass-2 LM instead
         ainc = asc - pscore - alm
         with trace.span("prepare.suffix"):
-            # the suffix estimate chains FULL pass-1 incremental scores
-            # (AM + pass-1 LM) like the host path — see
-            # _suffix_estimate_np for why tight beats admissible — with
-            # the pass-1 LM portion re-weighted into the PASS-2 scale
-            # (lw2/lw1, like _best_path_rest): exact scores accumulate
-            # lm_weight2-weighted probs, so an un-reweighted estimate is
-            # off by (lw2-lw1)*|log p| per remaining word whenever the
-            # passes use different weights (-lmp vs -lmp2)
-            lw1v = float(cfg.lm_weight)
-            ratio = (lw2v / lw1v) if lw1v else 1.0
-            inc_rw = (asc - pscore - alm) + alm * ratio
-            fm = (fmax[len(per), :lat.T] if fmax is not None else None)
-            rest = _suffix_estimate_np(ab, ae, inc_rw, lat.T, lr, fm)
             # anchor the estimate on pass-1's own best path: a REAL path
             # covering every frame, so its suffix curve has no holes and
-            # no compounding per-word bounds — the atom-chain DP above
-            # can only raise it where a better continuation provably
-            # exists.  (LM portions re-weighted into the pass-2 scale.)
+            # no compounding per-word bounds — the atom-chain DP can
+            # only raise it where a better continuation provably exists.
+            # (LM portions re-weighted into the pass-2 scale.)
             r1 = _best_path_rest(lat, float(cfg.lm_weight),
                                  float(cfg.lm_weight2))
+            if rest_dev is not None:
+                waiting.append((b, (ab, ae, aw, ainc), r1))
+                continue
+            fm = (fmax[b, :lat.T] if fmax is not None else None)
+            rest = _suffix_estimate_np(ab, ae,
+                                       _chain_inc(asc, pscore, alm, cfg),
+                                       lat.T, lr, fm)
             if r1 is not None:
                 rest = np.maximum(rest, r1)
-        # prune the CANDIDATE table (the suffix DP above used the FULL
-        # atom set).  Within one begin frame the candidate ranking is
-        # parent-independent — est0 = gb(begin) + (lm_opt + AM span +
-        # rest[end]) and gb depends only on the begin — so keeping the
-        # top Q_PER_FRAME atoms per begin frame provably preserves
-        # every window's true top-CHILD_KEEP children, and bounds the
-        # window population to (2lr+1)*Q so the contiguous CA slice in
-        # the round body never overflows.  (Round 4 sliced a fixed 768
-        # atoms out of windows holding 1500+; whole words silently
-        # vanished from the candidate set — the LVCSR truth path among
-        # them.)  Tail-word atoms bypass the cap: completion anchors
-        # must survive (the host appends the Tl-1 anchor for may_final
-        # words the same way, _cand_for).
         with trace.span("prepare.prune"):
-            lm_opt_at = (lw2v * best_in[np.minimum(aw, len(best_in) - 1)]
-                         + pen2v
-                         + (cprob_np[np.minimum(aw, len(cprob_np) - 1)]
-                            if cprob_np is not None else 0.0))
-            rest_ae = rest[np.minimum(ae, lat.T - 1)]
-            indep = np.where(np.isfinite(rest_ae),
-                             ainc + lm_opt_at + rest_ae, -np.inf)
-            tailw = int(strategy.tail_word)
-            is_tail = aw == tailw
-            n_at = len(ab)
-            pos = np.arange(n_at)
-            # rank within (begin, word) groups, best-indep first
-            o2 = np.lexsort((-indep, aw, ab))
-            newg = np.r_[True, (ab[o2][1:] != ab[o2][:-1])
-                         | (aw[o2][1:] != aw[o2][:-1])]
-            rank_bw = pos - np.maximum.accumulate(np.where(newg, pos, 0))
-            keep = np.zeros(n_at, bool)
-            keep[o2] = rank_bw < A_ENDS
-            # rank within begin frames among survivors
-            ind2 = np.where(keep, indep, -np.inf)
-            o3 = np.lexsort((-ind2, ab))
-            newb = np.r_[True, ab[o3][1:] != ab[o3][:-1]]
-            rank_b = pos - np.maximum.accumulate(np.where(newb, pos, 0))
-            keep2 = np.zeros(n_at, bool)
-            keep2[o3] = rank_b < Q_PER_FRAME
-            keep &= keep2 | is_tail
-            keep &= np.isfinite(indep) | is_tail
-            ab, ae, aw, ainc = ab[keep], ae[keep], aw[keep], ainc[keep]
-        per.append((ab, ae, aw, ainc, rest))
-        na = max(na, len(ab))
+            per[b] = (*_prune(ab, ae, aw, ainc, rest, strategy, cfg,
+                              cprob_np, best_in), rest)
+    if waiting:
+        with trace.span("prepare.suffix"):
+            rest_all = rest_dev.cpu().numpy()
+            rests = {}
+            for b, _, r1 in waiting:
+                rest = rest_all[b, :lattices[b].T]
+                rests[b] = rest if r1 is None else np.maximum(rest, r1)
+        for b, table, _ in waiting:
+            with trace.span("prepare.prune"):
+                per[b] = (*_prune(*table, rests[b], strategy, cfg,
+                                  cprob_np, best_in), rests[b])
+    na = max([1] + [len(p[0]) for p in per if p is not None])
     with trace.span("prepare.seed"):
-        return _seed(lattices, per, na, T, strategy, cfg, stack_size,
+        prep = _seed(lattices, per, na, T, strategy, cfg, stack_size,
                      cprob_np, best_in)
+    prep.suffix_card = n_utts if rest_dev is not None else 0
+    prep.suffix_host = n_utts - prep.suffix_card
+    return prep
 
 
 def _seed(lattices, per, na: int, T: int, strategy, cfg: SearchConfig,
@@ -874,10 +966,11 @@ class _Rounds:
 def _setup(lattices: List[Optional[TrellisLattice]],
            tabs: DeviceChainTables, wid2lm: np.ndarray,
            cprob: Optional[np.ndarray], out_ext: torch.Tensor, strategy,
-           cfg: SearchConfig, best_in: Optional[np.ndarray]
+           cfg: SearchConfig, best_in: Optional[np.ndarray], trellis=None
            ) -> Optional[Tuple[_Dims, _Inputs]]:
     """The host half of run_batch: `prepare`, the sizes and the inputs
-    on the device; None when no utterance has a start."""
+    on the device; None when no utterance has a start.  `trellis` is the
+    batch's pass-1 trellis on the card, for `prepare`'s suffix DP."""
     B, T, R = out_ext.shape
     dev = out_ext.device
     out_ext = out_ext.to(torch.float32).contiguous()
@@ -893,14 +986,17 @@ def _setup(lattices: List[Optional[TrellisLattice]],
                capp_mem)
     # per-frame best outprob: the admissible charge for entry-frame
     # slack in the candidate entry bound (cfm)
-    fmax = out_ext.amax(dim=2).cpu().numpy()
+    fmax_dev = out_ext.amax(dim=2)
+    fmax = fmax_dev.cpu().numpy()
     if best_in is None:
         best_in = _best_lm_in(strategy, tabs.loc.shape[0])
     with trace.span("astar.prepare"):
         prep = prepare(lattices, T, strategy, cfg, S, cprob, best_in,
-                       fmax=fmax)
+                       fmax=fmax, trellis=trellis, fmax_dev=fmax_dev)
     if not (prep.last >= 0).any():
         return None
+    LAST_STATS.update(suffix_card=prep.suffix_card,
+                      suffix_host=prep.suffix_host)
     NA = prep.ab.shape[1]
     lr = max(0, int(cfg.lookup_range))
     CA = min((2 * lr + 1) * Q_PER_FRAME, NA)
@@ -1107,7 +1203,7 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
               wid2lm: np.ndarray, cprob: Optional[np.ndarray],
               out_ext: torch.Tensor, strategy, cfg: SearchConfig,
               best_in: Optional[np.ndarray] = None,
-              iwcd2=None, eager: bool = False,
+              iwcd2=None, eager: bool = False, trellis=None,
               ) -> List[List[NBestResult]]:
     """Device A* over a whole utterance batch; returns per-utterance
     N-best lists (empty list = pass-1 fallback, like the host path).
@@ -1122,10 +1218,14 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
 
     `best_in` is LM-dependent, not batch-dependent: pass the cached
     array (engine._p2d_best_in) to avoid re-walking the whole N-gram
-    dict per decode batch."""
+    dict per decode batch.  `trellis`, the batch's [B, T, M] pass-1
+    trellis on the card (`pass1_batch`'s), saves `prepare`'s suffix DP
+    an upload of the lattices.  LAST_STATS' `suffix_card` and
+    `suffix_host` count the utterances whose suffix DP ran on the card
+    (a CUDA out_ext) and on the host."""
     with trace.span("astar.setup"):
         setup = _setup(lattices, tabs, wid2lm, cprob, out_ext, strategy,
-                       cfg, best_in)
+                       cfg, best_in, trellis=trellis)
     if setup is None:
         return [[] for _ in range(len(lattices))]
     d, x = setup

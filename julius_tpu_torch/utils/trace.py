@@ -41,7 +41,9 @@ The spans, each with its parent (`PARENT`):
   best outprob read back and the inputs uploaded;
 * `astar.prepare` [astar.setup]: `pass2_device.prepare`;
 * `prepare.suffix` [astar.prepare]: an utterance's suffix estimate
-  (`_suffix_estimate_np`, `_best_path_rest`);
+  (`_suffix_estimate_np`, `_best_path_rest`); where the DP runs on the
+  card, an utterance's `_best_path_rest`, and once a batch the kernel's
+  launch and, after the atom tables, the wait for it and its read-back;
 * `prepare.prune` [astar.prepare]: an utterance's candidate prune;
 * `prepare.seed` [astar.prepare]: the padded tables, the frame-0 stacks
   and the packed candidate columns of the batch;
