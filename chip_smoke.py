@@ -587,7 +587,8 @@ def lvcsr_phase(card):
             args = step_inputs(dev, etot, N_LVCSR, R, seed=21 + ties,
                                ties=ties, padded=padded)
             step_err = max(step_err, compare_step(pk, args)[0])
-    K_A, W_A = N_LVCSR * p2d.POPS, min(p2d.SCAN_WIN, T)
+    K_A = N_LVCSR * p2d.pops_per_round(eng.p1_cfg.n_atoms)
+    W_A = min(p2d.SCAN_WIN, T)
     scan_err = 0.0
     for ties in (True, False):
         args = scan_inputs(tabs, K_A, W_A, T, R, N_LVCSR, 23 + ties, ties,
@@ -1309,7 +1310,7 @@ def path_kernels(label, calls, launches, eng, card):
     for c in astar["calls"]:
         tabs, out_ext = c["args"][1], c["args"][5]
         B, T, R = out_ext.shape
-        key = (B * p2d.POPS, min(p2d.SCAN_WIN, T), tabs.nmax,
+        key = (B * c["stats"]["P"], min(p2d.SCAN_WIN, T), tabs.nmax,
                tabs.kl + 1, B, T, R)
         calls["scan_win"][key][0] += c["stats"]["replayed"] - \
             c["stats"]["rounds"]

@@ -51,7 +51,8 @@ from julius_tpu_torch.io.htk_dict import Vocabulary
 from julius_tpu_torch.models.hmm import HMMSet
 from julius_tpu_torch.ops.dnn import DNNScorer, build_dnn_scorer
 from julius_tpu_torch.ops.gmm import (GMMScorerTables, aggregate_pseudo,
-                                      build_gmm_tables, senone_scores)
+                                      build_gmm_tables, chunk_rows,
+                                      senone_scores)
 from julius_tpu_torch.ops.gms import GMSTables, build_gms, gms_senone_scores
 from julius_tpu_torch.search import graphout as go
 from julius_tpu_torch.search.align import Alignment, forced_align
@@ -416,9 +417,16 @@ class Engine:
         if self._pseudo is None:
             return rows
         mem, seg, nq = self._pseudo
-        return torch.cat([rows, aggregate_pseudo(
-            mem, seg, nq, rows, self.am_cfg.iwcd_scheme,
-            self.am_cfg.iwcd_nbest)], dim=-1)
+        with trace.span("dnn.pseudo"):
+            agg = aggregate_pseudo(mem, seg, nq, rows,
+                                   self.am_cfg.iwcd_scheme,
+                                   self.am_cfg.iwcd_nbest)
+        if trace.enabled():
+            n = rows[..., 0].numel()
+            trace.count("pseudo.rows", n)
+            trace.count("pseudo.chunks",
+                        -(-n // chunk_rows(n, int(mem.shape[0]))))
+        return torch.cat([rows, agg], dim=-1)
 
     def _features(self, wave: torch.Tensor, lengths: torch.Tensor):
         """[B, L] waveforms -> (scorer input [B, T, D], spliced to D *

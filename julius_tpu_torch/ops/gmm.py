@@ -77,6 +77,12 @@ def _aggregate_rows(x: torch.Tensor, seg: torch.Tensor, n: int,
     return _segment_max(x, seg, n)           # "max" (and best-1)
 
 
+def chunk_rows(n_rows: int, n_members: int) -> int:
+    """Rows of one chunk of `aggregate_pseudo`: as many as keep its
+    [c, L] gathered member scores within CHUNK_BYTES."""
+    return max(1, min(n_rows, CHUNK_BYTES // max(1, 4 * n_members)))
+
+
 def aggregate_pseudo(members: torch.Tensor, segids: torch.Tensor,
                      n_pseudo: int, senone: torch.Tensor,
                      scheme: str = "best", nbest: int = 3) -> torch.Tensor:
@@ -103,7 +109,7 @@ def aggregate_pseudo(members: torch.Tensor, segids: torch.Tensor,
     members = members.to(device=senone.device, dtype=torch.int64)
     seg = segids.to(device=senone.device, dtype=torch.int64)
     out = flat.new_empty((N, n_pseudo))
-    C = max(1, min(N, CHUNK_BYTES // max(1, 4 * L)))
+    C = chunk_rows(N, L)
     for r0 in range(0, N, C):
         blk = flat[r0:r0 + C].index_select(1, members)       # [c, L]
         out[r0:r0 + C] = _aggregate_rows(blk, seg, n_pseudo, scheme, nbest)

@@ -95,8 +95,19 @@ from julius_tpu_torch.utils.logadd import LOG_ZERO
 NEG_HALF = LOG_ZERO / 2
 NEG_INF = float("-inf")
 
-#: hypotheses popped per utterance per round
+#: hypotheses popped per utterance per round: POPS over trellises of
+#: fewer than WIDE_M word ends a frame, WIDE_POPS from there.  The
+#: suffix estimate charges each later word the pass-1 LM of pass 1's own
+#: predecessor, so where pass 1 followed a confusable word the true next
+#: word's entry is underestimated by that LM difference and enters the
+#: stack at ranks 8-24; at 8 pops the wrong path completes first and the
+#: stop test (nothing on the stack above the result) ends the search.
+#: Measured at M = 128 only, the 20k-word configuration: 8 pops lost 7
+#: of 672 searches that the host re-scan won, 32 none of 2848, in the
+#: same time a batch (PERF.md §6)
 POPS = 8
+WIDE_M = 128
+WIDE_POPS = 32
 #: candidate-table prune (prepare): anchor end-frames kept per
 #: (begin, word) pair (the host's A_CAND analogue) ...
 A_ENDS = 16
@@ -123,14 +134,15 @@ NB_SLOTS = 8
 
 #: search statistics of the last run_batch dispatch (profiling)
 LAST_STATS: dict = {}
-#: g/beg-store budget (MB) bounding the per-utterance pop arena
+#: g/beg-store budget (MB) at POPS a round, bounding the rounds
 MEM_MB = 384
 #: rounds the card replays between two host reads of the stop flag: 1,
 #: by measurement on the H100 (PERF.md §6) a host read costs less
 #: than the round past the end that a larger value may run
 STOP_EVERY = 1
 #: captured rounds kept per set of chain tables; each holds its own
-#: g/beg stores (up to MEM_MB) and a copy of its batch's outprob cache
+#: g/beg stores (up to MEM_MB x P / POPS) and a copy of its batch's
+#: outprob cache
 GRAPHS_KEPT = 3
 
 
@@ -963,6 +975,12 @@ class _Rounds:
         self.more.copy_(self._cond())
 
 
+def pops_per_round(M: int) -> int:
+    """Hypotheses an utterance pops a round over a trellis of M word
+    ends a frame."""
+    return WIDE_POPS if M >= WIDE_M else POPS
+
+
 def _setup(lattices: List[Optional[TrellisLattice]],
            tabs: DeviceChainTables, wid2lm: np.ndarray,
            cprob: Optional[np.ndarray], out_ext: torch.Tensor, strategy,
@@ -977,13 +995,16 @@ def _setup(lattices: List[Optional[TrellisLattice]],
     # the device stack holds (hypothesis, boundary-anchor) VARIANTS, so
     # -s is scaled x4 to hold comparable hypothesis diversity
     S = max(64, 4 * int(cfg.stack_size))
-    P = POPS
-    # arena capacity bounds total pops per utterance (the -m budget,
-    # capped so the g/beg stores stay within MEM_MB)
-    capp_mem = max(256, int((MEM_MB << 20)
-                            / max(1, B * T * 8)) // P * P)
-    CAPP = min(max(P * 32, 2 * int(cfg.max_hypo_pop) // P * P),
-               capp_mem)
+    M = max((lat.M for lat in lattices if lat is not None), default=0)
+    P = pops_per_round(M)
+    # the round budget: the -m pop budget at POPS a round, capped so
+    # that the g/beg stores at POPS a round stay within MEM_MB.  The
+    # arena holds P rows a round, so every P gets the same rounds and
+    # the stores grow by P / POPS
+    rounds_mem = max(32, (MEM_MB << 20) // max(1, B * T * 8 * POPS))
+    max_rounds = min(max(32, 2 * int(cfg.max_hypo_pop) // POPS),
+                     rounds_mem)
+    CAPP = max_rounds * P
     # per-frame best outprob: the admissible charge for entry-frame
     # slack in the candidate entry bound (cfm)
     fmax_dev = out_ext.amax(dim=2)
@@ -1019,7 +1040,7 @@ def _setup(lattices: List[Optional[TrellisLattice]],
     cfm = np.concatenate([np.zeros((B, 1), np.float32),
                           np.cumsum(fmax, axis=1, dtype=np.float32)], axis=1)
     d = _Dims(B=B, T=T, R=R, NA=NA, P=P, S=S, CA=CA, CK=min(CHILD_KEEP, CA),
-              CAPP=CAPP, max_rounds=CAPP // P, lr=lr,
+              CAPP=CAPP, max_rounds=max_rounds, lr=lr,
               tail=int(strategy.tail_word),
               nbest=int(min(cfg.nbest, NB_SLOTS)),
               lw2=float(cfg.lm_weight2), pen2=float(cfg.lm_penalty2),
@@ -1222,7 +1243,9 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
     trellis on the card (`pass1_batch`'s), saves `prepare`'s suffix DP
     an upload of the lattices.  LAST_STATS' `suffix_card` and
     `suffix_host` count the utterances whose suffix DP ran on the card
-    (a CUDA out_ext) and on the host."""
+    (a CUDA out_ext) and on the host; `strict_classes` the left-context
+    classes of the strict head table the rounds substitute (class 0
+    included; 0 without strict heads)."""
     with trace.span("astar.setup"):
         setup = _setup(lattices, tabs, wid2lm, cprob, out_ext, strategy,
                        cfg, best_in, trellis=trellis)
@@ -1231,6 +1254,7 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
     d, x = setup
     if iwcd2 is not None and iwcd2.n_resolved == 0:
         iwcd2 = None
+    classes = 0 if iwcd2 is None else int(iwcd2.head_sidx.shape[1])
     run = _eager if x.out_ext.device.type == "cpu" or eager else _graphed
     with run(tabs, ng, iwcd2, d, x) as (rounds, info), \
             trace.span("astar.collect"):
@@ -1242,5 +1266,5 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
     LAST_STATS.update(
         rounds=n_rounds, **info, max_rounds=d.max_rounds, CAPP=d.CAPP,
         P=d.P, S=d.S, CA=d.CA, CK=d.CK, B=d.B, T=d.T, NA=d.NA,
-        graphed=run is _graphed, n_pops=n_pops)
+        graphed=run is _graphed, n_pops=n_pops, strict_classes=classes)
     return results

@@ -21,10 +21,13 @@ profiler), so that a profile holds each span as a range in the same
 event stream, on the same clock, as the kernels its host code launched.
 
 Spans never synchronise the card: they time what the host does, and a
-profile gives the device time of what each one launched.  The tracer
-keeps no counters; the program's own (the graph caches' `captures` and
-`capture_s`, `pass2_device.LAST_STATS`, `Engine.last_pass2`) stay where
-they are.
+profile gives the device time of what each one launched.
+
+On, `count(name, n)` also adds n to a counter of `COUNTERS`, summed
+over calls until `drain_counts()` hands them over and clears them; off
+it records nothing.  The program's other counters (the graph caches'
+`captures` and `capture_s`, `pass2_device.LAST_STATS`,
+`Engine.last_pass2`) stay where they are.
 
 The spans, each with its parent (`PARENT`):
 
@@ -32,6 +35,10 @@ The spans, each with its parent (`PARENT`):
 * `features.h2d` [decode]: `decode_features`' copy of the features to
   the engine's device;
 * `dnn` [decode]: `Engine._outprob`, the senone scores;
+* `dnn.pseudo` [dnn]: `Engine._extend`'s aggregation of the senone
+  scores into the pseudo phone sets' set-state columns (networks with
+  pseudo sets only; under `decode` where `decode_outprob` extends rows
+  it was handed);
 * `pass1` [decode]: `Engine._pass1`;
 * `pass1.readback` [decode]: `Engine._results`' copy of the trellis to
   the host, where the host waits for pass 1's replays;
@@ -76,6 +83,7 @@ PARENT = {
     "decode": None,
     "features.h2d": "decode",
     "dnn": "decode",
+    "dnn.pseudo": "dnn",
     "pass1": "decode",
     "pass1.readback": "decode",
     "astar": "decode",
@@ -89,6 +97,15 @@ PARENT = {
     "astar.wait": "astar.rounds",
     "astar.collect": "astar",
     "astar.retry": "astar",
+}
+
+#: every counter of the program, and what it adds a call (the sizes
+#: behind them are the engine's: Q' and L in `Engine._pseudo`, the
+#: strict head classes in `pass2_device.LAST_STATS`)
+COUNTERS = {
+    "pseudo.rows": "dnn.pseudo: the frame rows aggregated",
+    "pseudo.chunks": "dnn.pseudo: the row chunks gathered and reduced "
+                     "(ops/gmm.py CHUNK_BYTES)",
 }
 
 
@@ -125,6 +142,7 @@ _ids = itertools.count(1)
 _lock = threading.Lock()
 _records: List[Record] = []
 _dropped = 0
+_counts: Dict[str, int] = defaultdict(int)
 _stack = _Stack()
 
 
@@ -143,6 +161,22 @@ def span(name: str):
     if not _ON:
         return _NULL
     return _Span(name)
+
+
+def count(name: str, n: int) -> None:
+    """Add n to counter `name` (COUNTERS) while the tracer is on."""
+    if not _ON:
+        return
+    with _lock:
+        _counts[name] += int(n)
+
+
+def drain_counts() -> Dict[str, int]:
+    """The counters since the last `drain_counts`; clears them."""
+    global _counts
+    with _lock:
+        out, _counts = dict(_counts), defaultdict(int)
+    return out
 
 
 def drain() -> List[Record]:

@@ -134,8 +134,9 @@ def test_one_decode_gives_the_documented_tree(decoding, tracer):
     roots = [r for r in records if r.parent == 0]
     assert [r.name for r in roots] == ["decode"]
     assert assert_call_tree(records, roots[0], stats) == len(records)
+    # the fixture's monophones have no pseudo phone sets to aggregate
     assert set(r.name for r in records) == set(trace.PARENT) - {
-        "astar.capture"}
+        "astar.capture", "dnn.pseudo"}
     assert stats["waits"] == stats["rounds"] + 1     # the eager loop
 
 
