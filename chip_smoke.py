@@ -73,7 +73,12 @@ Phases, one line each, in order (any failure exits non-zero):
      its shapes (pass1_step at B = 32 over the widened outprob row,
      scan_win at the A*'s shape with the word-head columns substituted
      by left-context class), the pseudo aggregation on the card against
-     the CPU; then 32 generative utterances decode three times through
+     the CPU, and the pseudo kernel (csrc/pseudo.cu) at envr20k's shape
+     (the benchmark configuration's own member table, 16 x 1107 rows)
+     held bit-equal to the plain version and to the ATen path it
+     replaced, then timed beside its byte bound, that ATen path and one
+     host pass of the plain version (a kernel_time line); one pseudo
+     launch a decode; then 32 generative utterances decode three times through
      Engine.decode_features (the first two calibrate the device A*'s
      spot-check), the launch counts are read around the third, and a
      staged decode splits its wall into DNN, pseudo aggregation, pass 1,
@@ -536,6 +541,86 @@ def pad_windows(wins, lens):
     return torch.from_numpy(feats).to(DEVICE), np.asarray(lens, np.int32)
 
 
+def pseudo_bytes(N, S, Q, tables) -> int:
+    """Least bytes of one pseudo call over N rows: each row's S senone
+    scores read once and its S + Q extended scores written once, the
+    member table read once."""
+    return (N * (2 * S + Q) + tables.slices.numel()
+            + tables.ids.numel()) * 4
+
+
+#: frames of an envr20k.1pass16 batch that holds a 40-word utterance
+#: (999-1107 on the pool's batches, PERF.md §6, PR 21)
+PSEUDO_T = 1107
+
+
+def pseudo_time(card, B=16, T=PSEUDO_T, n_check=64):
+    """The pseudo kernel at envr20k's shape: the benchmark's envr20k
+    network's own member table (asrbench/configs/envr20k.py), B x T
+    rows of S = 4874 scores.  Held bit-equal to the plain version on the
+    CPU over the first n_check rows in every scheme, and over every row
+    to the ATen path it replaced (gather, scatter_reduce amax and cat on
+    the card) under envr20k's `max`; then timed (engine's call: `max`,
+    extended rows) beside its byte bound, `best` 3 and `avg`, that ATen
+    path, and one pass of the plain version on the host."""
+    from asrbench import harness
+    from asrbench.program import build_engine
+    from julius_tpu_torch.ops import gmm
+    from julius_tpu_torch.ops import pseudo_kernel as psk
+    from julius_tpu_torch.utils.cuda_timing import time_ms
+
+    cfg = harness.load_json(harness.HERE / "configs" / "envr20k.json")
+    builder = harness.load_module(harness.HERE / "configs" / "envr20k.py")
+    eng = build_engine(builder.build(cfg, 0), "cpu", enable_pass2=False)
+    ps = eng.net.pseudo
+    S, Q, L = eng.hmm.n_states, ps.n_set_states, len(ps.members)
+    mem, seg, _ = eng._pseudo
+    tab = psk.build_tables(ps.members, ps.member_ofs, DEVICE)
+    rng = np.random.default_rng(7)
+    host = rng.normal(-4.0, 2.0, (B, T, S)).astype(np.float32)
+    host[rng.random(host.shape) < 0.05] = LOG_ZERO
+    rows = torch.from_numpy(host).to(DEVICE)
+    mem_d, seg_d = mem.to(DEVICE), seg.to(DEVICE)
+
+    def kernel(scheme, nbest):
+        return lambda: psk.aggregate(rows, tab, scheme, nbest, extend=True)
+
+    def aten():
+        return torch.cat([rows, gmm.aggregate_pseudo_plain(
+            mem_d, seg_d, Q, rows, "max", 1)], dim=-1)
+
+    with torch.no_grad():
+        first = torch.from_numpy(host.reshape(-1, S)[:n_check])
+        for scheme, nbest in (("max", 1), ("best", 3), ("best", 5),
+                              ("avg", 3)):
+            got = psk.aggregate(first.to(DEVICE), tab, scheme, nbest,
+                                extend=True).cpu()
+            want = torch.cat([first, gmm.aggregate_pseudo_plain(
+                mem, seg, Q, first, scheme, nbest)], dim=-1)
+            if not torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)):
+                raise RuntimeError(f"pseudo kernel ({scheme} {nbest}) "
+                                   "differs from the plain version")
+        if not torch.equal(kernel("max", 1)(), aten()):
+            raise RuntimeError("pseudo kernel differs from the ATen path")
+        ms = {f"kernel_ms_{s}{n if s == 'best' else ''}":
+              time_ms(kernel(s, n), n=20, warm=3)
+              for s, n in (("max", 1), ("best", 3), ("avg", 3))}
+        aten_ms = time_ms(aten, n=3, warm=1)
+        t0 = time.perf_counter()
+        gmm.aggregate_pseudo_plain(mem, seg, Q, torch.from_numpy(host),
+                                   "max", 1)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    N = B * T
+    bound_ms = pseudo_bytes(N, S, Q, tab) / HBM_BYTES_PER_S * 1e3
+    return dict(batch=B, frames=T, senones=S, pseudo_set_states=Q,
+                members=L, table_entries=int(tab.ids.numel()),
+                plan=list(psk.plan(S)), **ms, bound_ms=bound_ms,
+                share_of_bound=bound_ms / ms["kernel_ms_max"],
+                aten_ms=aten_ms, plain_ms=plain_ms, library_ms=None,
+                card=card)
+
+
 def lvcsr_phase(card):
     """The 20k-word tied-triphone configuration: kernels at its shapes,
     then three decodes of bench.py's 32 utterances and a staged one, then
@@ -544,6 +629,7 @@ def lvcsr_phase(card):
     from julius_tpu_torch.engine import Engine
     from julius_tpu_torch.ops import gmm
     from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import pseudo_kernel as psk
     from julius_tpu_torch.ops import scan_kernel as sk
     from julius_tpu_torch.ops import word_end_kernel as we
     from julius_tpu_torch.ops.dnn import dnn_scores
@@ -627,6 +713,8 @@ def lvcsr_phase(card):
         raise RuntimeError("pseudo aggregation on the card differs from "
                            "the CPU by "
                            f"{float((card_agg - cpu_agg).abs().max())}")
+    pseudo_t = pseudo_time(card)
+    phase("kernel_time", path="envr20k", kernel="pseudo", **pseudo_t)
 
     # ---- three decodes; the counts are read around the third
     spot, retried = [], []
@@ -636,17 +724,21 @@ def lvcsr_phase(card):
         retried.append(eng.last_pass2["retried"])
     torch.cuda.synchronize()
     pk.LAUNCHES = sk.LAUNCHES = we.LAUNCHES = p2r.CHUNKS = 0
+    psk.LAUNCHES = 0
     t0 = time.perf_counter()
     res, spans = traced(eng.decode_features, feats, lens_np)
     e2e_s = time.perf_counter() - t0
     launches, scan_launches, chunks = pk.LAUNCHES, sk.LAUNCHES, p2r.CHUNKS
-    we_launches = we.LAUNCHES
+    we_launches, pseudo_launches = we.LAUNCHES, psk.LAUNCHES
     stats = dict(p2d.LAST_STATS)
     spot.append(eng._p2d_spot_ok)
     retried.append(eng.last_pass2["retried"])
     if launches != T or we_launches != T:
         raise RuntimeError(f"{launches} pass1_step and {we_launches} "
                            f"word_end launches for {T} frames")
+    if pseudo_launches != 1:
+        raise RuntimeError(f"{pseudo_launches} pseudo launches for one "
+                           "decode")
     if scan_launches != stats["replayed"] + chunks or scan_launches == 0:
         raise RuntimeError(f"{scan_launches} scan_win launches for "
                            f"{stats['replayed']} A* rounds run + {chunks} "
@@ -694,7 +786,7 @@ def lvcsr_phase(card):
         raise RuntimeError("staged lvcsr decode differs from decode_features")
     BT = N_LVCSR * T
     agg_ms = time_ms(lambda: eng._extend(rows), n=10, warm=2)
-    agg_bytes = BT * S * 4 + int(mem.shape[0]) * 8 + BT * nq * 4
+    agg_bytes = pseudo_bytes(BT, S, nq, eng._pseudo_kernel)
     exact = exact_count(res, truths)
     audio_s = float(lens_np.sum()) / 100.0
     phase("lvcsr", utterances=N_LVCSR, frames=T, audio_s=audio_s,
@@ -710,7 +802,8 @@ def lvcsr_phase(card):
           astar_n_pops=stats["n_pops"],
           astar_loop_wall_s=spans["astar.rounds"].total_s,
           kernel_launches=launches, word_end_launches=we_launches,
-          scan_win_launches=scan_launches, rescan_chunks=chunks, card=card)
+          scan_win_launches=scan_launches, rescan_chunks=chunks,
+          pseudo_launches=pseudo_launches, card=card)
     if exact < N_LVCSR - 2:
         raise RuntimeError(f"only {exact}/{N_LVCSR} exact lvcsr transcripts")
 
@@ -4163,6 +4256,7 @@ def main() -> int:
         return 1
     from julius_tpu_torch.ops import cuda_build
     from julius_tpu_torch.ops import pass1_kernel as pk
+    from julius_tpu_torch.ops import pseudo_kernel as psk
     from julius_tpu_torch.ops import scan_kernel as sk
     from julius_tpu_torch.ops import suffix_kernel as sx
     from julius_tpu_torch.ops import word_end_kernel as we
@@ -4184,16 +4278,16 @@ def main() -> int:
     t0 = time.perf_counter()
     # the three kernels and word_end's phase-stamp build, one nvcc each
     cuda_build.compile_all([pk.SOURCE, sk.SOURCE, we.SOURCE, sx.SOURCE,
-                            (we.SOURCE, (PHASES_FLAG,))])
-    for m in (pk, sk, we, sx):
+                            psk.SOURCE, (we.SOURCE, (PHASES_FLAG,))])
+    for m in (pk, sk, we, sx, psk):
         m.build()
     build_s = time.perf_counter() - t0
     ptxas = {m.SOURCE.name: cuda_build.ptxas_report(m.SOURCE)
-             for m in (pk, sk, we, sx)}
+             for m in (pk, sk, we, sx, psk)}
     ptxas[f"{we.SOURCE.name} {PHASES_FLAG}"] = cuda_build.ptxas_report(
         we.SOURCE, (PHASES_FLAG,))
     phase("build", seconds=round(build_s, 3),
-          kernels=["pass1_step", "scan_win", "word_end", "suffix"],
+          kernels=["pass1_step", "scan_win", "word_end", "suffix", "pseudo"],
           ptxas=ptxas)
     for source, report in ptxas.items():
         check_no_spills(report, source)

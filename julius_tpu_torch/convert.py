@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from julius_tpu_torch.ops import pseudo_kernel
 from julius_tpu_torch.ops.dnn import DNNScorer
 from julius_tpu_torch.ops.gmm import GMMScorerTables, gmm_tables_from_numpy
 from julius_tpu_torch.ops.gms import GMSTables
@@ -149,6 +150,8 @@ def load_tables(engine, dnn: dict, network: dict, ngram: dict,
             torch.as_tensor(pseudo[k], dtype=torch.int64,
                             device=engine.device)
             for k in ("members", "segids")) + (pseudo["n_pseudo"],)
+        engine._pseudo_kernel = pseudo_kernel.tables_from_segments(
+            *engine._pseudo, engine.device)
     if iwcd2 is not None:
         engine._iwcd2_tables = StrictIWCDTables.from_numpy(
             iwcd2["head_sidx"], iwcd2["head_ns"], iwcd2["lc_of_word"],

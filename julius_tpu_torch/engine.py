@@ -49,6 +49,7 @@ from julius_tpu_torch.io.dfa import DFAGrammar
 from julius_tpu_torch.io.dnn import DNNParams
 from julius_tpu_torch.io.htk_dict import Vocabulary
 from julius_tpu_torch.models.hmm import HMMSet
+from julius_tpu_torch.ops import pseudo_kernel
 from julius_tpu_torch.ops.dnn import DNNScorer, build_dnn_scorer
 from julius_tpu_torch.ops.gmm import (GMMScorerTables, aggregate_pseudo,
                                       build_gmm_tables, chunk_rows,
@@ -266,7 +267,9 @@ class Engine:
     def _setup_pseudo_arrays(self) -> None:
         """(members, segids, Q') of the network's pseudo set-states on
         the device, or None: their scores are the outprob cache's
-        columns after the senones'."""
+        columns after the senones'.  The plain version reads members
+        and segids (int64); the card's kernel its sliced int32 member
+        table, `_pseudo_kernel`, built here once."""
         ps = self.net.pseudo
         if ps is not None and ps.n_set_states > 0:
             segids = np.repeat(np.arange(ps.n_set_states, dtype=np.int64),
@@ -276,8 +279,10 @@ class Engine:
                                 device=self.device),
                 torch.as_tensor(segids, device=self.device),
                 int(ps.n_set_states))
+            self._pseudo_kernel = pseudo_kernel.build_tables(
+                ps.members, ps.member_ofs, self.device)
         else:
-            self._pseudo = None
+            self._pseudo = self._pseudo_kernel = None
 
     def _cprob_arr(self) -> Optional[np.ndarray]:
         return (np.asarray(self.voca.cprob, dtype=np.float32)
@@ -413,20 +418,26 @@ class Engine:
 
     def _extend(self, rows: torch.Tensor) -> torch.Tensor:
         """[B, T, S] senone rows -> [B, T, S + Q'] with the pseudo
-        set-states' scores appended (iwcd1 scheme of the AM config)."""
+        set-states' scores appended (iwcd1 scheme of the AM config): on
+        a card one kernel launch writes the extended rows, on the CPU
+        the plain version's chunks and a concatenation."""
         if self._pseudo is None:
             return rows
         mem, seg, nq = self._pseudo
+        launches = pseudo_kernel.LAUNCHES
         with trace.span("dnn.pseudo"):
-            agg = aggregate_pseudo(mem, seg, nq, rows,
+            out = aggregate_pseudo(mem, seg, nq, rows,
                                    self.am_cfg.iwcd_scheme,
-                                   self.am_cfg.iwcd_nbest)
+                                   self.am_cfg.iwcd_nbest,
+                                   tables=self._pseudo_kernel, extend=True)
         if trace.enabled():
             n = rows[..., 0].numel()
+            launched = pseudo_kernel.LAUNCHES - launches
             trace.count("pseudo.rows", n)
-            trace.count("pseudo.chunks",
+            trace.count("pseudo.kernel", launched)
+            trace.count("pseudo.chunks", launched if rows.is_cuda else
                         -(-n // chunk_rows(n, int(mem.shape[0]))))
-        return torch.cat([rows, agg], dim=-1)
+        return out
 
     def _features(self, wave: torch.Tensor, lengths: torch.Tensor):
         """[B, L] waveforms -> (scorer input [B, T, D], spliced to D *

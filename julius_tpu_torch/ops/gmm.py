@@ -1,7 +1,8 @@
 """GMM acoustic scoring and pseudo-phone-set output probabilities.
 
 Port of `julius_tpu/ops/gmm.py`, XLA in the reference, plain PyTorch
-here.  A diagonal Gaussian's log density is
+here but for the pseudo set-states' scores on a card (below).  A
+diagonal Gaussian's log density is
 
     log N(x; mu, diag sigma^2) = c_g + x . a_g - (x*x) . half_iv_g
 
@@ -12,25 +13,30 @@ full-f32 product [B*T, 2D] x [2D, G] of [x, x*x] by the stacked table
 senone's score is the log-sum-exp over its mixture of the gathered
 Gaussian scores plus log weights, optionally over its top-k components
 only (`gprune`, `senone_scores`); tied-mixture codebooks are shared
-Gaussian ids.  The gather runs over row chunks, as `aggregate_pseudo`
-does: the [rows, S, M] mixture scores of a whole batch would be a
-gigabyte at the flagship width.
+Gaussian ids.  The gather runs over row chunks, as
+`aggregate_pseudo_plain` does: the [rows, S, M] mixture scores of a
+whole batch would be a gigabyte at the flagship width.
 
 A word-edge node whose context is unknown at network build time scores
 a "pseudo set-state", an aggregate of the senones of every physical
 triphone that fits its partial context (models/hmm.py
 `PseudoPhoneSets`); the engine appends these columns after the senone
 columns of the outprob cache with `aggregate_pseudo`, whatever scored
-the senones.
+the senones: on CPU tensors the chunked plain version
+(`aggregate_pseudo_plain`), on a card one launch of the hand-written
+kernel of ops/pseudo_kernel.py, which writes the extended rows itself.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
+
 import numpy as np
 import torch
 
 from julius_tpu_torch.models.hmm import HMMSet
+from julius_tpu_torch.ops import pseudo_kernel
 from julius_tpu_torch.utils.device import full_f32_matmul
 from julius_tpu_torch.utils.logadd import LOG_ZERO
 
@@ -83,25 +89,15 @@ def chunk_rows(n_rows: int, n_members: int) -> int:
     return max(1, min(n_rows, CHUNK_BYTES // max(1, 4 * n_members)))
 
 
-def aggregate_pseudo(members: torch.Tensor, segids: torch.Tensor,
-                     n_pseudo: int, senone: torch.Tensor,
-                     scheme: str = "best", nbest: int = 3) -> torch.Tensor:
-    """Aggregate senone scores into pseudo-set-state scores (reference
-    outprob_cd, libsent/src/phmm/outprob.c:287-420; scheme selected by
-    -iwcd1):
-
-      max  - max over member states (outprob_cd_max)
-      avg  - arithmetic mean of the finite member log probs
-             (> LOG_ZERO / 2; outprob_cd_avg)
-      best - arithmetic mean of the top-nbest log probs
-             (outprob_cd_nbest; nbest = 1 is max)
-
-    members [L] senone ids grouped by set-state; segids [L] the set-state
-    of each member (non-decreasing); senone [..., S] -> [..., n_pseudo].
-
-    Rows are gathered in chunks whose [c, L] member scores stay within
-    CHUNK_BYTES, as the reference does: all of them at once would be
-    [B*T, L] floats, gigabytes at the 20k-word configuration."""
+def aggregate_pseudo_plain(members: torch.Tensor, segids: torch.Tensor,
+                           n_pseudo: int, senone: torch.Tensor,
+                           scheme: str = "best",
+                           nbest: int = 3) -> torch.Tensor:
+    """The plain version of `aggregate_pseudo`'s [..., n_pseudo] scores,
+    on the senone rows' device: row chunks whose [c, L] member scores
+    stay within CHUNK_BYTES, as the reference does (all of them at once
+    would be [B*T, L] floats, gigabytes at the 20k-word configuration),
+    each gathered by `index_select` and reduced by `scatter_reduce`."""
     S = senone.shape[-1]
     flat = senone.reshape(-1, S)
     N = flat.shape[0]
@@ -114,6 +110,45 @@ def aggregate_pseudo(members: torch.Tensor, segids: torch.Tensor,
         blk = flat[r0:r0 + C].index_select(1, members)       # [c, L]
         out[r0:r0 + C] = _aggregate_rows(blk, seg, n_pseudo, scheme, nbest)
     return out.reshape(*senone.shape[:-1], n_pseudo)
+
+
+def aggregate_pseudo(members: torch.Tensor, segids: torch.Tensor,
+                     n_pseudo: int, senone: torch.Tensor,
+                     scheme: str = "best", nbest: int = 3,
+                     tables: Optional[pseudo_kernel.PseudoTables] = None,
+                     extend: bool = False) -> torch.Tensor:
+    """Aggregate senone scores into pseudo-set-state scores (reference
+    outprob_cd, libsent/src/phmm/outprob.c:287-420; scheme selected by
+    -iwcd1):
+
+      max  - max over member states (outprob_cd_max)
+      avg  - arithmetic mean of the finite member log probs
+             (> LOG_ZERO / 2; outprob_cd_avg)
+      best - arithmetic mean of the top-nbest log probs
+             (outprob_cd_nbest; nbest = 1 is max)
+
+    members [L] senone ids grouped by set-state; segids [L] the set-state
+    of each member (non-decreasing); senone [..., S] -> [..., n_pseudo],
+    or with `extend` the extended rows [..., S + n_pseudo] (the senone
+    columns first).
+
+    CPU tensors take the plain version (`aggregate_pseudo_plain`); CUDA
+    tensors one launch of the kernel (ops/pseudo_kernel.py `aggregate`)
+    over `tables`, the kernel's member table, which a caller that
+    aggregates often builds once (else it is built from members and
+    segids for this call)."""
+    d = senone.device
+    if d.type == "cuda":
+        if tables is None:
+            tables = pseudo_kernel.tables_from_segments(members, segids,
+                                                        n_pseudo, d)
+        return pseudo_kernel.aggregate(senone, tables, scheme, nbest,
+                                       extend)
+    if d.type != "cpu":
+        raise ValueError(f"unsupported device {d}")
+    agg = aggregate_pseudo_plain(members, segids, n_pseudo, senone, scheme,
+                                 nbest)
+    return torch.cat([senone, agg], dim=-1) if extend else agg
 
 
 @dataclass

@@ -162,7 +162,7 @@ class TensorParallelDNN(nn.Module):
 
 #: the engine's device tables that a replica carries to its device
 _TABLES = ("dev_net", "ngram_dev", "gmm_tables", "gms", "_state_sid",
-           "_pseudo", "noise_spectrum")
+           "_pseudo", "_pseudo_kernel", "noise_spectrum")
 
 
 def _replica(engine, device: torch.device):

@@ -104,8 +104,11 @@ PARENT = {
 #: strict head classes in `pass2_device.LAST_STATS`)
 COUNTERS = {
     "pseudo.rows": "dnn.pseudo: the frame rows aggregated",
-    "pseudo.chunks": "dnn.pseudo: the row chunks gathered and reduced "
-                     "(ops/gmm.py CHUNK_BYTES)",
+    "pseudo.chunks": "dnn.pseudo: the row chunks that ran: the plain "
+                     "version's (ops/gmm.py CHUNK_BYTES) on the CPU, the "
+                     "kernel's launches on a card",
+    "pseudo.kernel": "dnn.pseudo: launches of the pseudo kernel "
+                     "(ops/pseudo_kernel.py)",
 }
 
 
