@@ -26,8 +26,8 @@ Phases, one line each, in order (any failure exits non-zero):
      also each shape's phase split from the phase-stamp build); suffix
      (the device A*'s suffix DP) likewise on the decodes' own trellises:
      every path's suffix_check line holds each device A* call's estimate
-     bit-equal to numpy's `_suffix_estimate_np` on every utterance and
-     times the first call beside one numpy pass (on the slice at B = 16
+     bit-equal to its plain version `suffix_plain` on every utterance and
+     times the first call beside one plain pass (on the slice at B = 16
      and B = 1, on lvcsr, on each command-line and server path);
   4. slice: the full-width flagship engine (5000-word 2-gram, 2004
      senones, 5 x 2048 sigmoid DNN) with the reference's search
@@ -2401,12 +2401,13 @@ def suffix_path(label, astar, card):
     call of one path (`counted_astar`): one launch over the call's
     pass-1 trellis on the card (its lattices uploaded where the call had
     none, as `prepare` uploads them) and its frames' best outprob, each
-    utterance's estimate held bit for bit to `suffix_host` (numpy's
-    `_suffix_estimate_np`).  The first call timed: the kernel (CUDA
-    events around the wrapper's call, median of 20) against one numpy
-    pass over its utterances (host clock).  Prints one suffix_check
-    line; returns its fields."""
+    utterance's estimate held bit for bit to the plain version
+    (`suffix_plain` on the same trellis on the CPU).  The first call
+    timed: the kernel (CUDA events around the wrapper's call, median of
+    20) against one plain pass over its utterances (host clock).  Prints
+    one suffix_check line; returns its fields."""
     from julius_tpu_torch.ops import suffix_kernel as sx
+    from julius_tpu_torch.search import pass1 as p1
     from julius_tpu_torch.search import pass2_device as p2d
     from julius_tpu_torch.utils.cuda_timing import time_ms
 
@@ -2416,44 +2417,42 @@ def suffix_path(label, astar, card):
         lats = [lat if lat is not None and lat.T else None for lat in lats]
         fmax = out_ext.to(torch.float32).amax(dim=2)
         tr = c["kw"].get("trellis")
+        T = out_ext.shape[1]
+        tr_cpu = None if tr is None else p1.Trellis(
+            *[a.cpu() for a in tr[:5]], None)
 
         def run():
-            return p2d._suffix_on_card(lats, tr, fmax, cfg)
+            return p2d._suffix_launch(lats, T, tr, fmax, cfg)
         got = run().cpu().numpy()
-        fm = fmax.cpu().numpy()
         frames = [lat.T for lat in lats if lat is not None]
         t0 = time.perf_counter()
-        want = [None if lat is None else p2d.suffix_host(lat, cfg,
-                                                         fm[b, :lat.T])
-                for b, lat in enumerate(lats)]
-        numpy_ms = (time.perf_counter() - t0) * 1e3
-        equal = all(w is None or (np.array_equal(got[b, :len(w)], w)
-                                  and (got[b, len(w):] == -np.inf).all())
-                    for b, w in enumerate(want))
+        want = p2d._suffix_launch(lats, T, tr_cpu, fmax.cpu(), cfg).numpy()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        equal = np.array_equal(got, want)
         M = next(lat.M for lat in lats if lat is not None)
         x = dict(utterances=len(frames), frames=sum(frames),
                  longest=max(frames), M=M, plan=list(sx.plan(M)),
                  uploaded=tr is None, bit_equal=equal)
         if i == 0:
             ms = time_ms(run, n=20, warm=3)
-            x.update(kernel_ms=ms, numpy_ms=numpy_ms,
+            x.update(kernel_ms=ms, plain_ms=plain_ms,
                      us_per_frame=ms * 1e3 / max(frames),
-                     numpy_us_per_frame=numpy_ms * 1e3 / sum(frames),
-                     numpy_over_kernel=numpy_ms / ms)
+                     plain_us_per_frame=plain_ms * 1e3 / sum(frames),
+                     plain_over_kernel=plain_ms / ms)
         per.append(x)
     fields = dict(path=label, calls=len(per),
                   utterances=sum(x["utterances"] for x in per),
                   bit_equal=all(x["bit_equal"] for x in per),
                   **({k: per[0][k] for k in (
-                      "M", "plan", "kernel_ms", "numpy_ms", "us_per_frame",
-                      "numpy_us_per_frame", "numpy_over_kernel",
+                      "M", "plan", "kernel_ms", "plain_ms", "us_per_frame",
+                      "plain_us_per_frame", "plain_over_kernel",
                       "longest", "uploaded")} if per else {}),
                   per_call=per)
     phase("suffix_check", **fields, card=card)
     SUFFIX_LINES.append(fields)
     if not per or not fields["bit_equal"]:
         raise RuntimeError(f"{label}: the suffix kernel differs from "
-                           f"numpy: {fields}")
+                           f"its plain version: {fields}")
     return fields
 
 
@@ -4413,11 +4412,8 @@ def main() -> int:
     if launches != T or we_launches != T:
         raise RuntimeError(f"{launches} pass1_step and {we_launches} "
                            f"word_end launches for {T} frames")
-    if (sx.LAUNCHES, stats["suffix_card"], stats["suffix_host"]) != (
-            1, N_UTTS, 0):
-        raise RuntimeError(f"{sx.LAUNCHES} suffix launches, suffix DP of "
-                           f"{stats['suffix_card']} utterances on the card "
-                           f"and {stats['suffix_host']} on the host")
+    if sx.LAUNCHES != 1:
+        raise RuntimeError(f"{sx.LAUNCHES} suffix launches for one batch")
     if scan_launches != stats["replayed"] + chunks or scan_launches == 0:
         raise RuntimeError(f"{scan_launches} scan_win launches for "
                            f"{stats['replayed']} A* rounds run + {chunks} "
@@ -4542,7 +4538,7 @@ def main() -> int:
           max_rounds=stats["max_rounds"], CAPP=stats["CAPP"],
           kernel_launches=launches, word_end_launches=we_launches,
           scan_win_launches=scan_launches, rescan_chunks=chunks,
-          suffix_launches=1, suffix_card=stats["suffix_card"],
+          suffix_launches=1,
           dnn_card_vs_cpu_max_err=dnn_err, card=card)
     if exact < N_UTTS - 1:
         raise RuntimeError(f"only {exact}/{N_UTTS} exact transcripts")

@@ -4,8 +4,8 @@
 //
 // Replaces no TPU kernel: the reference computes this estimate on the
 // host too (a numpy loop over frames), and so did the port until this
-// kernel.  It is julius_tpu_torch/search/pass2_device.py
-// `_suffix_estimate_np` on the inputs `prepare` gives it, for each row b
+// kernel.  It is julius_tpu_torch/search/pass2.py `suffix_estimate` on
+// the inputs `pass2_device.prepare` gives it, for each row b
 // of the [B, T, M] trellis (word, score, lm, prev, begin) and its first
 // Tb = n_frames[b] frames (Tb = 0: the row is skipped):
 //   1. each atom slot a with word >= 0 (the others take inc = -inf):
@@ -24,8 +24,8 @@
 // (__dadd_rn and friends: nvcc would contract a * b + c into an FMA), the
 // two running sums are sequential f32 adds in one thread as numpy's
 // cumsum adds them (a parallel scan rounds differently), and a maximum is
-// exact in any order, so rest is bit-equal to `_suffix_estimate_np` and
-// to ops/suffix_kernel.py `suffix_plain`.
+// exact in any order, so rest is bit-equal to `suffix_estimate` and to
+// ops/suffix_kernel.py `suffix_plain`.
 //
 // Bound: latency.  The inputs are 20 bytes an atom slot and 4 a frame
 // (at B = 16, T = 1560, M = 32 about 16 MB, 5 us at the card's memory

@@ -595,7 +595,6 @@ class Engine:
         out: List[Optional[Result]] = [None] * B
         tbs: List[Optional[p1.Trellis]] = [None] * B
         want_p2 = self.search_cfg.enable_pass2 and self.lmtype != "word"
-        rescan = want_p2 and out_ext is not None and self._rescan_ok()
         lattices: List[Optional[p2.TrellisLattice]] = [None] * B
         for b in range(B):
             tb = p1.Trellis(*[a[b] for a in host])
@@ -609,24 +608,12 @@ class Engine:
                 out[b] = Result(valid=False, reject_reason=reason)
                 continue
             tbs[b] = tb
-            if rescan:
+            if want_p2:
                 lattices[b] = p2.TrellisLattice(tb, n)
-            elif want_p2:
-                out[b] = self._pass2_result(tb, n)
-        if rescan and any(lat is not None for lat in lattices):
-            graphs = None
-            if self._device_astar_ok():
-                nbest_lists = self._device_astar(lattices, out_ext, trellis)
-            else:
-                graphs = [] if self._want_p2_graph() else None
-                nbest_lists = p2r.rescan_nbest_batch(
-                    lattices, self._dispatcher(out_ext),
-                    self._rescan_strategy(), self.search_cfg, graphs=graphs)
-            for b in range(B):
-                if lattices[b] is not None and nbest_lists[b]:
-                    out[b] = self._assemble_pass2(
-                        nbest_lists[b], lattices[b],
-                        gwords=graphs[b] if graphs else None)
+        if any(lat is not None for lat in lattices):
+            for b, res in enumerate(self._pass2(lattices, out_ext, trellis)):
+                if res is not None:
+                    out[b] = res
         for b in range(B):
             if out[b] is None:
                 # pass-2 empty -> pass-1 fallback (reference
@@ -636,6 +623,50 @@ class Engine:
         for res in out:
             self.callbacks.exec("result", res)
         return out
+
+    def _pass2(self, lattices: List[Optional[p2.TrellisLattice]],
+               out_ext: Optional[torch.Tensor] = None, trellis=None
+               ) -> List[Optional[Result]]:
+        """Pass 2 of a batch's lattices (None: no utterance): a Result
+        each, None where it finds no sentence (the caller falls back to
+        pass 1).  With out_ext ([B, T, R] outprob cache) and a re-scan
+        configuration, the device A* with its retry net or the host
+        re-scan; otherwise the frozen-score search (pass-1 acoustic
+        scores).  `trellis`, the batch's pass-1 trellis on the engine's
+        device, feeds the device A*'s suffix DP."""
+        graphs = None
+        if out_ext is not None and self._rescan_ok():
+            if self._device_astar_ok():
+                nbest_lists = self._device_astar(lattices, out_ext, trellis)
+            else:
+                graphs = [] if self._want_p2_graph() else None
+                nbest_lists = p2r.rescan_nbest_batch(
+                    lattices, self._dispatcher(out_ext),
+                    self._rescan_strategy(), self.search_cfg, graphs=graphs)
+        else:
+            nbest_lists = [None if lat is None else self._frozen_nbest(lat)
+                           for lat in lattices]
+        return [self._assemble_pass2(nbest, lat,
+                                     gwords=graphs[b] if graphs else None)
+                if lat is not None and nbest else None
+                for b, (lat, nbest) in enumerate(zip(lattices, nbest_lists))]
+
+    def _frozen_nbest(self, lattice: p2.TrellisLattice
+                      ) -> List[p2.NBestResult]:
+        """The frozen-score search of one lattice: under the DFA, the
+        backward N-gram (an RL model) or the forward N-gram."""
+        sc = self.search_cfg
+        if self.lmtype == "grammar":
+            return p2.pass2_search_dfa(lattice, self.dfa, self.word_cat, sc)
+        transparent = np.asarray(self.voca.transparent, dtype=bool) \
+            if self.voca.transparent else None
+        if self.lm is not None and self.lm.direction == "RL":
+            return p2.pass2_search_backward(
+                lattice, self.lm, self._wid2lm_p2, sc, self.net.tail_word,
+                self.net.head_word, transparent)
+        return p2.pass2_search(lattice, self.lm, self._wid2lm_p2, sc,
+                               self.net.tail_word, transparent,
+                               self._cprob_arr())
 
     def _device_astar(self, lattices, out_ext, trellis=None
                       ) -> List[List[p2.NBestResult]]:
@@ -648,7 +679,7 @@ class Engine:
         the first few batches is SPOT-CHECKED on the host instead, and a
         clear host win fails the whole batch over to the host path.
         `trellis` is the batch's pass-1 trellis on the engine's device,
-        which the A*'s suffix DP reads on a card."""
+        which the A*'s suffix DP reads."""
         sc = self.search_cfg
         with trace.span("astar"):
             if self._p2d_best_in is None:
@@ -684,8 +715,7 @@ class Engine:
             if not nbest_lists[b]:
                 retry[b] = lat
                 continue
-            p1best = float(np.max(np.where(
-                lat.word[lat.T - 1] >= 0, lat.score[lat.T - 1], -np.inf)))
+            p1best = p2._final_best(lat)
             if not np.isfinite(p1best):
                 continue
             margin = nbest_lists[b][0].score - p1best
@@ -702,8 +732,7 @@ class Engine:
             host_lists = p2r.rescan_nbest_batch(
                 retry, disp, self._rescan_strategy(), sc)
             if spot and host_lists[spot_b]:
-                dev_s = nbest_lists[spot_b][0].score \
-                    if nbest_lists[spot_b] else -np.inf
+                dev_s = nbest_lists[spot_b][0].score
                 if host_lists[spot_b][0].score > dev_s + 2.0:
                     # device search lost on this config: fail the whole
                     # batch over to the host path
@@ -712,8 +741,14 @@ class Engine:
                          f"({host_lists[spot_b][0].score:.2f} vs "
                          f"{dev_s:.2f}); host re-scan for batch")
                     self._p2d_spot_ok = 0
-                    host_lists = p2r.rescan_nbest_batch(
-                        lattices, disp, self._rescan_strategy(), sc)
+                    # the utterances not re-run yet (the same host
+                    # search on the same lattices gives the same lists)
+                    more = p2r.rescan_nbest_batch(
+                        [lat if r is None else None
+                         for lat, r in zip(lattices, retry)],
+                        disp, self._rescan_strategy(), sc)
+                    host_lists = [h if r is not None else m for h, m, r
+                                  in zip(host_lists, more, retry)]
                     retry = list(lattices)
                 else:
                     self._p2d_spot_ok += 1
@@ -742,68 +777,9 @@ class Engine:
     def _pass2_result(self, tb, n_frames: int,
                       out_ext: Optional[torch.Tensor] = None
                       ) -> Optional[Result]:
-        """Stack-decoding rescore of one utterance; None when it finds no
-        sentence (the caller falls back to pass 1, reference
-        pass2_finalize_on_no_result).  With out_ext ([1, T, R] outprob
-        cache) and a re-scan config, the device A* with its retry net or
-        the host re-scan; otherwise the frozen-score search (reference
-        search_bestfirst_main.c with pass-1 acoustic scores)."""
-        lattice = p2.TrellisLattice(tb, n_frames)
-        sc = self.search_cfg
-        gwords = None
-        if out_ext is not None and self._rescan_ok() \
-                and self._device_astar_ok():
-            nbest = p2d.run_batch(
-                [lattice], self.device_chains, self.ngram_dev,
-                self._wid2lm_p2, self._cprob_arr(), out_ext,
-                self._rescan_strategy(), sc, iwcd2=self.iwcd2_tables)[0]
-            comparable = (sc.lm_weight == sc.lm_weight2
-                          and sc.lm_penalty == sc.lm_penalty2
-                          and self.net.pseudo is None)
-            weak = not nbest
-            if nbest and comparable:
-                p1best = float(np.max(np.where(
-                    lattice.word[lattice.T - 1] >= 0,
-                    lattice.score[lattice.T - 1], -np.inf)))
-                weak = np.isfinite(p1best) and \
-                    nbest[0].score < p1best - 10.0
-            elif nbest and not comparable:
-                # the margin vs pass 1 is not sound here: spot-check the
-                # first few decodes against the host path instead
-                weak = self._p2d_spot_ok < 2
-            if weak:
-                host = p2r.rescan_nbest_batch(
-                    [lattice], self._dispatcher(out_ext),
-                    self._rescan_strategy(), sc)[0]
-                if host and nbest and not comparable:
-                    if host[0].score > nbest[0].score + 2.0:
-                        self._p2d_spot_ok = 0
-                    else:
-                        self._p2d_spot_ok += 1
-                if host and (not nbest or host[0].score > nbest[0].score):
-                    nbest = host
-        elif out_ext is not None and self._rescan_ok():
-            graphs = [] if self._want_p2_graph() else None
-            nbest = p2r.rescan_nbest_batch(
-                [lattice], self._dispatcher(out_ext),
-                self._rescan_strategy(), sc, graphs=graphs)[0]
-            gwords = graphs[0] if graphs else None
-        elif self.lmtype == "grammar":
-            nbest = p2.pass2_search_dfa(lattice, self.dfa, self.word_cat, sc)
-        else:
-            transparent = np.asarray(self.voca.transparent, dtype=bool) \
-                if self.voca.transparent else None
-            if self.lm is not None and self.lm.direction == "RL":
-                nbest = p2.pass2_search_backward(
-                    lattice, self.lm, self._wid2lm_p2, sc,
-                    self.net.tail_word, self.net.head_word, transparent)
-            else:
-                nbest = p2.pass2_search(lattice, self.lm, self._wid2lm_p2,
-                                        sc, self.net.tail_word, transparent,
-                                        self._cprob_arr())
-        if not nbest:
-            return None
-        return self._assemble_pass2(nbest, lattice, gwords=gwords)
+        """Pass 2 of one utterance (`_pass2` over a batch of one; out_ext
+        its [1, T, R] outprob cache); None when it finds no sentence."""
+        return self._pass2([p2.TrellisLattice(tb, n_frames)], out_ext)[0]
 
     def _assemble_pass2(self, nbest: List[p2.NBestResult],
                         lattice: p2.TrellisLattice,

@@ -2,19 +2,20 @@
 plain version.
 
 No TPU kernel stands behind it: the reference computes the estimate on
-the host (`julius_tpu/search/pass2_device.py` `_suffix_estimate_np`), as
-`search/pass2_device.py` `prepare` still does on the CPU.  On a CUDA card
-`prepare` computes it here instead, for every utterance of the batch at
-once, from the pass-1 trellis that already lies on the card.
+the host (`julius_tpu/search/pass2_device.py` `_suffix_estimate_np`, a
+numpy pull loop, as `search/pass2.py` `suffix_estimate` is).
+`search/pass2_device.py` `prepare` computes it here on every device, for
+every utterance of the batch at once, from the pass-1 trellis on the
+batch's device.
 
 `suffix(trellis, n_frames, fmax, lr, ratio)` gives the [B, T] f64 rest of
-each row: bit-equal to `_suffix_estimate_np` over the row's first
-n_frames[b] frames, on the atom tables and re-weighted increments that
-`prepare` builds from them, and -inf from n_frames[b] on (every frame of
-a row of 0 frames).  CPU tensors take the plain version, `suffix_plain`;
-CUDA tensors launch the kernel (csrc/suffix.cu, built with nvcc at first
-use, ops/cuda_build.py) on their card or raise.  `LAUNCHES` counts
-launches.
+each row: bit-equal to `pass2.suffix_estimate` over the row's first
+n_frames[b] frames, on the row's `pass2.atom_table` with each atom's
+pass-1 LM portion re-weighted by `ratio`, and -inf from n_frames[b] on
+(every frame of a row of 0 frames).  CPU tensors take the plain version,
+`suffix_plain`; CUDA tensors launch the kernel (csrc/suffix.cu, built
+with nvcc at first use, ops/cuda_build.py) on their card or raise.
+`LAUNCHES` counts launches.
 
 The plain version follows the kernel's order of work, not numpy's: the
 per-atom increments of the whole trellis first, the two f32 running sums

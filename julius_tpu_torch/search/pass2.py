@@ -25,15 +25,16 @@ This is a copy of `julius_tpu/search/pass2.py`'s frozen-score searches:
 the forward N-gram one, the backward one for an RL model
 (`pass2_search_backward`, growing sentence suffixes from the end with
 the backward N-gram) and the DFA grammar one (with `TrellisLattice`,
-`NBestResult` and `confidence_scores`).  The reference's unused
-`_suffix_table` is left out.
+`NBestResult` and `confidence_scores`); the reference's unused
+`_suffix_table` is left out.  Both re-scanning A* searches read the
+lattice's `atom_table` and its `suffix_estimate` from here.
 """
 
 from __future__ import annotations
 
 import heapq
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -111,6 +112,96 @@ class TrellisLattice:
             pt, pm = divmod(prev, self.M)
             base = float(self.score[pt, pm])
         return float(self.score[t, m]) - base - float(self.lm[t, m])
+
+
+class AtomTable(NamedTuple):
+    """Every atom of one utterance's trellis, sorted by begin frame
+    (stable): the re-scans' candidate lookup and the suffix estimate's
+    input."""
+
+    ab: np.ndarray        # begin frames (int64)
+    ae: np.ndarray        # end frames (int64)
+    am: np.ndarray        # trellis slots (int64)
+    aw: np.ndarray        # word ids (int64)
+    asc: np.ndarray       # pass-1 cumulative scores (f64)
+    alm: np.ndarray       # pass-1 LM portions (f64)
+    pscore: np.ndarray    # the predecessors' cumulative scores (0: none)
+
+
+def atom_table(lat: TrellisLattice) -> AtomTable:
+    """The atom table of one utterance's lattice."""
+    flat = np.flatnonzero(lat.word >= 0)
+    b = lat.begin.reshape(-1)[flat].astype(np.int64)
+    order = np.argsort(b, kind="stable")
+    idx = flat[order]              # row-major atom ids, by begin frame
+    ae, am = np.divmod(idx, lat.M)
+    prev = lat.prev.reshape(-1)[idx]
+    score = lat.score.reshape(-1)
+    return AtomTable(
+        ab=b[order], ae=ae, am=am,
+        aw=lat.word.reshape(-1)[idx].astype(np.int64),
+        asc=score[idx].astype(np.float64),
+        alm=lat.lm.reshape(-1)[idx].astype(np.float64),
+        pscore=np.where(prev >= 0, score[np.maximum(prev, 0)], 0.0))
+
+
+def suffix_estimate(ab, ae, inc, T: int, lr: int,
+                    fmax: Optional[np.ndarray] = None) -> np.ndarray:
+    """The A*'s completion estimate over one utterance's atoms (an
+    `AtomTable`'s begin and end frames, `inc` each atom's pass-1
+    increment): rest[t] = best pass-1 continuation covering frames
+    t+1..T-1, a backward DP whose chain step admits begin frames in
+    [t+1-lr, t+1+lr] (the next-word lookup's window, so any anchor the
+    search can extend has a finite estimate), every frame of boundary
+    slack CHARGED through `fmax`, the frame's best outprob: a late entry
+    (gap) adds the skipped frames' fmax — a real path must cover them
+    at <= fmax each, so the bound stays admissible — and an early entry
+    (overlap) subtracts the doubled frames' fmax.
+
+    This mirrors the reference's completion estimate: the backtrellis
+    atom scores it adds to a hypothesis's g[] are pass-1 FULL scores, LM
+    included (`search.h` NODE score, ngram_decode.c:334).  Both halves
+    of the formula carry a scar.  An AM-only estimate degenerated the
+    A* under lm_weight ~8 into breadth-first over the whole envelope
+    budget (~13k scans an utterance); AM-only spans with a best-case
+    per-word LM bound were ~100+ log points optimistic on DNN configs
+    and churned the queue to death (LVCSR 0/32).  Full increments
+    without the charge were fine on DNN (positive outprobs make an
+    uncovered gap a LOSS) and catastrophic on GMM: at ~-20/frame, +-5
+    uncharged slack hands every chain hop up to +100 free log points,
+    rest inflates ~+700, and the re-scans churned out empty while the
+    reference decoded the same GMM-triphone files exactly.  Full
+    increments + slack charge is right for both signs.
+
+    GAP frames charge min(fmax, 0): when outprobs are positive (DNN),
+    +fmax per skipped frame is admissible but LOOSE — it re-inflated
+    the queue into budget exhaustion (179/179 rounds) the moment the
+    charge came back — while 0 is tight and only pessimistic by the
+    cover value a real word could actually collect there.  OVERLAP
+    frames always subtract full fmax (removes the double count at the
+    optimistic rate for both signs)."""
+    if fmax is not None:
+        cfm = np.concatenate([[0.0], np.cumsum(fmax)])
+        cfm0 = np.concatenate([[0.0], np.cumsum(np.minimum(fmax, 0.0))])
+    else:
+        cfm = cfm0 = np.zeros(T + 1)
+    rest = np.full(T + 1, -np.inf)
+    rest[T - 1] = 0.0            # nothing left after the final frame
+    for t in range(T - 2, -1, -1):
+        i0 = np.searchsorted(ab, t + 1 - lr)
+        i1 = np.searchsorted(ab, t + 1 + lr, side="right")
+        best = -np.inf
+        if i1 > i0:
+            b = np.clip(ab[i0:i1], 0, T)
+            e = ae[i0:i1]
+            adj = np.where(b >= t + 1,
+                           cfm0[b] - cfm0[t + 1],
+                           cfm[b] - cfm[t + 1])
+            v = adj + inc[i0:i1] + rest[e]
+            v = np.where(e > t, v, -np.inf)
+            best = v.max()
+        rest[t] = best
+    return rest[:T]
 
 
 def pass2_search(

@@ -86,7 +86,8 @@ from julius_tpu_torch.ops.scan_kernel import scan_core_win
 from julius_tpu_torch.search.ngram_device import (U32, DeviceNgram,
                                                   _mul_u32, bigram_score)
 from julius_tpu_torch.search.pass1 import Trellis, _capture, topk_stable
-from julius_tpu_torch.search.pass2 import NBestResult, TrellisLattice
+from julius_tpu_torch.search.pass2 import (NBestResult, TrellisLattice,
+                                          atom_table)
 from julius_tpu_torch.search.scan import (DeviceChainTables,
                                           head_substituted_sidx)
 from julius_tpu_torch.utils import trace
@@ -158,78 +159,20 @@ class _Prepared:
     last: np.ndarray      # [B] final frame per utt (-1 = skip)
     packed: np.ndarray    # [B, NA, 6] per-atom candidate columns
     stack0: Tuple[np.ndarray, ...]   # initial stack field arrays
-    suffix_card: int = 0  # utterances whose suffix DP ran on the card
-    suffix_host: int = 0  # ... and on the host
 
 
-def _suffix_estimate_np(ab, ae, inc, T, lr, fmax=None):
-    """rest[t] = best pass-1 continuation covering frames t+1..T-1:
-    backward DP over trellis atoms scored with their FULL pass-1
-    incremental scores (AM + pass-1 LM), chain step admitting begin
-    frames in [t+1-lr, t+1+lr] with every frame of boundary slack
-    CHARGED through `fmax`, the frame's best outprob: a late entry
-    (gap) adds the skipped frames' fmax — a real path must cover them
-    at <= fmax each, so the bound stays admissible — and an early
-    entry (overlap) subtracts the doubled frames' fmax.
-
-    Both halves of this formula carry a scar.  Round 4 charged slack
-    but fed AM-only spans + a best-case per-word LM bound — ~100+ log
-    points optimistic on DNN configs, queue churned to death (LVCSR
-    0/32).  Early round 5 used full pass-1 incs but dropped the
-    charge — fine on DNN (positive outprobs make an uncovered gap a
-    LOSS), catastrophic on GMM: at ~-20/frame, +-5 uncharged slack
-    hands every chain hop up to +100 free log points, rest inflates
-    ~+700, and both rescan searches churned out empty while the
-    reference decoded the same GMM-triphone files exactly (refparity
-    triphone scenario).  Full incs + slack charge is right for both
-    signs.  Mirrors the reference's use of trellis scores as the A*
-    completion estimate (`search.h` NODE score, ngram_decode.c:334).
-
-    GAP frames charge min(fmax, 0): when outprobs are positive (DNN),
-    +fmax per skipped frame is admissible but LOOSE — it re-inflated
-    the queue into budget exhaustion (179/179 rounds) the moment the
-    charge came back — while 0 is tight and only pessimistic by the
-    cover value a real word could actually collect there.  OVERLAP
-    frames always subtract full fmax (removes the double count at the
-    optimistic rate for both signs)."""
-    if fmax is not None:
-        cfm = np.concatenate([[0.0], np.cumsum(fmax)])
-        cfm0 = np.concatenate([[0.0], np.cumsum(np.minimum(fmax, 0.0))])
-    else:
-        cfm = cfm0 = np.zeros(T + 1)
-    rest = np.full(T + 1, -np.inf)
-    rest[T - 1] = 0.0            # nothing left after the final frame
-    for t in range(T - 2, -1, -1):
-        i0 = np.searchsorted(ab, t + 1 - lr)
-        i1 = np.searchsorted(ab, t + 1 + lr, side="right")
-        best = -np.inf
-        if i1 > i0:
-            b = np.clip(ab[i0:i1], 0, T)
-            e = ae[i0:i1]
-            adj = np.where(b >= t + 1,
-                           cfm0[b] - cfm0[t + 1],
-                           cfm[b] - cfm[t + 1])
-            v = adj + inc[i0:i1] + rest[e]
-            v = np.where(e > t, v, -np.inf)
-            if len(v):
-                best = v.max()
-        rest[t] = best
-    return rest[:T]
-
-
-def _best_path_rest(lat: TrellisLattice, lw1: float,
-                    lw2: float) -> Optional[np.ndarray]:
+def _best_path_rest(lat: TrellisLattice,
+                    ratio: float) -> Optional[np.ndarray]:
     """Suffix-score curve of pass-1's best path: rest1[t] = (path
     total) - (path cumulative through frame t), linearly interpolated
     inside word spans, with each word's pass-1 LM portion re-weighted
-    by lw2/lw1.  The best path tiles every frame, so this estimate is
-    finite everywhere and achievable by construction."""
+    by `ratio` (`_lm_ratio`).  The best path tiles every frame, so this
+    estimate is finite everywhere and achievable by construction."""
     T, M = lat.T, lat.M
     row_s = np.where(lat.word[T - 1] >= 0, lat.score[T - 1], -np.inf)
     if not np.isfinite(row_s).any():
         return None
     m = int(np.argmax(row_s))
-    ratio = (lw2 / lw1) if lw1 else 1.0
     ends, cums = [], []
     a = (T - 1) * M + m
     raw = []
@@ -288,24 +231,6 @@ def _best_lm_in(strategy, n_words: int) -> np.ndarray:
     return out
 
 
-def _atom_table(lat: TrellisLattice):
-    """Every atom of one utterance's trellis, sorted by begin frame
-    (stable): begin, end and word ids (int64), and the pass-1 score, LM
-    and predecessor's score (f64)."""
-    t_idx, m_idx = np.nonzero(lat.word >= 0)
-    b = lat.begin[t_idx, m_idx].astype(np.int64)
-    order = np.argsort(b, kind="stable")
-    ab = b[order]
-    ae = t_idx[order].astype(np.int64)
-    aw = lat.word[t_idx, m_idx][order].astype(np.int64)
-    asc = lat.score[t_idx, m_idx][order].astype(np.float64)
-    alm = lat.lm[t_idx, m_idx][order].astype(np.float64)
-    prev = lat.prev[t_idx, m_idx][order]
-    pt, pm = np.divmod(np.maximum(prev, 0), lat.M)
-    pscore = np.where(prev >= 0, lat.score[pt, pm], 0.0)
-    return ab, ae, aw, asc, alm, pscore
-
-
 def _lm_ratio(cfg: SearchConfig) -> float:
     """lm_weight2 / lm_weight (1 without a pass-1 weight): the factor
     that moves a pass-1 LM score into the pass-2 scale."""
@@ -313,37 +238,19 @@ def _lm_ratio(cfg: SearchConfig) -> float:
     return (float(cfg.lm_weight2) / lw1) if lw1 else 1.0
 
 
-def _chain_inc(asc, pscore, alm, cfg: SearchConfig) -> np.ndarray:
-    """What the suffix DP chains for each atom: its FULL pass-1
-    incremental score (AM + pass-1 LM) like the host path — see
-    _suffix_estimate_np for why tight beats admissible — with the pass-1
-    LM portion re-weighted into the PASS-2 scale (lw2/lw1, like
-    _best_path_rest): exact scores accumulate lm_weight2-weighted probs,
-    so an un-reweighted estimate is off by (lw2-lw1)*|log p| per
-    remaining word whenever the passes use different weights (-lmp vs
-    -lmp2).  csrc/suffix.cu computes the same in the same order."""
-    return (asc - pscore - alm) + alm * _lm_ratio(cfg)
-
-
-def suffix_host(lat: TrellisLattice, cfg: SearchConfig,
-                fmax: Optional[np.ndarray] = None) -> np.ndarray:
-    """One utterance's atom-chain suffix estimate on the host, as
-    `prepare` computes it without a card: `_suffix_estimate_np` over its
-    atoms with the re-weighted increments; `fmax` the utterance's frame
-    maxima (None: no charge).  The oracle of ops/suffix_kernel.py."""
-    ab, ae, _, asc, alm, pscore = _atom_table(lat)
-    return _suffix_estimate_np(ab, ae, _chain_inc(asc, pscore, alm, cfg),
-                               lat.T, max(0, int(cfg.lookup_range)), fmax)
-
-
-def _suffix_on_card(lattices: List[Optional[TrellisLattice]], trellis,
-                    fmax_dev: torch.Tensor, cfg: SearchConfig
-                    ) -> torch.Tensor:
-    """Launch the suffix kernel over the batch: [B, T] f64 on the card,
-    read after it ends.  `trellis` is the batch's pass-1 trellis on the
-    card ([B, T, M]); without one, the lattices' rows are uploaded."""
-    B, T = fmax_dev.shape
+def _suffix_launch(lattices: List[Optional[TrellisLattice]], T: int,
+                  trellis, fmax: Optional[torch.Tensor], cfg: SearchConfig
+                  ) -> torch.Tensor:
+    """Start the batch's suffix estimate on fmax's device (one kernel
+    launch on a card, the plain version on the CPU): [B, T] f64 there,
+    to read once it ends; over `trellis`, the [B, T, M] pass-1 trellis
+    there, else the lattices' rows uploaded.  Each atom's LM portion is
+    re-weighted into the PASS-2 scale (lw2/lw1, as in _best_path_rest):
+    exact scores accumulate lm_weight2-weighted probs, so without it the
+    estimate is off by (lw2-lw1)*|log p| a remaining word whenever the
+    passes weigh the LM differently (-lmp vs -lmp2)."""
     if trellis is None:
+        B = len(lattices)
         M = next(lat.M for lat in lattices if lat is not None)
         rows = [np.full((B, T, M), -1, np.int32)] + [
             np.zeros((B, T, M), dt)
@@ -353,12 +260,24 @@ def _suffix_on_card(lattices: List[Optional[TrellisLattice]], trellis,
                 for a, x in zip(rows, (lat.word, lat.score, lat.lm,
                                        lat.prev, lat.begin)):
                     a[b, :lat.T] = x
-        trellis = Trellis(*[torch.from_numpy(a).to(fmax_dev.device)
-                            for a in rows], None)
+        dev = fmax.device if fmax is not None else torch.device("cpu")
+        trellis = Trellis(*[torch.from_numpy(a).to(dev) for a in rows],
+                          None)
     n = [0 if lat is None else lat.T for lat in lattices]
-    return suffix_kernel.suffix(trellis, n, fmax_dev,
+    return suffix_kernel.suffix(trellis, n, fmax,
                                 max(0, int(cfg.lookup_range)),
                                 _lm_ratio(cfg))
+
+
+def _lm_opt(aw, cfg: SearchConfig, cprob_np: Optional[np.ndarray],
+            best_in: np.ndarray) -> np.ndarray:
+    """The optimistic pass-2 LM add of each word id in `aw`: its best
+    LM probability into it from any context (`best_in`), weighted, with
+    the penalty and the class probability."""
+    return (float(cfg.lm_weight2) * best_in[np.minimum(aw, len(best_in) - 1)]
+            + float(cfg.lm_penalty2)
+            + (cprob_np[np.minimum(aw, len(cprob_np) - 1)]
+               if cprob_np is not None else 0.0))
 
 
 def _prune(ab, ae, aw, ainc, rest, strategy, cfg: SearchConfig,
@@ -377,11 +296,7 @@ def _prune(ab, ae, aw, ainc, rest, strategy, cfg: SearchConfig,
     Tail-word atoms bypass the cap: completion anchors must survive (the
     host appends the Tl-1 anchor for may_final words the same way,
     _cand_for)."""
-    lm_opt_at = (float(cfg.lm_weight2)
-                 * best_in[np.minimum(aw, len(best_in) - 1)]
-                 + float(cfg.lm_penalty2)
-                 + (cprob_np[np.minimum(aw, len(cprob_np) - 1)]
-                    if cprob_np is not None else 0.0))
+    lm_opt_at = _lm_opt(aw, cfg, cprob_np, best_in)
     rest_ae = rest[np.minimum(ae, len(rest) - 1)]
     indep = np.where(np.isfinite(rest_ae),
                      ainc + lm_opt_at + rest_ae, -np.inf)
@@ -409,82 +324,55 @@ def _prune(ab, ae, aw, ainc, rest, strategy, cfg: SearchConfig,
 
 def prepare(lattices: List[Optional[TrellisLattice]], T: int,
             strategy, cfg: SearchConfig, stack_size: int,
-            cprob_np: Optional[np.ndarray] = None,
-            best_in: Optional[np.ndarray] = None,
-            fmax: Optional[np.ndarray] = None, trellis=None,
-            fmax_dev: Optional[torch.Tensor] = None) -> _Prepared:
+            cprob_np: Optional[np.ndarray], best_in: np.ndarray,
+            fmax: Optional[torch.Tensor] = None, trellis=None) -> _Prepared:
     """Build the per-batch atom tables, suffix estimates, and initial
     stacks (sentence-head candidates at frame 0, reference
     get_backtrellis_words' first-word seeding, ngram_decode.c:334).
 
-    `fmax` is the [B, T] frames' best outprob.  Given `fmax_dev`, the
-    same on a CUDA card, the atom-chain suffix DP runs there
-    (ops/suffix_kernel.py, one launch a batch) over `trellis`, the
-    batch's [B, T, M] pass-1 trellis on the card (the lattices' rows
-    uploaded where None), while the host builds the atom tables, and
-    the estimates are read back before the prunes; else it runs on the
-    host, `_suffix_estimate_np` an utterance before its prune."""
-    lr = max(0, int(cfg.lookup_range))
-    if best_in is None:
-        n_vocab = 0
-        for lat in lattices:
-            if lat is not None and lat.T:
-                n_vocab = max(n_vocab, int(lat.word.max()) + 1)
-        best_in = _best_lm_in(strategy, max(1, n_vocab))
+    `fmax` is the [B, T] f32 frames' best outprob on the batch's device
+    (None: no slack charge).  The atom-chain suffix DP runs on that
+    device (`_suffix_launch`) over `trellis`, the batch's [B, T, M]
+    pass-1 trellis there (the lattices' rows uploaded where None), while
+    the host builds the atom tables and the best-path curves; the
+    estimates are read back in one copy before the prunes."""
     lattices = [lat if lat is not None and lat.T else None
                 for lat in lattices]
-    n_utts = sum(lat is not None for lat in lattices)
-    rest_dev = None
-    if fmax_dev is not None and fmax_dev.device.type == "cuda" and n_utts:
-        with trace.span("prepare.suffix"):
-            rest_dev = _suffix_on_card(lattices, trellis, fmax_dev, cfg)
     per = [None] * len(lattices)
-    waiting = []          # (utterance, atom table, best-path curve)
+    tables = []           # (utterance, atom table, best-path curve)
+    if any(lat is not None for lat in lattices):
+        with trace.span("prepare.suffix"):
+            rest_dev = _suffix_launch(lattices, T, trellis, fmax, cfg)
     for b, lat in enumerate(lattices):
         if lat is None:
             continue
-        ab, ae, aw, asc, alm, pscore = _atom_table(lat)
+        a = atom_table(lat)
         # AM-only span score of the atom's word (pass-1 LM removed):
         # a CANDIDATE's estimate adds its exact pass-2 LM instead
-        ainc = asc - pscore - alm
+        ainc = a.asc - a.pscore - a.alm
         with trace.span("prepare.suffix"):
             # anchor the estimate on pass-1's own best path: a REAL path
             # covering every frame, so its suffix curve has no holes and
             # no compounding per-word bounds — the atom-chain DP can
             # only raise it where a better continuation provably exists.
             # (LM portions re-weighted into the pass-2 scale.)
-            r1 = _best_path_rest(lat, float(cfg.lm_weight),
-                                 float(cfg.lm_weight2))
-            if rest_dev is not None:
-                waiting.append((b, (ab, ae, aw, ainc), r1))
-                continue
-            fm = (fmax[b, :lat.T] if fmax is not None else None)
-            rest = _suffix_estimate_np(ab, ae,
-                                       _chain_inc(asc, pscore, alm, cfg),
-                                       lat.T, lr, fm)
-            if r1 is not None:
-                rest = np.maximum(rest, r1)
-        with trace.span("prepare.prune"):
-            per[b] = (*_prune(ab, ae, aw, ainc, rest, strategy, cfg,
-                              cprob_np, best_in), rest)
-    if waiting:
+            r1 = _best_path_rest(lat, _lm_ratio(cfg))
+        tables.append((b, (a.ab, a.ae, a.aw, ainc), r1))
+    if tables:
         with trace.span("prepare.suffix"):
             rest_all = rest_dev.cpu().numpy()
             rests = {}
-            for b, _, r1 in waiting:
+            for b, _, r1 in tables:
                 rest = rest_all[b, :lattices[b].T]
                 rests[b] = rest if r1 is None else np.maximum(rest, r1)
-        for b, table, _ in waiting:
-            with trace.span("prepare.prune"):
-                per[b] = (*_prune(*table, rests[b], strategy, cfg,
-                                  cprob_np, best_in), rests[b])
+    for b, table, _ in tables:
+        with trace.span("prepare.prune"):
+            per[b] = (*_prune(*table, rests[b], strategy, cfg, cprob_np,
+                              best_in), rests[b])
     na = max([1] + [len(p[0]) for p in per if p is not None])
     with trace.span("prepare.seed"):
-        prep = _seed(lattices, per, na, T, strategy, cfg, stack_size,
+        return _seed(lattices, per, na, T, strategy, cfg, stack_size,
                      cprob_np, best_in)
-    prep.suffix_card = n_utts if rest_dev is not None else 0
-    prep.suffix_host = n_utts - prep.suffix_card
-    return prep
 
 
 def _seed(lattices, per, na: int, T: int, strategy, cfg: SearchConfig,
@@ -495,12 +383,6 @@ def _seed(lattices, per, na: int, T: int, strategy, cfg: SearchConfig,
     stacks seeded from the atoms that begin at frame 0, and the packed
     candidate columns."""
     B = len(lattices)
-    # rolling word-sequence hash (sequence identity for completion
-    # dedup and the word envelope; anchor variants of one sequence
-    # share it, distinct sequences collide with ~2^-32 probability)
-    def seq_mix(h, w):
-        return (np.asarray(h, np.uint32) * np.uint32(1000003)
-                + np.asarray(w, np.uint32) + np.uint32(1))
     ab_a = np.full((B, na), 1 << 30, np.int32)
     ae_a = np.zeros((B, na), np.int32)
     aw_a = np.zeros((B, na), np.int32)
@@ -552,17 +434,13 @@ def _seed(lattices, per, na: int, T: int, strategy, cfg: SearchConfig,
         s_t[bidx, :n0] = e0[sel]
         s_lm_add[bidx, :n0] = lm0[sel]
         s_lm_sum[bidx, :n0] = lm0[sel]
-        s_seqh[bidx, :n0] = seq_mix(0, w0[sel])
+        w_sel = torch.from_numpy(w0[sel])
+        s_seqh[bidx, :n0] = _seq_mix(torch.zeros_like(w_sel), w_sel).numpy()
     # per-atom packed columns (the device candidate block fetches them
     # as one contiguous slice per pop): begin, end, word, AM span,
     # rest[end], and the optimistic LM add for the word — the latter
     # two precomputed here so the round body never random-gathers them
-    lw2v_ = float(cfg.lm_weight2)
-    pen2v_ = float(cfg.lm_penalty2)
-    bi = best_in if best_in is not None else np.zeros(1)
-    lm_opt_a = (lw2v_ * bi[np.minimum(aw_a, len(bi) - 1)] + pen2v_
-                + (cprob_np[np.minimum(aw_a, len(cprob_np) - 1)]
-                   if cprob_np is not None else 0.0))
+    lm_opt_a = _lm_opt(aw_a, cfg, cprob_np, best_in)
     rest_ae = np.take_along_axis(
         rest_a, np.minimum(ae_a, rest_a.shape[1] - 1), axis=1)
     packed = np.stack(
@@ -586,7 +464,9 @@ LEN_CAP = 128
 
 def _seq_mix(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Rolling word-sequence hash h * 1000003 + w + 1 in uint32 (held in
-    int64 in [0, 2^32))."""
+    int64 in [0, 2^32)): sequence identity for completion dedup and the
+    word envelope; anchor variants of one sequence share it, distinct
+    sequences collide with ~2^-32 probability."""
     return (_mul_u32(h, 1000003) + w + 1) & U32
 
 
@@ -988,7 +868,8 @@ def _setup(lattices: List[Optional[TrellisLattice]],
            ) -> Optional[Tuple[_Dims, _Inputs]]:
     """The host half of run_batch: `prepare`, the sizes and the inputs
     on the device; None when no utterance has a start.  `trellis` is the
-    batch's pass-1 trellis on the card, for `prepare`'s suffix DP."""
+    batch's pass-1 trellis on out_ext's device, for `prepare`'s suffix
+    DP."""
     B, T, R = out_ext.shape
     dev = out_ext.device
     out_ext = out_ext.to(torch.float32).contiguous()
@@ -1007,17 +888,15 @@ def _setup(lattices: List[Optional[TrellisLattice]],
     CAPP = max_rounds * P
     # per-frame best outprob: the admissible charge for entry-frame
     # slack in the candidate entry bound (cfm)
-    fmax_dev = out_ext.amax(dim=2)
-    fmax = fmax_dev.cpu().numpy()
+    fmax = out_ext.amax(dim=2)
+    fmax_np = fmax.cpu().numpy()
     if best_in is None:
         best_in = _best_lm_in(strategy, tabs.loc.shape[0])
     with trace.span("astar.prepare"):
         prep = prepare(lattices, T, strategy, cfg, S, cprob, best_in,
-                       fmax=fmax, trellis=trellis, fmax_dev=fmax_dev)
+                       fmax=fmax, trellis=trellis)
     if not (prep.last >= 0).any():
         return None
-    LAST_STATS.update(suffix_card=prep.suffix_card,
-                      suffix_host=prep.suffix_host)
     NA = prep.ab.shape[1]
     lr = max(0, int(cfg.lookup_range))
     CA = min((2 * lr + 1) * Q_PER_FRAME, NA)
@@ -1038,7 +917,8 @@ def _setup(lattices: List[Optional[TrellisLattice]],
     stack0 = tuple(on_dev(a, f32) if a.dtype == np.float32
                    else on_dev(a.astype(np.int64), i64) for a in prep.stack0)
     cfm = np.concatenate([np.zeros((B, 1), np.float32),
-                          np.cumsum(fmax, axis=1, dtype=np.float32)], axis=1)
+                          np.cumsum(fmax_np, axis=1, dtype=np.float32)],
+                         axis=1)
     d = _Dims(B=B, T=T, R=R, NA=NA, P=P, S=S, CA=CA, CK=min(CHILD_KEEP, CA),
               CAPP=CAPP, max_rounds=max_rounds, lr=lr,
               tail=int(strategy.tail_word),
@@ -1240,12 +1120,10 @@ def run_batch(lattices: List[Optional[TrellisLattice]],
     `best_in` is LM-dependent, not batch-dependent: pass the cached
     array (engine._p2d_best_in) to avoid re-walking the whole N-gram
     dict per decode batch.  `trellis`, the batch's [B, T, M] pass-1
-    trellis on the card (`pass1_batch`'s), saves `prepare`'s suffix DP
-    an upload of the lattices.  LAST_STATS' `suffix_card` and
-    `suffix_host` count the utterances whose suffix DP ran on the card
-    (a CUDA out_ext) and on the host; `strict_classes` the left-context
-    classes of the strict head table the rounds substitute (class 0
-    included; 0 without strict heads)."""
+    trellis on out_ext's device (`pass1_batch`'s), saves `prepare`'s
+    suffix DP an upload of the lattices.  LAST_STATS' `strict_classes`
+    is the left-context classes of the strict head table the rounds
+    substitute (class 0 included; 0 without strict heads)."""
     with trace.span("astar.setup"):
         setup = _setup(lattices, tabs, wid2lm, cprob, out_ext, strategy,
                        cfg, best_in, trellis=trellis)

@@ -24,7 +24,7 @@ scores come back each round.
 Three design rules keep the serial-round count and per-round cost down:
 
 * the A* completion estimate is the pass-1 trellis suffix score WITH its
-  LM portion (`_suffix_estimate`), mirroring the reference's use of
+  LM portion (`pass2.suffix_estimate`), mirroring the reference's use of
   backtrellis scores as the forward estimate (`search.h` NODE score =
   g[] + backtrellis score).  An AM-only estimate is so optimistic under
   lm_weight ~8 that the search degenerates to breadth-first over the
@@ -53,7 +53,9 @@ import numpy as np
 import torch
 
 from julius_tpu_torch.config import SearchConfig
-from julius_tpu_torch.search.pass2 import NBestResult, TrellisLattice
+from julius_tpu_torch.search.pass2 import (AtomTable, NBestResult,
+                                          TrellisLattice, atom_table,
+                                          suffix_estimate)
 from julius_tpu_torch.search.scan import (DeviceChainTables, bucket_w,
                                           scan_words_store_win)
 from julius_tpu_torch.utils.logadd import LOG_ZERO
@@ -347,7 +349,7 @@ class ScanDispatcher:
         self.R = int(R)
         dev = out_ext.device
         # per-frame best outprob: the admissible charge for boundary
-        # slack in the suffix estimate (_suffix_estimate)
+        # slack in the suffix estimate (pass2.suffix_estimate)
         self.fmax = self.out_ext.amax(dim=2).cpu().numpy()
         self.n_scans = 0
         self.scan_beam = float(scan_beam)
@@ -487,84 +489,12 @@ class _UttState:
     len_seen: Dict[int, set] = field(default_factory=dict)
     n_pop: int = 0
     # A* completion estimate: rest[t] = best trellis continuation
-    # (AM + pass-1 LM) covering frames t+1..T-1 (_suffix_estimate)
+    # (AM + pass-1 LM) covering frames t+1..T-1 (pass2.suffix_estimate)
     rest: Optional[np.ndarray] = None
     cands: Dict[int, Optional[_Cands]] = field(default_factory=dict)
-    # atom arrays sorted by begin frame (candidate lookup)
-    ab: Optional[np.ndarray] = None     # begin frames (sorted)
-    ae: Optional[np.ndarray] = None     # end frames
-    am_: Optional[np.ndarray] = None    # trellis slot m
-    aw: Optional[np.ndarray] = None     # word ids
-    asc: Optional[np.ndarray] = None    # pass-1 cumulative scores
+    # the lattice's atoms sorted by begin frame (candidate lookup)
+    atoms: Optional[AtomTable] = None
     active: bool = True
-
-
-def _atom_arrays(st: _UttState) -> None:
-    lat = st.lattice
-    t_idx, m_idx = np.nonzero(lat.word >= 0)
-    b = lat.begin[t_idx, m_idx].astype(np.int64)
-    order = np.argsort(b, kind="stable")
-    st.ab = b[order]
-    st.ae = t_idx[order].astype(np.int64)
-    st.am_ = m_idx[order].astype(np.int64)
-    st.aw = lat.word[t_idx, m_idx][order].astype(np.int64)
-    st.asc = lat.score[t_idx, m_idx][order].astype(np.float64)
-
-
-def _suffix_estimate(st: _UttState, lr: int,
-                     fmax=None) -> np.ndarray:
-    """rest[t] = best trellis-path score (AM + pass-1 LM) covering
-    frames t+1 .. T-1 (backward DP over pass-1 atoms).
-
-    This mirrors the reference's completion estimate exactly: the
-    backtrellis atom scores it adds to a hypothesis's g[] are pass-1
-    FULL scores, LM included (`search.h` NODE score, ngram_decode.c:334
-    get_backtrellis_words).  Round 3 used an AM-only estimate to stay
-    optimistic about pass-1 LM misattribution; under lm_weight ~8 that
-    degenerates the A* into breadth-first over the entire word-envelope
-    budget (~13k scans/utterance).  The +-lr window matches the
-    next-word lookup, so any anchor the search can extend has a finite
-    estimate."""
-    lat = st.lattice
-    T = lat.T
-    # per-atom incremental score = cumulative - predecessor cumulative
-    # (includes the atom's pass-1 LM portion)
-    prev = lat.prev[st.ae.astype(np.int64), st.am_]
-    pt, pm = np.divmod(np.maximum(prev, 0), lat.M)
-    pscore = np.where(prev >= 0, lat.score[pt, pm], 0.0)
-    inc = st.asc - pscore
-    ab, ae = st.ab, st.ae
-    # boundary slack is CHARGED through fmax (the frame's best
-    # outprob): uncharged +-lr windows hand every chain hop up to
-    # lr*|fmax| free log points when frame scores are negative (GMM
-    # ~-20/frame -> rest inflated ~+700 and the search churned out
-    # EMPTY on configs the reference decoded exactly; see
-    # pass2_device._suffix_estimate_np for the full history)
-    # gap frames charge min(fmax, 0), overlaps full fmax — see
-    # pass2_device._suffix_estimate_np for the two-regime rationale
-    if fmax is not None:
-        cfm = np.concatenate([[0.0], np.cumsum(fmax)])
-        cfm0 = np.concatenate([[0.0], np.cumsum(np.minimum(fmax, 0.0))])
-    else:
-        cfm = cfm0 = np.zeros(T + 1)
-    rest = np.full(T + 1, -np.inf)
-    rest[T - 1] = 0.0            # nothing left after the final frame
-    for t in range(T - 2, -1, -1):
-        i0 = np.searchsorted(ab, t + 1 - lr)
-        i1 = np.searchsorted(ab, t + 1 + lr, side="right")
-        if i1 > i0:
-            b = np.clip(ab[i0:i1], 0, T)
-            e = ae[i0:i1]
-            adj = np.where(b >= t + 1,
-                           cfm0[b] - cfm0[t + 1],
-                           cfm[b] - cfm[t + 1])
-            v = adj + inc[i0:i1] + rest[e]
-            v = np.where(e > t, v, -np.inf)
-            best = v.max() if len(v) else -np.inf
-        else:
-            best = -np.inf
-        rest[t] = best
-    return rest[:T]
 
 
 def _cand_for(st: _UttState, tau: int, lr: int, strategy) -> \
@@ -575,18 +505,18 @@ def _cand_for(st: _UttState, tau: int, lr: int, strategy) -> \
     cs = st.cands.get((tau, lr))
     if cs is not None or (tau, lr) in st.cands:
         return cs
-    lat = st.lattice
-    i0 = np.searchsorted(st.ab, tau - lr)
-    i1 = np.searchsorted(st.ab, tau + lr, side="right")
+    lat, a = st.lattice, st.atoms
+    i0 = np.searchsorted(a.ab, tau - lr)
+    i1 = np.searchsorted(a.ab, tau + lr, side="right")
     cs = None
     if i1 > i0:
-        e = st.ae[i0:i1]
+        e = a.ae[i0:i1]
         ok = e >= tau              # word must end after the boundary
         if ok.any():
-            w = st.aw[i0:i1][ok]
+            w = a.aw[i0:i1][ok]
             e = e[ok]
-            m = st.am_[i0:i1][ok]
-            b = st.ab[i0:i1][ok]
+            m = a.am[i0:i1][ok]
+            b = a.ab[i0:i1][ok]
             # rank words and anchor end-frames by the FULL-PATH estimate
             # through the atom (cumulative + suffix), not the raw
             # cumulative score: cumulative alone decreases with t, so it
@@ -596,7 +526,7 @@ def _cand_for(st: _UttState, tau: int, lr: int, strategy) -> \
             # inter-word pause ends ~15 frames later than the short
             # variants).  Mirrors the reference ranking by trellis score
             # + backward estimate (ngram_decode.c:192).
-            s = st.asc[i0:i1][ok] + st.rest[e]
+            s = a.asc[i0:i1][ok] + st.rest[e]
             # group atoms by word, best-estimate first within each group
             order = np.lexsort((-s, w))
             w, e, m, b, s = (w[order], e[order], m[order], b[order],
@@ -675,10 +605,13 @@ def rescan_nbest_batch(
                 np.max(np.where(lat.word >= 0, lat.score, -np.inf))):
             utts.append(None)
             continue
-        st = _UttState(lattice=lat)
-        _atom_arrays(st)
-        st.rest = _suffix_estimate(st, lr,
-                                   dispatcher.fmax[b, :lat.T])
+        a = atom_table(lat)
+        # each atom's FULL pass-1 increment (its pass-1 LM included, not
+        # re-weighted)
+        st = _UttState(lattice=lat, atoms=a,
+                       rest=suffix_estimate(a.ab, a.ae, a.asc - a.pscore,
+                                            lat.T, lr,
+                                            dispatcher.fmax[b, :lat.T]))
         utts.append(st)
         cs = _cand_for(st, 0, 0, strategy)
         if cs is None:

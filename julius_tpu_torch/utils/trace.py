@@ -43,14 +43,15 @@ The spans, each with its parent (`PARENT`):
 * `pass1.readback` [decode]: `Engine._results`' copy of the trellis to
   the host, where the host waits for pass 1's replays;
 * `astar` [decode]: `Engine._device_astar`, the device A* with its
-  retry net;
+  retry net (a root at a stream segment's end, which decodes outside
+  `decode`);
 * `astar.setup` [astar]: `pass2_device._setup`: `prepare`, the frames'
   best outprob read back and the inputs uploaded;
 * `astar.prepare` [astar.setup]: `pass2_device.prepare`;
-* `prepare.suffix` [astar.prepare]: an utterance's suffix estimate
-  (`_suffix_estimate_np`, `_best_path_rest`); where the DP runs on the
-  card, an utterance's `_best_path_rest`, and once a batch the kernel's
-  launch and, after the atom tables, the wait for it and its read-back;
+* `prepare.suffix` [astar.prepare]: once a batch the suffix DP's start
+  (on a card the kernel's launch, on the CPU its plain version), then
+  an utterance's best-path curve (`_best_path_rest`) each, then once a
+  batch the wait for the DP and its read-back;
 * `prepare.prune` [astar.prepare]: an utterance's candidate prune;
 * `prepare.seed` [astar.prepare]: the padded tables, the frame-0 stacks
   and the packed candidate columns of the batch;

@@ -156,7 +156,7 @@ def test_prepare_and_estimates_match_reference(reference, batches):
     got = tp2d.prepare(
         [tp2.TrellisLattice(tr, int(n)) for tr, n in zip(trs, lens)],
         T, teng._rescan_strategy(), teng.search_cfg, 2000, None, tbest,
-        fmax=fmax)
+        fmax=torch.from_numpy(fmax))
     for f in ("ab", "ae", "aw", "ainc", "rest", "last", "packed"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     for a, b in zip(got.stack0, want.stack0):

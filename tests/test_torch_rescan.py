@@ -13,6 +13,11 @@ and the engine's retry net around the device A*.
   features to the reference's word ids and `from_pass`; scores within
   atol 1e-2, since here each package runs its own DNN (the scores agree
   to a few 1e-6 a frame and a decode sums a few hundred of them).
+* One dispatch: `_pass2_result` on one utterance gives what a decode of
+  that utterance alone gives, through the device A*, the host re-scan
+  and the frozen search; an utterance without a finite pass-1 word end
+  at its last frame gets no device N-best, so the one retry net treats
+  it as empty, as the reference's per-utterance net does.
 """
 
 import dataclasses
@@ -26,6 +31,7 @@ from julius_tpu.engine import Engine as JaxEngine
 from julius_tpu.search import pass2 as jp2
 from julius_tpu.search import pass2_device as jp2d
 from julius_tpu.search import pass2_rescan as jp2r
+from julius_tpu_torch.search import pass1 as tp1
 from julius_tpu_torch.search import pass2 as tp2
 from julius_tpu_torch.search import pass2_device as tp2d
 from julius_tpu_torch.search import pass2_rescan as tp2r
@@ -171,3 +177,70 @@ def test_single_utterance_pass2_matches_reference(reference, device_astar):
     assert got.word_ids == want.word_ids
     assert got.score == pytest.approx(want.score, abs=1e-4)
     assert got.segments == want.segments
+
+
+@pytest.mark.parametrize("search", [dict(), dict(pass2_device=False),
+                                    dict(pass2_rescan=False)],
+                         ids=["device_astar", "host_rescan", "frozen"])
+def test_single_utterance_pass2_equals_a_decode_of_one(reference, search):
+    """`_pass2_result` on an utterance's own outprob cache and trellis
+    gives the pass-2 result that `decode_features` gives for a batch of
+    that one utterance: both go through `Engine._pass2`."""
+    eng, (_, feats, lens, _, _) = reference
+    teng = converted_engine(eng, **search)
+    n = int(lens[1])
+    one = feats[1:2, :n]
+    want = teng.decode_features(one, [n])[0]
+    net = teng.last_pass2
+    with torch.no_grad():
+        out_ext = teng._outprob(torch.from_numpy(one))
+        tr = teng._pass1(out_ext, [n])
+    tb = tp1.Trellis(*[a[0].numpy() for a in tr])
+    teng.last_pass2 = None
+    got = teng._pass2_result(tb, n, out_ext=out_ext)
+    if search:
+        assert teng.last_pass2 is None
+    else:                        # the device A*'s net ran and says so
+        assert teng.last_pass2["retried"] == net["retried"]
+    assert got.from_pass == want.from_pass == 2
+    for g, w in zip([got] + got.nbest, [want] + want.nbest):
+        assert (g.word_ids, g.score, g.am_score, g.lm_score, g.segments) \
+            == (w.word_ids, w.score, w.am_score, w.lm_score, w.segments)
+    assert len(got.nbest) == len(want.nbest)
+
+
+@pytest.mark.parametrize("final_frame", ["no_score", "no_word_end"])
+def test_no_final_word_end_gives_no_device_nbest(reference, final_frame):
+    """Where the pass-1 margin is not sound (here the passes weigh the
+    LM differently), an utterance without a finite pass-1 word end at its
+    last frame gets no device N-best: every suffix estimate, every seed
+    and every candidate needs a finite chain to that frame.  So the one
+    retry net re-runs it on the host as an empty utterance, never as a
+    spot check, and `_pass2_result` agrees with the reference's."""
+    eng, (_, _, lens, out_ext, trs) = reference
+    saved = eng.search_cfg
+    eng.search_cfg = dataclasses.replace(saved, lm_weight2=saved.lm_weight
+                                         + 1.0)
+    teng = converted_engine(eng)
+    n = int(lens[0])
+    one = out_ext[:1, :n]
+    tr = tp1.Trellis(*[np.array(a) for a in trs[0]])
+    if final_frame == "no_score":
+        tr.score[n - 1] = -np.inf
+    else:
+        tr.word[n - 1] = -1
+    try:
+        want = eng._pass2_result(tr, n, out_ext=jnp.asarray(one))
+    finally:
+        eng.search_cfg = saved
+    lat = tp2.TrellisLattice(tr, n)
+    assert tp2d.run_batch(
+        [lat], teng.device_chains, teng.ngram_dev, teng._wid2lm_p2,
+        teng._cprob_arr(), torch.from_numpy(one), teng._rescan_strategy(),
+        teng.search_cfg) == [[]]
+    got = teng._pass2_result(tr, n, out_ext=torch.from_numpy(one))
+    assert teng.last_pass2["retried"] == 1 and teng._p2d_spot_ok == 0
+    assert (got is None) == (want is None)
+    if got is not None:
+        assert got.word_ids == want.word_ids
+        assert got.score == pytest.approx(want.score, abs=1e-4)

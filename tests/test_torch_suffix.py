@@ -3,20 +3,21 @@ csrc/suffix.cu).
 
   * the kernel's plain version, which follows the kernel's push order
     (each trellis row, from the last frame back, pushing its atoms into
-    the frames it can follow), is bit-equal to search/pass2_device.py
-    `_suffix_estimate_np` (numpy's pull loop) on random trellises: M of
-    32 and 128, lookup ranges 0, 5 and 12, no frame maxima, DNN-like and
-    GMM-like ones, 1, 2 and 1560 frames, rows of fewer frames than the
-    trellis and of none, empty slots and empty rows, atoms that begin at
-    frame 0 and windows that run past the utterance;
-  * on CPU tensors `prepare` and `run_batch` take the numpy path (no
-    launch, `suffix_host` counts the utterances) and `prepare` gives the
-    same tables as without the card's arguments;
-  * on a card (skipped without one): the kernel bit-equal to numpy on
-    the small flagship's decoded batches and on random trellises, with
-    its frame arrays in shared memory and in the global scratch; the
-    decode counting every utterance under `suffix_card`; `prepare` equal
-    to its CPU path with the device trellis and with the lattices
+    the frames it can follow), is bit-equal to search/pass2.py
+    `suffix_estimate` (numpy's pull loop) over each row's `atom_table`
+    with the re-weighted increments written here, on random trellises:
+    M of 32 and 128, lookup ranges 0, 5 and 12, no frame maxima,
+    DNN-like and GMM-like ones, 1, 2 and 1560 frames, rows of fewer
+    frames than the trellis and of none, empty slots and empty rows,
+    atoms that begin at frame 0 and windows that run past the utterance;
+  * on the CPU `prepare` takes the plain version (no launch) and gives
+    the same tables with the decode's trellis and with the lattices'
+    rows, and a decode launches nothing;
+  * on a card (skipped without one): the kernel bit-equal to the plain
+    version on the small flagship's decoded batches and on random
+    trellises, with its frame arrays in shared memory and in the global
+    scratch; a decode launching it once; `prepare` on the card equal to
+    `prepare` on the CPU, with the device trellis and with the lattices
     uploaded.
 
 The card's cases import neither JAX nor the reference package:
@@ -93,8 +94,17 @@ def search_cfg(lr):
                                lm_weight=8.0, lm_weight2=6.5)
 
 
+def pull_loop(lat, cfg, fmax):
+    """numpy's pull loop over the lattice's atom table, each atom's
+    pass-1 LM portion re-weighted into the pass-2 scale."""
+    a = tp2.atom_table(lat)
+    inc = (a.asc - a.pscore - a.alm) + a.alm * tp2d._lm_ratio(cfg)
+    return tp2.suffix_estimate(a.ab, a.ae, inc, lat.T,
+                               max(0, int(cfg.lookup_range)), fmax)
+
+
 def assert_same_as_numpy(got, tr, lens, fmax, cfg):
-    """Each row of `got` ([B, T] f64) bit-equal to `suffix_host` on the
+    """Each row of `got` ([B, T] f64) bit-equal to the pull loop on the
     row's lattice, -inf past its frames."""
     got = got.cpu().numpy()
     for b, n in enumerate(lens):
@@ -104,8 +114,7 @@ def assert_same_as_numpy(got, tr, lens, fmax, cfg):
         lat = tp2.TrellisLattice(tp1.Trellis(*[a[b].cpu().numpy()
                                                for a in tr]), n)
         fm = None if fmax is None else fmax[b, :n].cpu().numpy()
-        np.testing.assert_array_equal(got[b, :n], tp2d.suffix_host(lat, cfg,
-                                                                   fm))
+        np.testing.assert_array_equal(got[b, :n], pull_loop(lat, cfg, fm))
 
 
 @pytest.mark.parametrize("T", [1, 2, 1560])
@@ -165,20 +174,25 @@ def assert_same_prepared(got, want):
         np.testing.assert_array_equal(a, b)
 
 
-def test_prepare_and_run_batch_on_cpu_take_numpy(cpu_decode):
+def test_prepare_and_run_batch_on_cpu_take_numpy(cpu_decode, monkeypatch):
+    """On the CPU `prepare` takes the plain version (numpy, no launch),
+    with the decode's trellis and with the lattices' rows alike."""
     eng, feats, lens = cpu_decode
     out, tr, lats = decoded_batch(eng, feats, lens)
-    fmax_dev = out.amax(dim=2)
-    fmax = fmax_dev.numpy()
+    fmax = out.amax(dim=2)
     args = prepare_args(eng, lats, out)
+    calls, real = [], tsx.suffix_plain
+
+    def plain(*a, **kw):
+        calls.append(a[1])
+        return real(*a, **kw)
+    monkeypatch.setattr(tsx, "suffix_plain", plain)
     before = tsx.LAUNCHES
-    got = tp2d.prepare(*args, fmax=fmax, trellis=tr, fmax_dev=fmax_dev)
-    assert (got.suffix_card, got.suffix_host) == (0, len(lats))
+    got = tp2d.prepare(*args, fmax=fmax, trellis=tr)
     assert_same_prepared(got, tp2d.prepare(*args, fmax=fmax))
     eng.decode_features(feats, lens)
+    assert calls == [list(lens)] * 3
     assert tsx.LAUNCHES == before
-    assert (tp2d.LAST_STATS["suffix_card"],
-            tp2d.LAST_STATS["suffix_host"]) == (0, len(lats))
 
 
 # ---- on the card
@@ -215,13 +229,13 @@ def test_kernel_equals_numpy_on_decoded_batches(card_decode):
                          cfg.lookup_range, tp2d._lm_ratio(cfg))
         torch.cuda.synchronize()
         assert tsx.LAUNCHES == before + 1
-        assert_same_as_numpy(got, tr, lens[:B], out.amax(dim=2), cfg)
-        # the decode: one launch, every utterance's estimate from the card
+        want = tsx.suffix_plain(tr, lens[:B], out.amax(dim=2),
+                                cfg.lookup_range, tp2d._lm_ratio(cfg))
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+        # the decode: one launch for the batch
         before = tsx.LAUNCHES
         eng.decode_features(feats[:B], lens[:B])
         assert tsx.LAUNCHES == before + 1
-        assert (tp2d.LAST_STATS["suffix_card"],
-                tp2d.LAST_STATS["suffix_host"]) == (B, 0)
 
 
 @pytest.mark.cuda
@@ -247,14 +261,13 @@ def test_kernel_equals_plain_on_random_trellises(cuda, monkeypatch, M, lr,
 def test_prepare_on_card_equals_cpu_path(card_decode):
     eng, feats, lens = card_decode
     out, tr, lats = decoded_batch(eng, feats, lens)
-    fmax_dev = out.amax(dim=2)
-    fmax = fmax_dev.cpu().numpy()
+    fmax = out.amax(dim=2)
     args = prepare_args(eng, lats, out)
-    want = tp2d.prepare(*args, fmax=fmax)
+    want = tp2d.prepare(*args, fmax=fmax.cpu())
     for trellis in (tr, None):           # the device trellis, an upload
-        got = tp2d.prepare(*args, fmax=fmax, trellis=trellis,
-                           fmax_dev=fmax_dev)
-        assert (got.suffix_card, got.suffix_host) == (len(lats), 0)
+        before = tsx.LAUNCHES
+        got = tp2d.prepare(*args, fmax=fmax, trellis=trellis)
+        assert tsx.LAUNCHES == before + 1
         assert_same_prepared(got, want)
 
 

@@ -83,8 +83,8 @@ def expected_children(name, stats, entry="decode_features"):
         "astar": ["astar.setup", "astar.rounds", "astar.collect",
                   "astar.retry"],
         "astar.setup": ["astar.prepare"],
-        "astar.prepare": ["prepare.suffix", "prepare.prune"] * N_UTTS
-        + ["prepare.seed"],
+        "astar.prepare": ["prepare.suffix"] * (N_UTTS + 2)
+        + ["prepare.prune"] * N_UTTS + ["prepare.seed"],
         "astar.rounds": ["astar.capture"] * stats["captured"]
         + ["astar.wait"] * stats["waits"],
     }.get(name, [])
@@ -163,11 +163,13 @@ def test_two_calls_have_two_call_ids(decoding, tracer):
     assert roots[0].call != roots[1].call
     calls = Counter(r.call for r in records)
     assert set(calls) == {roots[0].call, roots[1].call}
-    # the second call's batch holds one utterance: 2 prepare spans fewer
-    # of each phase
+    # the second call's batch holds one utterance: 2 best-path curves
+    # and 2 prunes fewer, the suffix DP's start and read-back the same
     n = {c: Counter(r.name for r in records if r.call == c) for c in calls}
     first, second = n[roots[0].call], n[roots[1].call]
-    assert first["prepare.suffix"] == N_UTTS and second["prepare.suffix"] == 1
+    assert first["prepare.suffix"] == N_UTTS + 2
+    assert second["prepare.suffix"] == 3
+    assert (first["prepare.prune"], second["prepare.prune"]) == (N_UTTS, 1)
 
 
 def test_results_are_the_same_with_the_tracer_on(decoding):
