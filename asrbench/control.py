@@ -138,6 +138,10 @@ def _one_pop_budget(eng):
     eng.search_cfg.max_hypo_pop = 1
 
 
+#: the faults of pass 2, which a cell whose traffic has `"pass2": false`
+#: does not run
+PASS2_FAULTS = ("astar_one_pop",)
+
 #: each fault: (a context that plants it in the program's modules or
 #: None, a patch of the engine or None)
 FAULTS = {

@@ -17,6 +17,9 @@ cell is a file found by name:
 The loop is closed: the next batch goes in when the last one's results
 are back, as a user decoding a file list waits.  Every batch is fresh,
 made from the seed before the window, padded to its longest utterance.
+Making that pool is the benchmark's work, not the program's: `setup_s`
+leaves it out, and the log line gives its seconds, its size and the
+share of it each window decoded.
 A traced run measures two windows over the same pool: first the
 untraced window a `--trace 0` run measures (judged, and the whole
 decode's share of the peak read from it), then the profiled window
@@ -131,7 +134,10 @@ def make_batches(model, traffic: dict, seed: int):
     ordering the batches of each block and the utterances of each batch
     and drawing the sentences, so that every seed sends the same sizes;
     the longest utterance of the pool is put into the first sampled
-    batch."""
+    batch.  Blocks and sentences are drawn in order, so a larger pool
+    starts with a smaller one's batches (but for that swap), and the
+    sampled indices, drawn from a generator of their own, depend on the
+    seed alone."""
     B = int(traffic["batch"])
     nb = int(traffic["pool_batches"])
     rng = np.random.default_rng(seed)
@@ -146,9 +152,9 @@ def make_batches(model, traffic: dict, seed: int):
     truths, wins = synth.make_utterances(model, wc.tolist(), seed,
                                          float(traffic["follow_p"]))
     ctx = model.context
-    sampled = sorted(rng.choice(int(traffic["check_within"]),
-                                int(traffic["check_batches"]),
-                                replace=False).tolist())
+    sampled = sorted(np.random.default_rng([seed, 1]).choice(
+        int(traffic["check_within"]), int(traffic["check_batches"]),
+        replace=False).tolist())
     longest = int(np.argmax([w.shape[0] for w in wins]))
     first = sampled[0] * B
     truths[first], truths[longest] = truths[longest], truths[first]
@@ -211,7 +217,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     two_pass = bool(traffic["pass2"])
     cuda = torch.device(device).type == "cuda"
 
-    # -- set-up: model, program, traffic, warm-up ----------------------
+    # -- set-up: model, program, traffic (not in setup_s), warm-up -----
     phases = {"imports": time.perf_counter() - t_start}
     model = builder.build(config, seed)
     phases["model"] = time.perf_counter() - t_start
@@ -220,6 +226,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     phases["engine"] = time.perf_counter() - t_start
     warm, pool, sampled = make_batches(model, traffic, seed)
     phases["traffic"] = time.perf_counter() - t_start
+    traffic_s = phases["traffic"] - phases["engine"]
     if patch is not None:
         patch(eng)
     spans = Spans(eng, traced=False)
@@ -294,7 +301,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         return w
 
     run = Run()
-    run.setup_s = time.perf_counter() - t_start
+    run.setup_s = time.perf_counter() - t_start - traffic_s
     plain = window(False, True, seconds)
     phases["window"] = time.perf_counter() - t_start
     measured = plain
@@ -323,6 +330,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     attempted, failed = measured["attempted"], measured["failed"]
     retried, retry_s, done = (measured["retried"], measured["retry_s"],
                               measured["done"])
+    # printed only: the pool's size and the share of it each window used
+    pool_gb = sum(b.feats.nbytes + b.nfr.nbytes for b in pool) / 1e9
+    shares = ", ".join(f"{w['done']} ({w['done'] / len(pool):.1%})"
+                       for w in ((plain, measured) if trace else (plain,)))
     kept = plain.pop("kept")
     run.host_s = dict(spans.host_s)
     spans.close()
@@ -404,7 +415,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
           f"s; exact transcripts {exact} of {len(samples)} judged; "
           f"set-up {run.setup_s:.3f} s, ends of its phases {phases} "
           f"(the trace's reading, the lexicon and the whole reference after the "
-          f"window in seconds); "
+          f"window in seconds); traffic {traffic_s:.3f} s, not in set-up: a "
+          f"pool of {len(pool)} batches, {pool_gb:.2f} GB on the host, "
+          f"warmed up at {[b.feats.shape[1] for b in warm]} frames, of "
+          f"which the {'untraced and traced windows' if trace else 'window'} "
+          f"decoded {shares}; "
           f"call seconds (quartiles, max) "
           f"{np.percentile(run.latencies_s, [25, 50, 75, 100]).tolist()}; "
           f"host spans {run.host_s}; retry net re-ran {retried} "

@@ -9,7 +9,8 @@ ranks M+1 to 2M; pass 2 cut to one round of pops; a pass-1 step that
 returns its state unchanged; half of a batch left out, its results taken
 from the other half; an answer altered where it is produced.  The
 exchange between chips is not a fault these cells can have: each runs
-on one card and exchanges nothing.
+on one card and exchanges nothing.  Nor is a cut of pass 2 a fault of a
+cell whose traffic runs pass 1 alone (`"pass2": false`).
 """
 
 import io
@@ -18,14 +19,20 @@ import pytest
 
 from asrbench import harness
 from asrbench.conftest import tiny_cell
-from asrbench.control import FAULTS, planted
-
-CELLS = [c["name"] for c in harness.load_json(
-    harness.ROOT / "BENCHMARK.json")["workloads"]]
+from asrbench.control import FAULTS, PASS2_FAULTS, planted
 
 
-@pytest.mark.parametrize("fault", ["control", *FAULTS])
-@pytest.mark.parametrize("workload", CELLS)
+def pairs():
+    """(cell, fault) for each fault a cell can have."""
+    for c in harness.load_json(harness.ROOT / "BENCHMARK.json")["workloads"]:
+        traffic = harness.load_json(harness.HERE / "traffic"
+                                    / f"{c['traffic']}.json")
+        for fault in ("control", *FAULTS):
+            if traffic["pass2"] or fault not in PASS2_FAULTS:
+                yield c["name"], fault
+
+
+@pytest.mark.parametrize("workload,fault", list(pairs()))
 def test_a_fault_makes_correct_false(workload, fault):
     cfg, traffic = tiny_cell(workload)
     if fault == "half_batch" and traffic["batch"] < 2:
