@@ -340,12 +340,21 @@ def step_inputs(dev, etot, B, R, seed, ties, padded=False):
 
 
 def compare_step(pk, args):
-    """Kernel vs plain on the same arguments -> (max |score err|, outs)."""
-    got = pk.fused_step(**args)
-    want = pk.fused_step_plain(**args)
+    """Kernel vs plain on the same arguments, each writing a state set of
+    its own (the kernel's filled with NaN and INT_MIN first, so a node it
+    leaves unwritten shows; an `out` among the arguments is set aside)
+    -> (max |score err|, outs)."""
+    args = {k: v for k, v in args.items() if k != "out"}
+    state = args["score"], args["ctx"], args["prev"]
+    poison = tuple(torch.full_like(t, float("nan")) if t.is_floating_point()
+                   else torch.full_like(t, torch.iinfo(t.dtype).min)
+                   for t in state)
+    got = pk.fused_step(**args, out=poison)
+    want = pk.fused_step_plain(**args,
+                               out=tuple(torch.empty_like(t) for t in state))
     torch.cuda.synchronize()
     err = float((got[0] - want[0]).abs().max())
-    if err > 1e-5:
+    if not err <= 1e-5:
         raise RuntimeError(f"kernel scores differ from plain by {err}")
     for i, name in ((1, "ctx"), (2, "prev")):
         if not torch.equal(got[i], want[i]):
@@ -1171,18 +1180,26 @@ KEEP_CALL = 64    # besides the first, the call of a shape whose arguments are k
 def keep_calls(store, name, fn, plain, shape_of):
     """`fn` wrapped so that each call's shape is counted in store[name]
     and the arguments of the first and the KEEP_CALL-th call at each
-    shape are copied: store[name] = {shape: [count, [args, ...]]}.  The
-    arguments are named as those of `plain`, the plain version, whose
-    signature the wrapper shares."""
+    shape are copied: store[name] = {shape: [count, [args, ...]]}, the
+    tensors of a plain tuple among them too (a state set the call
+    writes, which the loop goes on to overwrite).  The arguments are
+    named as those of `plain`, the plain version, whose signature the
+    wrapper shares."""
     params = list(inspect.signature(plain).parameters)
+
+    def copy(v):
+        if torch.is_tensor(v):
+            return v.clone()
+        if type(v) is tuple:
+            return tuple(copy(x) for x in v)
+        return v
 
     def wrapped(*a, **kw):
         args = dict(zip(params, a), **kw)
         entry = store[name].setdefault(shape_of(args), [0, []])
         entry[0] += 1
         if entry[0] in (1, KEEP_CALL):
-            entry[1].append({k: v.clone() if torch.is_tensor(v) else v
-                             for k, v in args.items()})
+            entry[1].append({k: copy(v) for k, v in args.items()})
         return fn(*a, **kw)
     return wrapped
 

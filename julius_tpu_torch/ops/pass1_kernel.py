@@ -59,14 +59,16 @@ def _shift(x: torch.Tensor, k: int, fill) -> torch.Tensor:
 
 
 def fused_step_plain(score, ctx, prev, loc_lp, entry_total, row, score_idx,
-                     ent_s, ectx_s, eprev_s, frame_valid):
+                     ent_s, ectx_s, eprev_s, frame_valid, out=None):
     """One beam-update frame in plain PyTorch (the kernel's oracle).
 
     score/ctx/prev: [B, N] f32/i32/i32 state; loc_lp: [K+1, N] shifted-
     arc ln p; entry_total: [N] (LOG_ZERO = no word entry); row: [B, R]
     this frame's outprob row; score_idx: [N] i32 node -> row column;
     ent_s/ectx_s/eprev_s: [B] best corrected word-end score / LM context
-    / trellis pointer; frame_valid: [B] bool.
+    / trellis pointer; frame_valid: [B] bool; out: None, or three
+    tensors like score/ctx/prev, apart from them, that the new state is
+    written into.
     Returns (new_score, new_ctx, new_prev)."""
     inw = score + loc_lp[0]
     c, p = ctx, prev
@@ -85,9 +87,19 @@ def fused_step_plain(score, ctx, prev, loc_lp, entry_total, row, score_idx,
     p = torch.where(use_e, eprev_s[:, None], p)
     out_node = row[:, score_idx.long()]
     ns = torch.where(merged > NEG_HALF, merged + out_node, LOG_ZERO)
+    return freeze(frame_valid, (ns, c, p), (score, ctx, prev), out)
+
+
+def freeze(frame_valid, new, old, out=None):
+    """The step's last write: each of the `new` [B, N] tensors where the
+    [B] frame_valid holds, else the `old` one, into `out` where given
+    (the state set the next frame reads), else into fresh tensors."""
     fv = frame_valid[:, None]
-    return (torch.where(fv, ns, score), torch.where(fv, c, ctx),
-            torch.where(fv, p, prev))
+    if out is None:
+        return tuple(torch.where(fv, n, o) for n, o in zip(new, old))
+    for n, o, dst in zip(new, old, out):
+        torch.where(fv, n, o, out=dst)
+    return tuple(out)
 
 
 def tile_nodes(K1: int) -> int:
@@ -190,19 +202,21 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def fused_step(score, ctx, prev, loc_lp, entry_total, row, score_idx,
-               ent_s, ectx_s, eprev_s, frame_valid):
+               ent_s, ectx_s, eprev_s, frame_valid, out=None):
     """One beam-update frame (arguments as `fused_step_plain`).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel.
-    Returns fresh (new_score, new_ctx, new_prev) tensors.  score_idx
-    must index inside row's width (the network build guarantees it);
-    score, ctx and prev must start 16-byte aligned, as fresh tensors
-    do."""
+    tensors take the plain version; CUDA tensors launch the kernel,
+    which writes the new state into `out` where given and allocates
+    nothing, else into fresh tensors.  Returns (new_score, new_ctx,
+    new_prev).  score_idx must index inside row's width (the network
+    build guarantees it); score, ctx, prev and out's tensors must start
+    16-byte aligned, as fresh tensors do, and out's may share no memory
+    with the state, whose neighbours the kernel reads."""
     global LAUNCHES, CAPTURED
     dev = score.device
     if dev.type == "cpu":
         return fused_step_plain(score, ctx, prev, loc_lp, entry_total, row,
                                 score_idx, ent_s, ectx_s, eprev_s,
-                                frame_valid)
+                                frame_valid, out)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     B, N = score.shape
@@ -223,14 +237,27 @@ def fused_step(score, ctx, prev, loc_lp, entry_total, row, score_idx,
             raise ValueError(f"{name} must be contiguous")
     if row.stride(1) != 1:
         raise ValueError("row must be contiguous along its last axis")
-    for name, t in (("score", score), ("ctx", ctx), ("prev", prev)):
+    state = (score, ctx, prev)
+    if out is None:
+        out = tuple(torch.empty_like(t) for t in state)
+    else:
+        out = tuple(out)
+        mem = {t.untyped_storage().data_ptr() for t in state}
+        for name, o, t in zip(("out score", "out ctx", "out prev"), out,
+                              state):
+            cuda_build.check_arg(name, o, t.dtype, (B, N), dev)
+            if not o.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+            if o.untyped_storage().data_ptr() in mem:
+                raise ValueError(f"{name} shares memory with the state")
+    o_score, o_ctx, o_prev = out
+    for name, t in (("score", score), ("ctx", ctx), ("prev", prev),
+                    ("out score", o_score), ("out ctx", o_ctx),
+                    ("out prev", o_prev)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start 16-byte aligned")
     plan = _plan(dev, B, N, k1)
     lib = build()
-    o_score = torch.empty_like(score)
-    o_ctx = torch.empty_like(ctx)
-    o_prev = torch.empty_like(prev)
     with cuda_build.on_device(dev):
         rc = lib.pass1_step_launch(
             score.data_ptr(), ctx.data_ptr(), prev.data_ptr(),

@@ -53,7 +53,8 @@ from julius_tpu_torch.search.ngram_device import DeviceNgram, bigram_score
 from julius_tpu_torch.search.pass1 import (MIN_T_BUCKET, NEG_HALF,
                                            TRELLIS_DTYPES, DeviceNetwork,
                                            GraphCache, Pass1Config, Trellis,
-                                           _capture, topk_stable)
+                                           _capture, count_frames,
+                                           topk_stable)
 from julius_tpu_torch.utils.logadd import LOG_ZERO
 
 #: captured frame steps (and shard placements) kept a network, the
@@ -461,6 +462,7 @@ def _eager(snet: ShardedNetwork, shards: List[_Shard],
     loop.load(out_ext, n_frames)
     for _ in range(T):
         loop.step()
+    count_frames(T, True)
     return loop.result(T)
 
 
@@ -527,7 +529,8 @@ def _graphed(snet: ShardedNetwork, shards: List[_Shard],
 
             def capture(cache, c, step):
                 with torch.cuda.device(c.device):
-                    return _capture(cache, c.device, step)
+                    graph, = _capture(cache, c.device, step)
+                    return graph
 
             if len(cards) == 1:
                 graphs = [capture(*pairs[0], loop.step)]
@@ -548,6 +551,7 @@ def _graphed(snet: ShardedNetwork, shards: List[_Shard],
             frames = T
         for _ in range(frames):
             entry.frame()
+        count_frames(T, True)
         return entry.loop.result(T)
 
 

@@ -250,7 +250,7 @@ def _graphed(cache: GraphCache, tables, out_ext: torch.Tensor, steps: int):
             t0 = time.perf_counter()
             loop = _Viterbi(n_cap, Din, t_cap, device)
             loop.load(*tables[:4], out_ext)
-            loop.graph = _capture(cache, device, loop.step)
+            loop.graph, = _capture(cache, device, loop.step)
             cache.captures += 1
             cache.capture_s += time.perf_counter() - t0
         cache.entries[key] = loop

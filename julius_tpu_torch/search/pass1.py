@@ -17,9 +17,12 @@ written out as a leading [B] axis, with the frame index a device tensor
 and no host synchronisation inside it.  On the CPU `pass1_batch` calls
 it once a frame.  On a CUDA card it runs it as the reference's jitted
 `lax.scan` runs its step:
-the step is captured once as a CUDA graph (`GraphCache`, kept on the
+the step is captured as CUDA graphs (`GraphCache`, kept on the
 network) and replayed once a frame, advancing its own frame index, so
-the host makes one graph launch a frame.  A stream's chunk
+the host makes one graph launch a frame.  The batch's state lives in
+two fixed sets: a frame reads one and writes the other, so no frame
+copies the [B, N] state, and the two steps (one a set) are two graphs
+replayed in turn.  A stream's chunk
 (`pass1_stream_chunk`) runs its own frame body, `_StreamLoop.step`, the
 same way: one replay a chunk row.  Where the reference
 takes its fused Pallas kernel (`_fused_ok`: a shift-structured network,
@@ -57,6 +60,7 @@ from julius_tpu_torch.ops.word_end_kernel import (TRELLIS_DTYPES, Trellis,
                                                   topk_stable)
 from julius_tpu_torch.search.network import DecodeNetwork
 from julius_tpu_torch.search.ngram_device import DeviceNgram, bigram_score
+from julius_tpu_torch.utils import trace
 from julius_tpu_torch.utils.logadd import LOG_ZERO
 
 NEG_HALF = LOG_ZERO / 2
@@ -72,14 +76,15 @@ class GraphCache:
     sharded pass 1's frame step on one card of a sharded network
     (parallel/sharded_pass1.py).
 
-    An entry of pass 1 (`_Graph`) is keyed by what fixes its addresses
-    and shapes (card, B, the node axis, M, R, the branch, the config,
-    the N-gram, and a power-of-two capacity of frames).  Every graph of
-    a cache shares one memory pool and one capture stream; `lock` keeps
-    one batch at a time on them, since a batch fills the fixed tensors,
+    An entry of pass 1 (`_Graph`: the two frame steps of `_Loop`, or a
+    stream's chunk row) is keyed by what fixes its addresses and shapes
+    (card, B, the node axis, M, R, the branch, the config, the N-gram,
+    and a power-of-two capacity of frames).  Every graph of a cache
+    shares one memory pool and one capture stream; `lock` keeps one
+    batch at a time on them, since a batch fills the fixed tensors,
     replays and copies its results out.  `captures` and `capture_s`
-    count the captures made and their host seconds (the eager first
-    step and the capture)."""
+    count the entries captured and their host seconds (each graph's
+    eager first step and capture)."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -393,13 +398,14 @@ def pass1_init(dev: DeviceNetwork, cfg: Pass1Config,
 def pass1_step(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
                cfg: Pass1Config, score: torch.Tensor, ctx: torch.Tensor,
                prev: torch.Tensor, atoms: Trellis, out_row: torch.Tensor,
-               frame_valid: torch.Tensor, t, entry=None):
+               frame_valid: torch.Tensor, t, entry=None, out=None):
     """One frame of the reference's unfused `pass1_step` (pass1.py:458)
     over the batch: [B, N] state, the [B, M] atoms of frame t-1, the
     [B, R] outprob rows of frame t, [B] frame_valid -> the new state,
-    frozen where frame_valid is False.  t is an int or a [1] int32
-    tensor; `entry` the atoms' [B] winner where the word-end stage gave
-    it."""
+    frozen where frame_valid is False, written into `out` where given
+    (three tensors like the state, apart from it).  t is an int or a [1]
+    int32 tensor; `entry` the atoms' [B] winner where the word-end stage
+    gave it."""
     if dev.local_k >= 0:
         # K+1 shifted adds; ties keep the smallest span k
         cands = [_shift(score, k, LOG_ZERO) + dev.loc_lp[k]
@@ -452,22 +458,21 @@ def pass1_step(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
         # the envelope is per utterance: each row's own best
         thr = new_score.amax(dim=1, keepdim=True) - cfg.beam_width
         new_score = torch.where(new_score >= thr, new_score, LOG_ZERO)
-    fv = frame_valid[:, None]
-    return (torch.where(fv, new_score, score), torch.where(fv, nctx, ctx),
-            torch.where(fv, nprev, prev))
+    return pk.freeze(frame_valid, (new_score, nctx, nprev),
+                     (score, ctx, prev), out)
 
 
 def _frame(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
            cfg: Pass1Config, tabs, score: torch.Tensor, ctx: torch.Tensor,
            prev: torch.Tensor, t: torch.Tensor, n_frames: torch.Tensor,
-           rows: torch.Tensor, trellis: Trellis):
+           rows: torch.Tensor, trellis: Trellis, out) -> None:
     """Step t of pass 1 (t a [1] int32 tensor on the state's device,
     1..T): frame t-1's word ends from the [B, N] state go into row t-1
     of the [B, >= T, M] `trellis` tensors, and the state advances
     through frame t, whose [B, R] outprob rows are rows[:, t] (`rows`
-    holds the T frames and a zero frame after them).  `tabs` are the
-    kernel's `kernel_tables`, or None for the unfused step.  Returns
-    the new (score, ctx, prev)."""
+    holds the T frames and a zero frame after them), into `out`, the
+    other state set.  `tabs` are the kernel's `kernel_tables`, or None
+    for the unfused step."""
     row = rows.index_select(1, t)[:, 0]                           # [B, R]
     frame_valid = t < n_frames                                     # [B]
     winner = tabs is not None or _scalar_winner(dev, ngram, cfg)
@@ -475,11 +480,11 @@ def _frame(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
                                t if winner else None)
     if tabs is not None:
         loc, etot, sidx = tabs
-        new = pk.fused_step(score, ctx, prev, loc, etot, row, sidx, *entry,
-                            frame_valid)
+        pk.fused_step(score, ctx, prev, loc, etot, row, sidx, *entry,
+                      frame_valid, out)
     else:
-        new = pass1_step(dev, ngram, cfg, score, ctx, prev, atoms, row,
-                         frame_valid, t, entry)
+        pass1_step(dev, ngram, cfg, score, ctx, prev, atoms, row,
+                   frame_valid, t, entry, out)
     # atoms describe frame t-1, valid while t-1 < n_frames
     atom_ok = ((t - 1) < n_frames)[:, None] & (atoms.word >= 0)
     atoms = atoms._replace(
@@ -488,23 +493,36 @@ def _frame(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
     at = (t - 1).long()
     for buf, a in zip(trellis, atoms):
         buf.index_copy_(1, at, a[:, None])
-    return new
+
+
+def count_frames(n: int, copied: bool) -> None:
+    """Count n frames stepped on the tracer (`pass1.frames`), and as
+    `pass1.state_copies` where each copied its state back into the
+    fixed tensors it read (a stream chunk's and the sharded loop's)."""
+    trace.count("pass1.frames", n)
+    trace.count("pass1.state_copies", n if copied else 0)
 
 
 class _Loop:
-    """pass1_batch's frame loop over fixed tensors: the [B, N] state,
-    the step t, the [B] frame counts, the outprob rows of up to T frames
-    and a zero frame, and the [B, T, M] trellis.  `step` is one frame
-    and writes everything back in place, so a CUDA graph of it replays
-    the loop."""
+    """pass1_batch's frame loop over fixed tensors: two sets of the
+    [B, N] state (score, ctx, prev), the step t, the [B] frame counts,
+    the outprob rows of up to T frames and a zero frame, and the
+    [B, T, M] trellis.  `step(..., p)` is one frame from state set p
+    into set 1 - p, and writes everything else in place, so frames
+    alternate p = 0, 1, 0, ... from a load, no frame copies the state,
+    and CUDA graphs of the two steps, replayed in turn, replay the
+    loop."""
 
     def __init__(self, B: int, N: int, R: int, T: int, M: int, device):
-        self.score = torch.empty((B, N), dtype=torch.float32, device=device)
-        self.ctx = torch.empty((B, N), dtype=torch.int32, device=device)
-        self.prev = torch.empty_like(self.ctx)
+        self.states = tuple(
+            (torch.empty((B, N), dtype=torch.float32, device=device),
+             torch.empty((B, N), dtype=torch.int32, device=device),
+             torch.empty((B, N), dtype=torch.int32, device=device))
+            for _ in range(2))
         self.t = torch.empty(1, dtype=torch.int32, device=device)
         self.n_frames = torch.empty(B, dtype=torch.int32, device=device)
-        self.rows = torch.empty((B, T + 1, R), dtype=torch.float32,
+        # zeros: a capture of a one-frame batch steps a masked frame 2
+        self.rows = torch.zeros((B, T + 1, R), dtype=torch.float32,
                                 device=device)
         self.trellis = Trellis(*[torch.empty((B, T, M), dtype=dt,
                                              device=device)
@@ -512,23 +530,23 @@ class _Loop:
 
     def load(self, score0: torch.Tensor, out_ext: torch.Tensor,
              n_frames: torch.Tensor) -> None:
-        """Start a batch: pass 1's initial scores, empty payloads, t = 1,
-        the [B, T, R] outprob rows with a zero frame after them."""
+        """Start a batch: pass 1's initial scores and empty payloads in
+        state set 0, t = 1, the [B, T, R] outprob rows with a zero frame
+        after them."""
         T = out_ext.shape[1]
-        self.score.copy_(score0)
-        self.ctx.fill_(-1)
-        self.prev.fill_(-1)
+        score, ctx, prev = self.states[0]
+        score.copy_(score0)
+        ctx.fill_(-1)
+        prev.fill_(-1)
         self.t.fill_(1)
         self.n_frames.copy_(n_frames)
         self.rows[:, :T].copy_(out_ext)
         self.rows[:, T].zero_()
 
     def step(self, dev: DeviceNetwork, ngram: Optional[DeviceNgram],
-             cfg: Pass1Config, tabs) -> None:
-        new = _frame(dev, ngram, cfg, tabs, self.score, self.ctx, self.prev,
-                     self.t, self.n_frames, self.rows, self.trellis)
-        for buf, x in zip((self.score, self.ctx, self.prev), new):
-            buf.copy_(x)
+             cfg: Pass1Config, tabs, p: int) -> None:
+        _frame(dev, ngram, cfg, tabs, *self.states[p], self.t,
+               self.n_frames, self.rows, self.trellis, self.states[1 - p])
         self.t.add_(1)
 
 
@@ -539,16 +557,18 @@ def _eager(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
     B, T, R = out_ext.shape
     loop = _Loop(B, score0.shape[1], R, T, cfg.n_atoms, out_ext.device)
     loop.load(score0, out_ext, n_frames)
-    for _ in range(T):
-        loop.step(dev, ngram, cfg, tabs)
+    for i in range(T):
+        loop.step(dev, ngram, cfg, tabs, i % 2)
+    count_frames(T, False)
     return loop.trellis
 
 
-def _capture(cache: GraphCache, device, step) -> torch.cuda.CUDAGraph:
-    """Run `step` once on the cache's side stream, then capture it into
-    a CUDA graph there (the eager run plans and loads the kernel, whose
-    occupancy query and library load a capture cannot hold).  Raises if
-    the capture fails, and then drops the cache's pool and stream.
+def _capture(cache: GraphCache, device, *steps) -> list:
+    """Run each step once on the cache's side stream, then capture it
+    into a CUDA graph there, in turn, all into the cache's pool (the
+    eager run plans and loads the kernel, whose occupancy query and
+    library load a capture cannot hold) -> the graphs.  Raises if a
+    capture fails, and then drops the cache's pool and stream.
 
     The capture's error mode is "thread_local": a server builds engines
     on its command thread while another thread decodes, and in the
@@ -566,20 +586,24 @@ def _capture(cache: GraphCache, device, step) -> torch.cuda.CUDAGraph:
         cache.pool = torch.cuda.graph_pool_handle()
     side = cache.stream
     side.wait_stream(torch.cuda.current_stream(device))
-    graph = torch.cuda.CUDAGraph()
+    graphs = []
     try:
         with torch.cuda.stream(side):
-            step()
-            graph.capture_begin(cache.pool, capture_error_mode="thread_local")
-            try:
+            for step in steps:
                 step()
-            finally:
-                graph.capture_end()
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(cache.pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    step()
+                finally:
+                    graph.capture_end()
+                graphs.append(graph)
     except BaseException:
         cache.pool = cache.stream = None
         raise
     torch.cuda.current_stream(device).wait_stream(side)
-    return graph
+    return graphs
 
 
 #: the kernels' wrappers a captured step calls, whose launches a replay
@@ -588,43 +612,52 @@ KERNELS = (pk, we)
 
 
 class _Graph(NamedTuple):
-    """A captured frame step: the graph, the fixed tensors it reads and
-    writes, the launches one replay makes of each of `KERNELS`, and the
-    tables it reads that the network does not hold (the kernel's padded
-    tables and the N-gram, whose id is part of the key)."""
+    """A captured loop body: its graphs, replayed in turn from the first
+    (the two steps of `_Loop`, one a state set; a stream's one chunk
+    row), the fixed tensors they read and write, the launches a replay
+    makes of each of `KERNELS` (the same for every graph of the body),
+    and the tables they read that the network does not hold (the
+    kernel's padded tables and the N-gram, whose id is part of the
+    key)."""
 
-    graph: torch.cuda.CUDAGraph
+    graphs: tuple
     loop: object
     launches: tuple
     tabs: Optional[tuple]
     ngram: Optional[DeviceNgram]
 
     def replay(self, n: int) -> None:
-        """Replay the graph n times and count its launches."""
-        for _ in range(n):
-            self.graph.replay()
+        """n replays, the graphs in turn from the first, and count their
+        launches."""
+        for i in range(n):
+            self.graphs[i % len(self.graphs)].replay()
         for m, k in zip(KERNELS, self.launches):
             m.LAUNCHES += k * n
 
 
-def _capture_graph(cache: GraphCache, device, loop, step, tabs,
+def _capture_graph(cache: GraphCache, device, loop, steps, tabs,
                    ngram) -> _Graph:
-    """`_capture` of `step` over `loop`'s fixed tensors, with the
-    launches the captured step holds."""
+    """`_capture` of `steps` over `loop`'s fixed tensors, with the
+    launches a captured step holds."""
     before = [m.CAPTURED for m in KERNELS]
-    graph = _capture(cache, device, step)
-    return _Graph(graph, loop, tuple(m.CAPTURED - b
-                                     for m, b in zip(KERNELS, before)),
+    graphs = _capture(cache, device, *steps)
+    return _Graph(tuple(graphs), loop,
+                  tuple((m.CAPTURED - b) // len(steps)
+                        for m, b in zip(KERNELS, before)),
                   tabs, ngram)
 
 
 def _graphed(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
              cfg: Pass1Config, tabs, score0: torch.Tensor,
              out_ext: torch.Tensor, n_frames: torch.Tensor) -> Trellis:
-    """pass1_batch on a CUDA card: T replays of a captured frame step.
-    The first batch of a key runs step 1 eagerly and captures the step
-    (`_capture`), then replays it T-1 times; nothing falls back to the
-    eager loop."""
+    """pass1_batch on a CUDA card: the captured frame steps, from state
+    set 0 to 1 and back in turn, once a frame.  The first batch of a key
+    captures the two steps (`_capture`, which runs each once first:
+    frames 1 and 2, the second masked where T = 1, writing no trellis
+    row below T and taken back out of the kernels' LAUNCHES), which
+    leaves the state in set 0, then replays the other T - 2 frames; a
+    later batch loads and replays T.  Nothing falls back to the eager
+    loop."""
     B, T, R = out_ext.shape
     Np, M = score0.shape[1], cfg.n_atoms
     device = out_ext.device
@@ -638,15 +671,22 @@ def _graphed(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
             loop = _Loop(B, Np, R, cap, M, device)
             loop.load(score0, out_ext, n_frames)
             entry = cache.entries[key] = _capture_graph(
-                cache, device, loop, lambda: loop.step(dev, ngram, cfg, tabs),
-                tabs, ngram)
+                cache, device, loop,
+                [lambda p=p: loop.step(dev, ngram, cfg, tabs, p)
+                 for p in (0, 1)], tabs, ngram)
             cache.captures += 1
             cache.capture_s += time.perf_counter() - t0
-            replays = T - 1
+            assert MIN_T_BUCKET >= 2, "frame 2 needs a row and a slot"
+            done = 2
+            # a one-frame batch's masked frame 2 is capture work, as the
+            # captured launches are: LAUNCHES counts the batch's frames
+            for m, k in zip(KERNELS, entry.launches):
+                m.LAUNCHES -= k * max(done - T, 0)
         else:
             entry.loop.load(score0, out_ext, n_frames)
-            replays = T
-        entry.replay(replays)
+            done = 0
+        entry.replay(max(T - done, 0))
+        count_frames(T, False)
         return Trellis(*[a[:, :T].clone() for a in entry.loop.trellis])
 
 
@@ -767,6 +807,7 @@ def _stream_eager(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
     loop.load(state, out_chunk, n_valid)
     for _ in range(C):
         loop.step(dev, ngram, cfg)
+    count_frames(C, True)
     return loop.result(C)
 
 
@@ -794,12 +835,13 @@ def _stream_graphed(dev: DeviceNetwork, ngram: Optional[DeviceNgram],
             loop = _StreamLoop(N, R, M, cap, device)
             loop.load(state, out_chunk, n_valid)
             entry = cache.entries[key] = _capture_graph(
-                cache, device, loop, lambda: loop.step(dev, ngram, cfg),
+                cache, device, loop, [lambda: loop.step(dev, ngram, cfg)],
                 None, ngram)
             cache.captures += 1
             cache.capture_s += time.perf_counter() - t0
         entry.loop.load(state, out_chunk, n_valid)
         entry.replay(C)
+        count_frames(C, True)
         return entry.loop.result(C)
 
 

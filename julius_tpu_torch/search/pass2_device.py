@@ -1003,7 +1003,7 @@ def _graphed(tabs, ng, iwcd2, d: _Dims, x: _Inputs):
                     rounds = _Rounds(tabs, ng, iwcd2, d, x)
                     rounds.load(x)
                     before = sk.CAPTURED
-                    graph = _capture(cache, device, rounds.step)
+                    graph, = _capture(cache, device, rounds.step)
                     entry = _RoundGraph(graph, rounds, sk.CAPTURED - before,
                                         ng, iwcd2)
                     capture_s = time.perf_counter() - t0

@@ -110,6 +110,15 @@ COUNTERS = {
                      "kernel's launches on a card",
     "pseudo.kernel": "dnn.pseudo: launches of the pseudo kernel "
                      "(ops/pseudo_kernel.py)",
+    "pass1.frames": "pass 1's frames stepped, counted on the host at the "
+                    "replays and in the eager loops (search/pass1.py "
+                    "count_frames): a batch's T, a stream chunk's rows, "
+                    "a sharded utterance's T",
+    "pass1.state_copies": "of those, the frames that copied their [B, N] "
+                          "state back into the fixed state they read: a "
+                          "stream chunk's and the sharded loop's; none of "
+                          "pass1_batch's, whose frames alternate two "
+                          "state sets",
 }
 
 

@@ -157,7 +157,7 @@ def graph_path(monkeypatch):
     def capture(cache, device, step):
         captures.append(device)
         step()
-        return types.SimpleNamespace(replay=step)
+        return [types.SimpleNamespace(replay=step)]
 
     monkeypatch.setattr(talign, "_eager", talign._graphed)
     monkeypatch.setattr(talign, "_capture", capture)

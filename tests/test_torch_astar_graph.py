@@ -238,7 +238,7 @@ def graph_path(monkeypatch):
     def capture(cache, device, step):
         seen.captures.append(device)
         step()
-        return types.SimpleNamespace(replay=step)
+        return [types.SimpleNamespace(replay=step)]
 
     monkeypatch.setattr(tp2d, "_eager", tp2d._graphed)
     monkeypatch.setattr(tp2d, "_capture", capture)

@@ -1523,7 +1523,7 @@ def assert_same_trellis(a, b):
                                     "gather"])
 def test_pass1_graph_equals_eager_oracle(graph_cases, branch):
     """The graphed trellis is bit-equal to the eager loop's; a second
-    batch of other lengths and values replays the same graph and equals
+    batch of other lengths and values replays the same graphs and equals
     its own eager loop; the beam-update kernel's launches, counted on
     replays, are one a frame on the kernel path and none elsewhere, the
     word-end kernel's one a frame on every branch."""
@@ -1568,6 +1568,43 @@ def test_pass1_graph_longer_batch_takes_a_new_capacity(graph_cases):
         assert launches == o.shape[1]
     assert dev.graphs.captures == 2
     assert sorted(k[-1] for k in dev.graphs.entries) == [cap, 2 * cap]
+
+
+@pytest.fixture(scope="module")
+def envr20k_like():
+    """A 20k-word tied-triphone network at envr20k's size (299,718
+    nodes, 299,720 on the kernel's padded axis, M = 128), its DNN
+    small: pass 1 reads only the network."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    eng, _ = synth.lvcsr_engine(device="cuda", hidden=128, n_layers=1)
+    return eng
+
+
+@pytest.mark.parametrize("use_kernel", [True, False],
+                         ids=["fused", "unfused"])
+def test_pass1_graph_equals_eager_at_envr20k_size(envr20k_like, use_kernel):
+    """B = 16 at envr20k's node count: batches of odd, even and odd T
+    through one cache entry, each graphed trellis bit-equal to the eager
+    loop's and one beam-update launch a frame on the kernel path."""
+    eng = envr20k_like
+    net = dataclasses.replace(eng.dev_net)          # a cache of its own
+    assert tp1.fused_ok(net, eng.p1_cfg)
+    assert tp1.kernel_tables(net)[0].shape[1] > 1 << 18
+    case = (net, eng.ngram_dev, eng.p1_cfg, use_kernel)
+    R = eng.hmm.n_states + eng._pseudo[2]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rng = np.random.default_rng(5)
+    for T in (37, 48, 33):
+        rows = torch.randn((16, T, R), generator=g, device="cuda") * 3 - 8
+        lens = rng.integers(T // 2, T + 1, 16).astype(np.int32)
+        lens[0] = T
+        got, n = graph_run(case, rows, lens)
+        want, n_eager = graph_run(case, rows, lens, eager=True)
+        assert_same_trellis(got, want)
+        assert n == n_eager == (T if use_kernel else 0)
+        assert (want.word >= 0).sum() > 100
+    assert net.graphs.captures == 1
 
 
 def test_stable_sort_captures(cuda):

@@ -89,6 +89,38 @@ def test_fused_step_launches_on_its_tensors_card(runtime, monkeypatch):
     assert tpk.LAUNCHES == before + 1
 
 
+def test_fused_step_writes_the_given_state_set(runtime, monkeypatch):
+    """Given out=, the kernel's output pointers are out's, nothing is
+    allocated, and out is returned; an out that shares memory with the
+    state it steps is refused."""
+    args_at_launch = []
+
+    def launch(*a):
+        args_at_launch.append(a)
+        return runtime.launch()
+
+    lib = type("Lib", (), {"pass1_step_launch": staticmethod(launch)})
+    monkeypatch.setattr(tpk, "build", lambda: lib)
+    monkeypatch.setattr(tpk, "_plan", lambda dev, B, N, K1: tpk.launch_plan(
+        B, N, K1))
+    d = make_step_inputs(3, 2, 300, 1)
+    args = [on_card(d[k]) for k in ("score", "ctx", "prev", "loc", "et",
+                                     "row", "sidx", "ent", "ectx", "eprev",
+                                     "fv")]
+    out = tuple(on_card(torch.empty_like(t)) for t in args[:3])
+
+    def refuse(*a, **kw):
+        raise AssertionError("fused_step allocated an output")
+
+    monkeypatch.setattr(torch, "empty_like", refuse)
+    got = tpk.fused_step(*args, out=out)
+    assert all(g is o for g, o in zip(got, out))
+    assert args_at_launch[0][13:16] == tuple(o.data_ptr() for o in out)
+    with pytest.raises(ValueError, match="shares memory"):
+        tpk.fused_step(*args, out=(out[0], args[1], out[2]))
+    assert len(args_at_launch) == 1
+
+
 def test_scan_core_win_launches_on_its_tensors_card(runtime, monkeypatch):
     lib = type("Lib", (), {"scan_win_launch": staticmethod(runtime.launch)})
     monkeypatch.setattr(tsk, "build", lambda: lib)

@@ -11,11 +11,15 @@ ragged lengths (frames past an utterance's end included), two ways:
 
   * the eager loop, as the CPU runs it;
   * the graph path's own bookkeeping (`_graphed`: the fixed tensors of a
-    power-of-two frame capacity, the eager first frame, T-1 replays, the
-    cache of graphs), with the capture replaced by a stand-in whose
-    replay runs the step.  A second batch of other lengths and values
-    reuses the first batch's entry, a longer one takes a new capacity,
-    and each equals the eager loop on its own bit for bit.
+    power-of-two frame capacity with two state sets, the two captured
+    steps from set 0 to 1 and back, each run once by the capture as
+    frames 1 and 2, T - 2 replays of the steps in turn, the cache of
+    graphs), with the capture replaced by a stand-in whose replays run
+    the steps.  A second batch of other lengths and values reuses the
+    first batch's entry, a longer one takes a new capacity, and each
+    equals the eager loop on its own bit for bit, at T = 1, odd and
+    even T and T equal to the capacity, and with batches of either
+    parity through one entry.
 
 Branches: the kernel path (the reference's Pallas kernel through its
 interpreter, the port's plain version of the kernel), the unfused
@@ -71,14 +75,16 @@ def port(teng, out, lens, use_kernel):
 @pytest.fixture
 def graph_path(monkeypatch):
     """pass1_batch on the CPU through `_graphed`, its capture a stand-in
-    that runs the step once (the eager first frame) and replays it by
-    running it again; -> the list of captures made."""
+    that runs each step once (the eager frame before each capture) and
+    replays a step by running it again; -> the list of captures made
+    (one a call, whatever its number of steps)."""
     captures = []
 
-    def capture(cache, device, step):
+    def capture(cache, device, *steps):
         captures.append(device)
-        step()
-        return types.SimpleNamespace(replay=step)
+        for step in steps:
+            step()
+        return [types.SimpleNamespace(replay=step) for step in steps]
 
     monkeypatch.setattr(tp1, "_eager", tp1._graphed)
     monkeypatch.setattr(tp1, "_capture", capture)
@@ -153,6 +159,103 @@ def test_longer_batch_takes_a_new_capacity(graph_path, monkeypatch):
     monkeypatch.undo()
     for (o, n), got in zip(data, graphed):
         same_trellis(got, port(teng, o, n, True))
+
+
+def frames_of(out, lens, T):
+    """The first T frames of a batch, each utterance cut to them, the
+    last ones shorter (at T > 2)."""
+    lens = np.minimum(lens, T) - np.minimum([0, 1, 3], T - 1)
+    return np.ascontiguousarray(out[:, :T]), lens.astype(np.int32)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False],
+                         ids=["fused", "ngram_unfused"])
+@pytest.mark.parametrize("T", [1, 7, 10, tp1.MIN_T_BUCKET])
+def test_graphed_equals_eager_at_every_frame_count(graph_path, monkeypatch,
+                                                   T, use_kernel):
+    """T = 1, an odd and an even T and T equal to the capacity, each the
+    first batch of its entry (the capture's two eager steps are its
+    first frames; at T = 1 the second is a masked frame) and again
+    through that entry: the graph path ends on either state set, and its
+    trellis equals the eager loop's bit for bit."""
+    jeng, teng = build_engines("envelope", dict(beam_width=0))
+    (out, lens), _ = batches(jeng, NGRAM_SENTS)
+    out, lens = frames_of(out, lens, T)
+    assert tp1.MIN_T_BUCKET == max(tp1.MIN_T_BUCKET,
+                                   1 << (T - 1).bit_length())
+    calls = []
+    real = tp1._frame
+    monkeypatch.setattr(tp1, "_frame", lambda *a: calls.append(1) or
+                        real(*a))
+    got = port(teng, out, lens, use_kernel)
+    assert len(calls) == max(T, 2)
+    calls.clear()
+    again = port(teng, out, lens, use_kernel)
+    assert len(calls) == T and len(graph_path) == 1
+    monkeypatch.undo()
+    want = port(teng, out, lens, use_kernel)
+    same_trellis(got, want)
+    same_trellis(again, want)
+    assert want.word.shape == (3, T, teng.p1_cfg.n_atoms)
+    assert (want.word >= 0).sum() > 0 or T == 1   # no word ends at frame 0
+
+
+@pytest.mark.parametrize("T", [1, 3])
+def test_launches_count_the_frames_of_a_capturing_batch(graph_path,
+                                                        monkeypatch, T):
+    """The kernels' LAUNCHES, with a stand-in that counts a launch of
+    each kernel a frame run from Python and a captured one a captured
+    step: a batch that captures its entry counts T frames of launches
+    (at T = 1 the capture's masked frame 2 is left out), and so does a
+    batch that replays it."""
+    jeng, teng = build_engines("envelope", dict(beam_width=0))
+    (out, lens), _ = batches(jeng, NGRAM_SENTS)
+    out, lens = frames_of(out, lens, T)
+    replaying = []
+    real = tp1._frame
+
+    def frame(*a):
+        if not replaying:
+            for m in tp1.KERNELS:
+                m.LAUNCHES += 1
+        return real(*a)
+
+    def capture(cache, device, *steps):
+        for step in steps:
+            step()
+            for m in tp1.KERNELS:
+                m.CAPTURED += 1
+        replaying.append(1)
+        return [types.SimpleNamespace(replay=step) for step in steps]
+
+    monkeypatch.setattr(tp1, "_frame", frame)
+    monkeypatch.setattr(tp1, "_capture", capture)
+    for m in tp1.KERNELS:
+        monkeypatch.setattr(m, "LAUNCHES", 0)
+        monkeypatch.setattr(m, "CAPTURED", 0)
+    port(teng, out, lens, True)
+    assert [m.LAUNCHES for m in tp1.KERNELS] == [T, T]
+    port(teng, out, lens, True)
+    assert [m.LAUNCHES for m in tp1.KERNELS] == [2 * T, 2 * T]
+
+
+def test_one_entry_takes_batches_of_either_parity(graph_path, monkeypatch):
+    """Batches of odd, even, odd and T = capacity frames through one
+    entry: no batch starts from the state set the last one ended on,
+    and each trellis is the eager loop's."""
+    jeng, teng = build_engines("envelope", dict(beam_width=0))
+    (out, lens), (out2, lens2) = batches(jeng, NGRAM_SENTS)
+    cap = tp1.MIN_T_BUCKET
+    data = [frames_of(out, lens, 9), frames_of(out2, lens2, 12),
+            frames_of(out2, lens2, 11), frames_of(out, lens, cap),
+            frames_of(out, lens, 9)]
+    graphed = [port(teng, o, n, True) for o, n in data]
+    assert len(graph_path) == 1
+    assert [k[-1] for k in teng.dev_net.graphs.entries] == [cap]
+    monkeypatch.undo()
+    for (o, n), got in zip(data, graphed):
+        same_trellis(got, port(teng, o, n, True))
+    same_trellis(graphed[0], graphed[-1])
 
 
 def test_cpu_never_reaches_cuda_graphs(monkeypatch):

@@ -14,6 +14,7 @@ Then the CUDA kernel's launch plan and a numpy mirror of its lanes
 padded for the kernel against the unpadded run and the reference."""
 
 import dataclasses
+import types
 
 import numpy as np
 import jax
@@ -74,6 +75,61 @@ def test_cpu_tensors_take_the_plain_version():
     before = tpk.LAUNCHES
     assert_same_step(run_step(d, fn=tpk.fused_step), run_step(d))
     assert tpk.LAUNCHES == before
+
+
+def scores_off(**kw):
+    s, c, p = tpk.fused_step_plain(**kw)
+    return s.add_(1.0), c, p
+
+
+def nodes_unwritten(**kw):
+    out = kw.pop("out")
+    new = tpk.fused_step_plain(**kw)
+    out[0][:, :350].copy_(new[0][:, :350])
+    for o, n in zip(out[1:], new[1:]):
+        o.copy_(n)
+    return out
+
+
+def ctx_off(**kw):
+    s, c, p = tpk.fused_step_plain(**kw)
+    return s, c.add_(1), p
+
+
+@pytest.mark.parametrize("kernel", [tpk.fused_step_plain, scores_off,
+                                    nodes_unwritten, ctx_off],
+                         ids=["right", "scores_off", "nodes_unwritten",
+                              "ctx_off"])
+def test_smoke_holds_a_kept_step_call_to_the_plain_version(monkeypatch,
+                                                           kernel):
+    """chip_smoke.py's `keep_calls` and `compare_step` on a step call
+    that writes the state set it is given, as pass 1's frame makes it:
+    the kept copy is not the set the loop goes on to overwrite, and each
+    side of the comparison writes a set of its own, so a kernel that
+    computes wrong values or leaves nodes unwritten is caught."""
+    import chip_smoke
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    d = make_step_inputs(5, 2, 700, 1)
+    t = {k: torch.tensor(v) for k, v in d.items()}
+    args = [t[k] for k in ("score", "ctx", "prev", "loc", "et", "row",
+                           "sidx", "ent", "ectx", "eprev", "fv")]
+    live = tuple(torch.empty_like(x) for x in args[:3])
+    store = {"pass1_step": {}}
+    step = chip_smoke.keep_calls(store, "pass1_step", tpk.fused_step_plain,
+                                 tpk.fused_step_plain,
+                                 lambda a: tuple(a["score"].shape))
+    want = [x.clone() for x in step(*args, live)]
+    (kept,) = store["pass1_step"][(2, 700)][1]
+    assert not {k.data_ptr() for k in kept["out"]} & {
+        x.data_ptr() for x in live}
+    pk = types.SimpleNamespace(fused_step=kernel,
+                               fused_step_plain=tpk.fused_step_plain)
+    if kernel is tpk.fused_step_plain:
+        err, got = chip_smoke.compare_step(pk, kept)
+        assert err == 0 and all(torch.equal(g, w) for g, w in zip(got, want))
+    else:
+        with pytest.raises(RuntimeError, match="kernel"):
+            chip_smoke.compare_step(pk, kept)
 
 
 # ---- the kernel's launch plan and a numpy mirror of its schedule

@@ -110,7 +110,7 @@ def stand_in_capture(monkeypatch):
     def capture(cache, device, step):
         captured.append(device)
         step()
-        return types.SimpleNamespace(replay=step)
+        return [types.SimpleNamespace(replay=step)]
 
     monkeypatch.setattr(tsp, "_eager", tsp._graphed)
     monkeypatch.setattr(tsp, "_capture", capture)

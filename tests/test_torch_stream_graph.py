@@ -167,7 +167,7 @@ def test_interleaved_sessions_share_one_loop(flagship,  # noqa: F811
     def capture(cache, device, step):
         captures.append(device)
         step()
-        return types.SimpleNamespace(replay=step)
+        return [types.SimpleNamespace(replay=step)]
 
     monkeypatch.setattr(tp1, "_stream_eager", tp1._stream_graphed)
     monkeypatch.setattr(tp1, "_capture", capture)

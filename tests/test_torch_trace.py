@@ -10,7 +10,9 @@ record is one `julius.<name>` range with the same nesting and about the
 same duration; threads keep their own stacks; and the results are the
 same bit for bit with the tracer on or off.  The A*'s graph path, run
 on the CPU with a stand-in capture, records its capture and one
-`astar.wait` a host read of the stop flag.
+`astar.wait` a host read of the stop flag.  Pass 1 counts its frames
+and the frames that copied their state back: none of `pass1_batch`'s,
+eager or graphed, and every row of a stream chunk.
 """
 
 import contextlib
@@ -24,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from julius_tpu_torch.search import pass1 as tp1
 from julius_tpu_torch.search import pass2_device as tp2d
 from julius_tpu_torch.tools import synth as tsynth
 from julius_tpu_torch.utils import trace
@@ -311,7 +314,7 @@ def graph_path(monkeypatch):
     by running it again, and the stop flag read from the CPU tensor."""
     def capture(cache, device, step):
         step()
-        return types.SimpleNamespace(replay=step)
+        return [types.SimpleNamespace(replay=step)]
 
     monkeypatch.setattr(tp2d, "_eager", tp2d._graphed)
     monkeypatch.setattr(tp2d, "_capture", capture)
@@ -337,3 +340,65 @@ def test_graph_path_records_its_capture_and_waits(decoding, graph_path,
         n = Counter(r.name for r in records)
         assert n["astar.capture"] == captured
         assert n["astar.wait"] == stats["waits"] >= 1
+
+
+def pass1_inputs(eng, feats, lens):
+    with torch.no_grad():
+        out = eng._outprob(torch.from_numpy(feats))
+    return out, torch.as_tensor(lens)
+
+
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graphed"])
+def test_pass1_counts_frames_and_no_state_copies(decoding, tracer,
+                                                 monkeypatch, graphed):
+    """pass1_batch counts its T frames, and no state copy, in the eager
+    loop and through `_graphed` (a stand-in capture, whose eager runs
+    of the two steps are no frames of the batch), a batch again through
+    the same entry likewise."""
+    eng, feats, lens = decoding
+    out, n = pass1_inputs(eng, feats, lens)
+
+    def capture(cache, device, *steps):
+        for step in steps:
+            step()
+        return [types.SimpleNamespace(replay=step) for step in steps]
+
+    if graphed:
+        monkeypatch.setattr(tp1, "_eager", tp1._graphed)
+        monkeypatch.setattr(tp1, "_capture", capture)
+        monkeypatch.setattr(torch.cuda, "device",
+                            lambda dev: contextlib.nullcontext())
+        eng.dev_net.graphs.entries.clear()
+    trace.drain_counts()
+    for _ in range(2):
+        tp1.pass1_batch(eng.dev_net, eng.ngram_dev, eng.p1_cfg, out, n)
+        assert trace.drain_counts() == {"pass1.frames": out.shape[1],
+                                        "pass1.state_copies": 0}
+    assert len(eng.dev_net.graphs.entries) == int(graphed)
+    eng.dev_net.graphs.entries.clear()
+
+
+def test_stream_chunk_counts_its_state_copies(decoding, tracer):
+    """A stream chunk counts each of its rows as a frame and as a state
+    copy, its padding rows past n_valid too."""
+    eng, feats, lens = decoding
+    out, _ = pass1_inputs(eng, feats, lens)
+    state = tp1.pass1_stream_start(eng.dev_net, eng.p1_cfg, out[:1, 0])
+    trace.drain_counts()
+    tp1.pass1_stream_chunk(eng.dev_net, eng.ngram_dev, eng.p1_cfg, state,
+                           out[0, 1:9], 6)
+    assert trace.drain_counts() == {"pass1.frames": 8,
+                                    "pass1.state_copies": 8}
+
+
+def test_pass1_counts_nothing_with_the_tracer_off(decoding):
+    eng, feats, lens = decoding
+    trace.enable(False)
+    trace.drain_counts()
+    out, n = pass1_inputs(eng, feats, lens)
+    tp1.pass1_batch(eng.dev_net, eng.ngram_dev, eng.p1_cfg, out, n)
+    state = tp1.pass1_stream_start(eng.dev_net, eng.p1_cfg, out[:1, 0])
+    tp1.pass1_stream_chunk(eng.dev_net, eng.ngram_dev, eng.p1_cfg, state,
+                           out[0, 1:9], 8)
+    eng.decode_features(feats, lens)
+    assert trace.drain_counts() == {}
